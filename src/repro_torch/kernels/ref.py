@@ -1,0 +1,97 @@
+"""Plain PyTorch versions of the three count-table kernels.
+
+They are the kernels' oracles: the CPU runs them (every wrapper routes a
+CPU tensor here), and ``chip_smoke.py`` holds each CUDA kernel against its
+plain version on the card.  Tables are ``[rows, B, W]`` (vertex-major, one
+``W``-wide block per coloring); every function works on the trailing
+column axis and treats the leading axes as rows.
+
+Large intermediates are chunked to about 2^27 elements, as the reference's
+XLA combine is (``repro/kernels/ops.py:529-556``): at the widths of the
+u12-2 template on a 2^20-vertex graph, an unchunked ``[rows, S, J]`` gather
+or ``[E, B*W]`` edge gather would not fit on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ELEMENT_BUDGET", "spmm_segment_ref", "color_combine_ref", "fused_count_ref"]
+
+#: bound on the elements of one chunked gather intermediate
+ELEMENT_BUDGET = 1 << 27
+
+
+def spmm_segment_ref(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Neighbor sum ``out[v] = sum_{indptr[v] <= e < indptr[v+1]} table[indices[e]]``.
+
+    ``indptr`` has ``rows + 1`` entries (offsets into ``indices``; the first
+    need not be 0, so a slice of a larger CSR works); ``table`` is
+    ``[C, ...]``.  Returns ``[rows, ...]`` via ``index_add_`` over chunks of
+    edges.
+    """
+    rows = indptr.numel() - 1
+    flat = table.reshape(table.shape[0], -1)
+    width = flat.shape[1]
+    out = torch.zeros((rows, width), dtype=table.dtype, device=table.device)
+    base = int(indptr[0])
+    deg = torch.diff(indptr)
+    dst = torch.repeat_interleave(torch.arange(rows, device=table.device), deg)
+    n_edges = dst.numel()
+    chunk = max(1, ELEMENT_BUDGET // max(width, 1))
+    for e0 in range(0, n_edges, chunk):
+        e1 = min(e0 + chunk, n_edges)
+        src = indices[base + e0 : base + e1].long()
+        out.index_add_(0, dst[e0:e1], flat[src])
+    return out.reshape((rows,) + tuple(table.shape[1:]))
+
+
+def color_combine_ref(
+    left: torch.Tensor, m: torch.Tensor, idx1: torch.Tensor, idx2: torch.Tensor
+) -> torch.Tensor:
+    """``out[r, s] = sum_j left[r, idx1[s, j]] * m[r, idx2[s, j]]``.
+
+    ``left`` is ``[..., A]`` and ``m`` ``[..., Bw]`` with equal leading
+    axes; ``idx1``/``idx2`` are the ``[S, J]`` split tables.  Returns
+    ``[..., S]``, chunked over rows so the ``[rows, S, J]`` gather stays
+    within :data:`ELEMENT_BUDGET`.
+    """
+    lead = left.shape[:-1]
+    l2 = left.reshape(-1, left.shape[-1])
+    m2 = m.reshape(-1, m.shape[-1])
+    s, j = idx1.shape
+    rows = l2.shape[0]
+    out = torch.empty((rows, s), dtype=left.dtype, device=left.device)
+    chunk = max(1, ELEMENT_BUDGET // max(s * j, 1))
+    for r0 in range(0, rows, chunk):
+        r1 = min(r0 + chunk, rows)
+        out[r0:r1] = (l2[r0:r1][:, idx1] * m2[r0:r1][:, idx2]).sum(-1)
+    return out.reshape(tuple(lead) + (s,))
+
+
+def fused_count_ref(
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    idx1: torch.Tensor,
+    idx2: torch.Tensor,
+    *,
+    row_block: int = 4096,
+) -> torch.Tensor:
+    """``color_combine_ref(left, spmm_segment_ref(indptr, indices, right), ...)``
+    computed ``row_block`` destination rows at a time.
+
+    The neighbor sum exists only as one ``[row_block, ...]`` block at a time
+    and never as a whole ``[rows, B, W]`` table: the plain counterpart of
+    the fused kernel's shared-memory block.  ``left`` is ``[rows, ..., A]``
+    with ``rows = indptr.numel() - 1``.
+    """
+    rows = indptr.numel() - 1
+    out = torch.empty(tuple(left.shape[:-1]) + (idx1.shape[0],), dtype=left.dtype,
+                      device=left.device)
+    for r0 in range(0, rows, row_block):
+        r1 = min(r0 + row_block, rows)
+        m_blk = spmm_segment_ref(indptr[r0 : r1 + 1], indices, right)
+        out[r0:r1] = color_combine_ref(left[r0:r1], m_blk, idx1, idx2)
+    return out

@@ -1,0 +1,90 @@
+"""Neighbor-sum SpMM ``M = A @ C`` over the CSR: CUDA kernel, plain version, launch count.
+
+Replaces ``spmm_edge_tile_pallas`` (``src/repro/kernels/spmm_edgetile.py``).
+The TPU kernel cuts the edge list into uniform ``tile_size``-edge slabs per
+128-row destination block, padded to the largest block's slab count, keeps
+the whole table resident in VMEM and scatters each slab with a one-hot MXU
+matmul.  None of that carries over: the padding grows with degree skew
+(every block pays for the densest one), the table (gigabytes at u12-2
+widths) does not fit any on-chip memory, and a float32 table may not
+go through the tensor cores (counts must stay exact).
+
+Kernel (``csrc/spmm_edgetile.cu``): the plan keeps the graph's CSR
+(``indptr``, ``indices`` in destination order).  One warp owns one
+destination row of one coloring; lanes own the row's ``W`` columns and add
+``table[indices[e], b, c]`` over the row's edges in CSR order with plain
+float32 adds.  No atomics, so the result is deterministic; rows without
+edges (zero-degree, sentinel and pad rows) come out exactly zero.
+
+Bound on the H100: bytes.  Every edge gathers one ``W``-float row segment
+of the source table, ``E_dir * B * W * 4`` bytes, against ``E_dir * B * W``
+adds (0.25 flop/byte, far below the card's balance point).  The design
+makes each gather a contiguous, coalesced ``B*W``-float run of a
+vertex-major table, so those bytes come in whole sectors; the least the
+card could do is read the table and the CSR once and write ``out`` once.
+Balancing hub rows (the paper's neighbor-list partitioning, §3.3) is
+later kernel work: a max-degree row is walked by one warp today.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import spmm_segment_ref
+
+__all__ = ["spmm_edge_tile", "spmm_edge_tile_plain"]
+
+#: the plain version the wrapper takes for a CPU tensor
+spmm_edge_tile_plain = spmm_segment_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``out[v, b, :] = sum_{e in row v} table[indices[e], b, :]``.
+
+    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32 below ``rows``,
+    ``table`` float32 ``[rows, B, W]`` (the adjacency is square); returns
+    ``[rows, B, W]``.  A CPU table runs the plain version; a CUDA table
+    launches the kernel or raises.
+    """
+    if table.shape[0] != indptr.numel() - 1:
+        raise ValueError(f"table has {table.shape[0]} rows, the CSR has {indptr.numel() - 1}")
+    if table.device.type == "cpu":
+        return spmm_edge_tile_plain(indptr, indices, table)
+    _check_cuda(table, (indptr, torch.int64), (indices, torch.int32))
+    rows = indptr.numel() - 1
+    _, b, w = table.shape
+    out = torch.empty((rows, b, w), dtype=torch.float32, device=table.device)
+    fn = _build.kernel_fn("spmm_edgetile", "spmm_edgetile_launch", _ARGTYPES)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(indptr.data_ptr(), indices.data_ptr(), table.data_ptr(), out.data_ptr(),
+                 rows, b, w, stream)
+    _build.check(err, "spmm_edgetile_launch")
+    spmm_edge_tile.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+spmm_edge_tile.launches = 0
+
+
+def _check_cuda(table: torch.Tensor, *index_args) -> None:
+    """The kernels' argument contract; raises on anything they do not take."""
+    if table.device.type != "cuda":
+        raise ValueError(f"kernel tables must be on a CUDA device or the CPU, got {table.device}")
+    if table.dtype != torch.float32 or table.dim() != 3 or not table.is_contiguous():
+        raise ValueError(
+            f"kernel tables are contiguous float32 [rows, B, W]; got {table.dtype} "
+            f"{tuple(table.shape)} contiguous={table.is_contiguous()}"
+        )
+    for t, dtype in index_args:
+        if t.device != table.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"index tensor must be contiguous {dtype} on {table.device}; got "
+                f"{t.dtype} on {t.device}"
+            )

@@ -1,0 +1,180 @@
+"""The port's single-device engine (CPU, plain versions) against the JAX
+reference's ``colorful_map_count`` (``impl="xla"``) and the brute-force
+oracle, on the same CSR and the same fixed colorings."""
+
+import contextlib
+import io
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import build_counting_plan as ref_build_plan
+from repro.core import colorful_map_count as ref_colorful_map_count
+from repro.core.graphs import Graph as RefGraph
+from repro_torch.core import templates
+from repro_torch.core.brute_force import count_colorful_maps
+from repro_torch.core.count_engine import (
+    build_counting_plan,
+    colorful_map_count,
+    count_fn,
+    draw_colorings,
+)
+from repro_torch.core.graphs import erdos_renyi, rmat
+from repro_torch.launch import count as launch_count
+
+
+def _ref_tree(tree):
+    from repro.core.templates import Tree
+
+    return Tree(tree.n, tree.edges, tree.name)
+
+
+def _ref_count(g, tree, coloring, root=0):
+    plan = ref_build_plan(RefGraph(g.n, g.indptr, g.indices), _ref_tree(tree), root=root,
+                          impl="xla")
+    col = np.zeros(plan.n_pad, np.int32)
+    col[: g.n] = coloring
+    return float(ref_colorful_map_count(plan, jnp.asarray(col)))
+
+
+def _port_counts(g, tree, coloring, root=0):
+    return [
+        float(colorful_map_count(build_counting_plan(g, tree, root=root, fuse=f, device="cpu"),
+                                 coloring))
+        for f in (False, True)
+    ]
+
+
+TREES = {
+    "path3": lambda: templates.path_tree(3),
+    "path4": lambda: templates.path_tree(4),
+    "star4": lambda: templates.star_tree(4),
+    "star5": lambda: templates.star_tree(5),
+    "spider21": lambda: templates.spider_tree([2, 1]),
+    "spider221": lambda: templates.spider_tree([2, 2, 1]),
+    "u5-2": lambda: templates.template("u5-2"),
+    "u7-2": lambda: templates.template("u7-2"),
+}
+GRAPHS = {
+    "er": lambda seed: erdos_renyi(24, 4.0, seed=seed),
+    "rmat": lambda seed: rmat(32, 90, skew=3, seed=seed),
+}
+
+
+@pytest.mark.parametrize("tree_name", sorted(TREES))
+@pytest.mark.parametrize("graph_name", sorted(GRAPHS))
+def test_fixed_coloring_exact(tree_name, graph_name):
+    tree = TREES[tree_name]()
+    g = GRAPHS[graph_name](len(tree_name))
+    coloring = np.random.default_rng(len(tree_name)).integers(0, tree.n, g.n).astype(np.int32)
+    want = count_colorful_maps(g, tree, coloring)
+    assert _port_counts(g, tree, coloring) == [want, want]
+    assert _ref_count(g, tree, coloring) == want
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_random_trees(seed):
+    rng = np.random.default_rng(100 + seed)
+    tree = templates.random_tree(int(rng.integers(2, 7)), seed=seed)
+    g = erdos_renyi(18, 3.5, seed=seed + 50)
+    coloring = rng.integers(0, tree.n, g.n).astype(np.int32)
+    want = count_colorful_maps(g, tree, coloring)
+    assert _port_counts(g, tree, coloring) == [want, want]
+    assert _ref_count(g, tree, coloring) == want
+
+
+@pytest.mark.parametrize("root", [0, 1, 2])
+def test_root_invariance(root):
+    tree = templates.spider_tree([2, 2])
+    g = rmat(24, 70, skew=3, seed=3)
+    coloring = np.random.default_rng(7).integers(0, tree.n, g.n).astype(np.int32)
+    want = count_colorful_maps(g, tree, coloring)
+    assert _port_counts(g, tree, coloring, root=root) == [want, want]
+    assert _ref_count(g, tree, coloring, root=root) == want
+
+
+def test_u10_2_against_reference():
+    tree = templates.template("u10-2")
+    g = rmat(200, 400, skew=3, seed=11)  # 1.07e6 maps: every float32 sum exact
+    coloring = np.random.default_rng(5).integers(0, tree.n, g.n).astype(np.int32)
+    want = _ref_count(g, tree, coloring)
+    assert want > 0
+    assert _port_counts(g, tree, coloring) == [want, want]
+
+
+def test_count_fn_batch_equals_single_calls():
+    tree = templates.template("u5-2")
+    g = erdos_renyi(60, 4.0, seed=15)
+    for fuse in (False, True):
+        plan = build_counting_plan(g, tree, fuse=fuse, device="cpu")
+        gen = torch.Generator().manual_seed(3)
+        cols = draw_colorings(plan, 4, gen)
+        maps, ests = count_fn(plan, batch=4)(torch.Generator().manual_seed(3))
+        singles = torch.stack([colorful_map_count(plan, c) for c in cols])
+        assert torch.equal(maps, singles)
+        assert maps.dtype == torch.float64 and maps.shape == (4,)
+        assert torch.allclose(ests, maps * plan.scale)
+        assert torch.equal(colorful_map_count(plan, cols), singles)  # a fixed batch
+
+
+def test_plan_scale_and_widths():
+    tree = templates.template("u12-2")
+    g = erdos_renyi(40, 3.0, seed=1)
+    plan = build_counting_plan(g, tree, device="cpu")
+    ref = ref_build_plan(RefGraph(g.n, g.indptr, g.indices), _ref_tree(tree), impl="xla")
+    assert plan.scale == pytest.approx(ref.scale)
+    assert (plan.n_pad, plan.k, plan.aut) == (ref.n_pad, ref.k, ref.aut)
+    assert plan.widths == ref.widths  # true widths, lane = 1
+    assert max(plan.widths.values()) == 792
+
+
+def test_no_hidden_cpu_fallback(monkeypatch):
+    g = erdos_renyi(20, 3.0, seed=0)
+    tree = templates.path_tree(3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_counting_plan(g, tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_counting_plan(g, tree, device="cuda")
+    build_counting_plan(g, tree, device="cpu")  # the explicit request works
+
+
+def test_unported_options_raise(capsys):
+    g = erdos_renyi(20, 3.0, seed=0)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        build_counting_plan(g, templates.path_tree(3), spmm_kind="blocks", device="cpu")
+    # compaction is refused where it is asked for: by a flag or by the config
+    with pytest.raises(SystemExit):
+        launch_count.main(["--config", "bench-sparse", "--device", "cpu"])
+    assert "item 4" in capsys.readouterr().err
+
+
+def _launch(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_count.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def test_launcher_fused_and_unfused_agree():
+    base = ["--config", "bench-small", "--mode", "single", "--iters", "4", "--batch", "2",
+            "--device", "cpu"]
+    plain, fused = _launch(base), _launch(base + ["--fuse"])
+    est = lambda lines: [ln for ln in lines if ln.startswith("estimate")]  # noqa: E731
+    assert len(est(plain)) == 2 and est(plain) == est(fused)
+    assert any(ln.startswith("mode=single(batch=2,fuse=True,spmm=edges)") for ln in fused)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--mode", "ring"], "item 7"),
+    (["--templates", "u3-1,u5-2"], "item 3"),
+    (["--compact"], "item 4"),
+    (["--checkpoint-dir", "x"], "item 2"),
+    (["--resume", "x"], "item 2"),
+])
+def test_launcher_unported_flags(flag, item, capsys):
+    with pytest.raises(SystemExit):
+        launch_count.main(["--device", "cpu"] + flag)
+    assert item in capsys.readouterr().err

@@ -1,0 +1,212 @@
+"""The port's count-table ops against the JAX package's Pallas kernels.
+
+On the CPU every op runs its plain PyTorch version; the JAX side runs the
+Pallas kernels in interpret mode exactly as tests/test_kernels.py does.
+Tables hold integers in 0..3 and every sum stays far below 2^24, so every
+summation order is exact and the true columns compare with ``==``.  The
+CUDA kernels are held against the plain versions on the card in
+test_torch_gpu.py.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro.core import erdos_renyi, rmat
+from repro.core.graphs import edge_list
+from repro.kernels import ops as jops
+from repro.kernels.color_combine import color_combine_pallas
+from repro.kernels.fused_count import fused_count_pallas
+from repro.kernels.spmm_edgetile import spmm_edge_tile_pallas
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.color_combine import color_combine
+from repro_torch.kernels.fused_count import fused_count, rows_per_block
+from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+
+CPU = torch.device("cpu")
+
+
+def _int_table(rng, n_pad, width, n_valid, hi=4):
+    t = rng.integers(0, hi, (n_pad, width)).astype(np.float32)
+    t[n_valid:] = 0.0
+    return t
+
+
+def _port_plan(g):
+    return ops.build_spmm_plan(*edge_list(g), g.n, device=CPU)
+
+
+SPMM_CASES = [
+    (lambda: erdos_renyi(100, 5.0, seed=100), 128, 128),
+    (lambda: erdos_renyi(300, 8.0, seed=300), 256, 64),
+    (lambda: erdos_renyi(64, 3.0, seed=64), 384, 32),
+    (lambda: rmat(200, 3000, skew=8, seed=3), 128, 64),  # supernode rows own many slabs
+]
+
+
+@pytest.mark.parametrize("make_graph,width,tile", SPMM_CASES)
+def test_spmm_matches_pallas(make_graph, width, tile):
+    g = make_graph()
+    jplan = jops.build_spmm_plan(*edge_list(g), g.n, kind="edges", tile_size=tile)
+    plan = _port_plan(g)
+    assert plan.n_pad == jplan.n_pad
+    table = _int_table(np.random.default_rng(tile), plan.n_pad, width, g.n)
+    want = np.asarray(spmm_edge_tile_pallas(
+        jplan.slab_dst, jplan.slab_cols, jnp.asarray(table),
+        slabs_per_block=jplan.slabs_per_block, interpret=True,
+    ))
+    got = ops.spmm(plan.indptr, plan.indices, torch.from_numpy(table)[:, None, :])[:, 0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[g.n:].any()  # zero-degree, sentinel and pad rows are exactly zero
+
+
+@pytest.mark.parametrize("k,t1,t2", [(5, 2, 2), (7, 3, 2), (10, 3, 3), (12, 4, 3)])
+def test_color_combine_matches_pallas(k, t1, t2):
+    jt = jops.build_combine_tables(k, t1, t2)
+    tbl = ops.build_combine_tables(k, t1, t2, device=CPU)
+    a, b = math.comb(k, t1), math.comb(k, t2)
+    rng = np.random.default_rng(k)
+    left = _int_table(rng, 256, jops.pad_to(a, 128), 256)
+    m = _int_table(rng, 256, jops.pad_to(b, 128), 256)
+    want = np.asarray(color_combine_pallas(
+        jnp.asarray(left), jnp.asarray(m), jt.idx1_t, jt.idx2_t, num_splits=jt.j, interpret=True
+    ))[:, : jt.s]
+    got = ops.color_combine(torch.from_numpy(left[:, None, :a]).contiguous(),
+                            torch.from_numpy(m[:, None, :b]).contiguous(), tbl)[:, 0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,t1,t2", [(3, 1, 1), (5, 2, 2), (7, 3, 2), (10, 4, 3)])
+def test_fused_count_matches_pallas(k, t1, t2):
+    g = erdos_renyi(150, 6.0, seed=k)
+    jplan = jops.build_spmm_plan(*edge_list(g), g.n, kind="edges")
+    jt = jops.build_combine_tables(k, t1, t2)
+    plan = _port_plan(g)
+    tbl = ops.build_combine_tables(k, t1, t2, device=CPU)
+    a, b = math.comb(k, t1), math.comb(k, t2)
+    rng = np.random.default_rng(k)
+    left = _int_table(rng, plan.n_pad, jops.pad_to(a, 128), g.n)
+    right = _int_table(rng, plan.n_pad, jops.pad_to(b, 128), g.n)
+    want = np.asarray(fused_count_pallas(
+        jplan.slab_dst, jplan.slab_cols, jnp.asarray(left), jnp.asarray(right),
+        jt.idx1_t, jt.idx2_t, num_splits=jt.j, slabs_per_block=jplan.slabs_per_block,
+        interpret=True,
+    ))[: g.n, : jt.s]
+    lt = torch.from_numpy(left[:, None, :a]).contiguous()
+    rt = torch.from_numpy(right[:, None, :b]).contiguous()
+    got = ops.fused_count(plan.indptr, plan.indices, lt, rt, tbl)[:, 0]
+    np.testing.assert_array_equal(got[: g.n].numpy(), want)
+    # and the unfused composition of the port's own ops, bitwise
+    unfused = ops.color_combine(lt, ops.spmm(plan.indptr, plan.indices, rt), tbl)[:, 0]
+    assert torch.equal(got, unfused)
+
+
+def test_combine_tables_packing():
+    tbl = ops.build_combine_tables(12, 3, 4, device=CPU)  # S = 792, J = 35
+    assert (tbl.s, tbl.j, tbl.ts) == (792, 35, 32)
+    assert tuple(tbl.pairs.shape) == (25, 35, 32)
+    s = torch.arange(tbl.s)
+    p = tbl.pairs[s // tbl.ts, :, s % tbl.ts]  # [S, J]
+    assert torch.equal(p & 0xFFFF, tbl.idx1.int()) and torch.equal(p >> 16, tbl.idx2.int())
+    root = ops.build_combine_tables(12, 4, 8, device=CPU)  # the u12-2 root: S = 1
+    assert (root.s, root.j, root.ts) == (1, 495, 1)
+
+
+def test_rows_per_block():
+    assert rows_per_block(792, 232448) == 64  # u12-2's widest right child: 73 fit
+    assert rows_per_block(12, 232448) == 64
+    assert rows_per_block(4000, 232448) == 14
+    with pytest.raises(ValueError):
+        rows_per_block(100_000, 232448)
+
+
+def test_plan_kinds():
+    g = erdos_renyi(5000, 3.0, seed=2)  # sparse patches: the reference keeps edges
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ops.build_spmm_plan(*edge_list(g), g.n, kind="blocks", device=CPU)
+    plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="auto", device=CPU)
+    jplan = jops.build_spmm_plan(*edge_list(g), g.n, kind="auto")
+    assert plan.kind == jplan.kind == "edges"
+    assert plan.patch_density == pytest.approx(jplan.patch_density)
+    dense = rmat(512, 30_000, skew=3, seed=1)  # the reference picks blocks here
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ops.build_spmm_plan(*edge_list(dense), dense.n, kind="auto", device=CPU)
+
+
+def test_plain_versions_chunk(monkeypatch):
+    # a tiny element budget forces many chunks; results must not change
+    g = rmat(200, 3000, skew=8, seed=3)
+    plan = _port_plan(g)
+    tbl = ops.build_combine_tables(7, 3, 2, device=CPU)
+    rng = np.random.default_rng(0)
+    left = torch.from_numpy(_int_table(rng, plan.n_pad, 2 * 35, g.n)).reshape(-1, 2, 35)
+    right = torch.from_numpy(_int_table(rng, plan.n_pad, 2 * 21, g.n)).reshape(-1, 2, 21)
+    m = ops.spmm(plan.indptr, plan.indices, right)
+    whole = ops.color_combine(left, m, tbl)
+    monkeypatch.setattr(ref, "ELEMENT_BUDGET", 1000)
+    assert torch.equal(ops.spmm(plan.indptr, plan.indices, right), m)
+    assert torch.equal(ops.color_combine(left, m, tbl), whole)
+    assert torch.equal(
+        ref.fused_count_ref(plan.indptr, plan.indices, left, right, tbl.idx1, tbl.idx2,
+                            row_block=100), whole)
+
+
+class _Shapes(TorchDispatchMode):
+    """Records the shape of every tensor an op allocates (views and
+    in-place results share an input's storage and are not recorded)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        seen = {a.untyped_storage().data_ptr()
+                for a in torch.utils._pytree.tree_leaves((args, kwargs))
+                if isinstance(a, torch.Tensor)}
+        out = func(*args, **kwargs)
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() not in seen:
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def test_fused_never_materializes_m():
+    """The plain fused version never produces a tensor with ``n_pad`` rows
+    and the right child's full ``B * W`` width; the unfused path does
+    (which also proves the detector works).  On the card, chip_smoke.py's
+    peak-memory comparison is the same proof for the kernel."""
+    g = erdos_renyi(5000, 3.0, seed=4)  # n_pad = 5120 > the 4096-row plain block
+    plan = _port_plan(g)
+    k, t1, t2, batch = 7, 2, 2, 2  # C(7,2) = 21 != C(7,4) = 35: W and S differ
+    tbl = ops.build_combine_tables(k, t1, t2, device=CPU)
+    w = math.comb(k, t2)
+    rng = np.random.default_rng(0)
+    left = torch.from_numpy(_int_table(rng, plan.n_pad, batch * w, g.n)).reshape(-1, batch, w)
+    right = torch.from_numpy(_int_table(rng, plan.n_pad, batch * w, g.n)).reshape(-1, batch, w)
+    forbidden = {(plan.n_pad, batch, w), (plan.n_pad, batch * w)}
+    assert plan.num_directed != plan.n_pad  # an edge gather cannot look like M
+    with _Shapes() as fused_mode:
+        fused = ops.fused_count(plan.indptr, plan.indices, left, right, tbl)
+    with _Shapes() as unfused_mode:
+        unfused = ops.color_combine(left, ops.spmm(plan.indptr, plan.indices, right), tbl)
+    assert forbidden & set(unfused_mode.shapes)  # detector sanity
+    assert not forbidden & set(fused_mode.shapes)
+    assert (plan.n_pad, batch, tbl.s) in fused_mode.shapes  # the fused output
+    assert torch.equal(fused, unfused)
+
+
+def test_wrappers_route_by_device():
+    """A CPU tensor takes the plain version and launches nothing."""
+    g = erdos_renyi(50, 3.0, seed=0)
+    plan = _port_plan(g)
+    tbl = ops.build_combine_tables(3, 1, 1, device=CPU)
+    t = torch.ones(plan.n_pad, 1, 3)
+    before = (spmm_edge_tile.launches, color_combine.launches, fused_count.launches)
+    ops.fused_count(plan.indptr, plan.indices, t, t, tbl)
+    ops.color_combine(t, ops.spmm(plan.indptr, plan.indices, t), tbl)
+    assert (spmm_edge_tile.launches, color_combine.launches, fused_count.launches) == before
