@@ -1,0 +1,356 @@
+"""Counting API of the port: one ``Counter`` facade over the single backend.
+
+Counterpart of ``repro/api.py``:
+
+>>> from repro_torch.api import Counter
+>>> from repro_torch.core import prng
+>>> counter = Counter.from_graph(g, "u5-2", backend="single")  # device="cuda"
+>>> result = counter.estimate(n_iter=500, delta=0.1, key=prng.key(0))
+>>> result.estimate, result.relative_sd
+
+The single backend is the in-core engine (:mod:`.core.count_engine`) on one
+device: ``cuda`` unless the plan options say ``device="cpu"``; a missing
+card raises.  ``backend="auto"`` resolves to ``single``.  The backend is
+adapted to the estimator's protocol, ``sample_fn(key, batch) -> float64
+[batch]``, and every aggregate comes from :mod:`.core.estimator`, so a
+result of the port can be held against the reference's for the same key
+sample for sample.  The distributed backend, family counting
+(``estimate_many``), ``sample_stream`` and ``serve`` wait for their ROADMAP
+items and raise ``NotImplementedError`` naming them.
+
+Plan construction is lazy: building a ``Counter`` is cheap; the first
+counting call builds and caches the plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Mapping, Optional, Union
+
+import numpy as np
+
+from .core import prng
+from .core.count_engine import build_counting_plan, colorful_map_count, plan_sample_fn
+from .core.estimator import EstimatorState, estimate_counts, niter_bound
+from .core.graphs import Graph
+from .core.supervisor import RetryPolicy
+from .core.templates import Tree, template as resolve_template
+from .kernels.ops import ROW_BLOCK
+from .train.checkpoint import CheckpointManager
+
+__all__ = ["CountRequest", "CountResult", "Counter"]
+
+_TODO = {
+    "distributed": "the distributed backend is ROADMAP queue 1 item 7",
+    "family": "family counting is ROADMAP queue 1 item 3",
+    "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
+    "serve": "serving is ROADMAP queue 1 item 8",
+}
+
+#: plan_opts the single backend passes to ``build_counting_plan``
+_SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "device"})
+#: the reference's other plan_opts (its distributed backend's, and the
+#: compaction and color-budget knobs): accepted, so that one config row
+#: feeds either backend, and dropped; ``compact`` and ``n_colors`` must be
+#: off until their ROADMAP items land, and ``block_size`` must be 128
+_OTHER_OPTS = frozenset(
+    {"root", "block_size", "bucket_tile", "num_shards", "mode", "group_factor", "impl",
+     "fuse", "mesh", "data_axis", "iter_axis", "n_colors",
+     "compact", "density_threshold", "capacity_factor", "probes",
+     "wire_dtype", "adaptive"}
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountRequest:
+    """A fully specified counting job: what to count, where, how hard.
+
+    ``plan_opts`` may carry options of either backend (a config row
+    resolves to one request); the facade keeps the subset its backend
+    understands and rejects keys neither knows.
+    """
+
+    graph: Graph
+    template: Union[str, Tree]
+    backend: str = "auto"
+    n_iter: Optional[int] = None
+    eps: Optional[float] = None
+    delta: float = 0.1
+    batch: Optional[int] = None
+    plan_opts: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    #: robustness spec (DESIGN.md §16): bounded retry of transient sample
+    #: faults, checkpoint cadence (iterations; needs a checkpoint dir at run
+    #: time), and optional early stop at a target relative standard error
+    max_retries: Optional[int] = None
+    checkpoint_every: int = 0
+    target_rsd: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CountResult:
+    """Estimate plus the provenance needed to read it."""
+
+    estimate: float  # median-of-means copy estimate (the paper's output)
+    mean: float  # plain mean estimate
+    relative_sd: float  # empirical RSD of per-iteration estimates
+    niter: int
+    samples: np.ndarray  # per-iteration copy estimates
+    backend: str
+    template: str
+    graph: str
+    delta: float
+    eps: Optional[float]
+    elapsed_s: float
+    #: batches the supervisor gave up on (QuarantinedBatch records); their
+    #: iterations are excluded from the aggregates above
+    quarantined: tuple = ()
+    #: iterations restored from a checkpoint before this call ran
+    resumed_from: int = 0
+
+    def __str__(self) -> str:
+        extra = ""
+        if self.resumed_from:
+            extra += f", resumed at {self.resumed_from}"
+        if self.quarantined:
+            extra += f", {len(self.quarantined)} batch(es) quarantined"
+        return (
+            f"CountResult({self.template} in {self.graph or 'graph'}: "
+            f"{self.estimate:.6g} via {self.backend}, "
+            f"RSD {self.relative_sd:.2f}, {self.niter} colorings, "
+            f"{self.elapsed_s:.2f}s{extra})"
+        )
+
+
+def _retry_policy(retry: Optional[RetryPolicy], max_retries: Optional[int]) -> Optional[RetryPolicy]:
+    if retry is not None:
+        return retry
+    if max_retries is not None:
+        return RetryPolicy(max_retries=max_retries)
+    return None
+
+
+def _resolve_checkpointing(checkpoint, resume):
+    """Normalize the (checkpoint, resume) knobs into (manager, state).
+
+    ``checkpoint`` is a directory path or a ready :class:`CheckpointManager`;
+    ``resume`` is a bool (use the checkpoint's latest readable state) or a
+    directory path (which doubles as the checkpoint destination, the
+    ``--resume DIR`` contract).
+    """
+    if isinstance(resume, (str, os.PathLike)):
+        checkpoint = checkpoint if checkpoint is not None else resume
+        resume = True
+    mgr = None
+    if checkpoint is not None:
+        mgr = checkpoint if isinstance(checkpoint, CheckpointManager) \
+            else CheckpointManager(str(checkpoint))
+    state = None
+    if resume:
+        if mgr is None:
+            raise ValueError(
+                "resume requires a checkpoint directory (checkpoint=DIR or "
+                "resume=DIR) or a CheckpointManager"
+            )
+        latest = mgr.load_latest()
+        if latest is not None:
+            state = EstimatorState.from_arrays(latest[1]["estimator"])
+    return mgr, state
+
+
+def _resolve_backend(backend: str) -> str:
+    if backend == "distributed":
+        raise NotImplementedError(f"backend='distributed': {_TODO['distributed']}")
+    if backend not in ("auto", "single"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return "single"
+
+
+class Counter:
+    """Facade: one object that counts a template in a graph.
+
+    Construct with :meth:`from_graph` (or :meth:`from_request`); then
+
+    * :meth:`estimate` — the (eps, delta) estimator (Algorithm 1);
+    * :meth:`count_one` — one coloring iteration from a key;
+    * :meth:`count_coloring` — exact colorful map count for a FIXED
+      coloring (oracle testing);
+    * :attr:`sample_fn` — the raw backend protocol, for warm-up and for
+      composing with other aggregators.
+    """
+
+    def __init__(self, graph: Graph, tree: Tree, backend: str, plan_opts: Dict[str, Any]):
+        self.graph = graph
+        self.tree = tree
+        self.backend = backend
+        self.plan_opts = plan_opts
+        self._plan = None
+        self._sample_fn = None
+
+    # ------------------------------------------------------------- builders
+    @classmethod
+    def from_graph(
+        cls,
+        graph: Graph,
+        template: Union[str, Tree],
+        *,
+        backend: str = "auto",
+        **plan_opts: Any,
+    ) -> "Counter":
+        """Build a counter for ``template`` (name or Tree) over ``graph``.
+
+        ``plan_opts`` may mix options of both backends; keys the single
+        backend does not read are dropped, keys unknown to both raise.
+        ``device`` (default ``cuda``) picks where the plan lives.  Block
+        patches are the kernel's 128x128 tile, so the reference's
+        ``block_size`` takes no other value.
+        """
+        unknown = set(plan_opts) - (_SINGLE_OPTS | _OTHER_OPTS)
+        if unknown:
+            raise TypeError(f"unknown plan_opts: {sorted(unknown)}")
+        tree = resolve_template(template) if isinstance(template, str) else template
+        resolved = _resolve_backend(backend)
+        if plan_opts.get("compact"):
+            raise NotImplementedError(f"compact=True: {_TODO['compact']}")
+        if plan_opts.get("block_size", ROW_BLOCK) != ROW_BLOCK:
+            raise ValueError(f"block patches are {ROW_BLOCK}x{ROW_BLOCK}; "
+                             f"got block_size={plan_opts['block_size']}")
+        if plan_opts.get("n_colors") is not None:
+            raise NotImplementedError(f"n_colors: {_TODO['family']}")
+        opts = {k: v for k, v in plan_opts.items() if k in _SINGLE_OPTS}
+        return cls(graph, tree, resolved, opts)
+
+    @classmethod
+    def from_request(cls, request: CountRequest) -> "Counter":
+        return cls.from_graph(request.graph, request.template, backend=request.backend,
+                              **dict(request.plan_opts))
+
+    # ------------------------------------------------------------- plumbing
+    @property
+    def k(self) -> int:
+        return self.tree.n
+
+    @property
+    def plan(self):
+        """The lazily built :class:`~.core.count_engine.CountingPlan`."""
+        if self._plan is None:
+            self._plan = build_counting_plan(self.graph, self.tree, **self.plan_opts)
+        return self._plan
+
+    @property
+    def sample_fn(self):
+        """The backend protocol: ``sample_fn(key, batch) -> float64 [batch]``.
+
+        Calling it once before timing a run builds and loads the kernels
+        outside the measurement.
+        """
+        if self._sample_fn is None:
+            self._sample_fn = plan_sample_fn(self.plan)
+        return self._sample_fn
+
+    @property
+    def scale(self) -> float:
+        """``k^t (k-t)! / k! / |Aut|``: maps colorful map counts to copy estimates."""
+        return self.plan.scale
+
+    def _signature_extra(self) -> str:
+        """Workload identity for checkpoint/resume safety (the reference's
+        string, so the two packages sign the same run alike)."""
+        return (f"{self.graph.name}|V={self.graph.n}|E={self.graph.num_edges}|"
+                f"{self.tree.name}|{self.backend}")
+
+    # ------------------------------------------------------------- counting
+    def estimate(
+        self,
+        n_iter: Optional[int] = None,
+        *,
+        eps: Optional[float] = None,
+        delta: float = 0.1,
+        key: Optional[prng.Key] = None,
+        batch: Optional[int] = None,
+        progress: bool = False,
+        target_rsd: Optional[float] = None,
+        checkpoint=None,
+        checkpoint_every: int = 0,
+        resume: Union[bool, str] = False,
+        retry: Optional[RetryPolicy] = None,
+        max_retries: Optional[int] = None,
+    ) -> CountResult:
+        """(eps, delta)-estimate of the copy count (Algorithm 1).
+
+        ``n_iter`` defaults to ``niter_bound(k, eps, delta)`` when ``eps``
+        is given; ``key`` defaults to ``prng.key(0)``; ``batch`` colorings
+        run per backend call (default ``min(8, n_iter)``).
+
+        Robustness (DESIGN.md §16): ``checkpoint=DIR`` with
+        ``checkpoint_every=N`` persists the estimator state every N
+        iterations; ``resume=True`` (or ``resume=DIR``) continues a killed
+        run from the latest readable checkpoint and returns the result an
+        uninterrupted run gives, bit for bit.  ``max_retries``/``retry``
+        supervise the backend: transient faults retry with the same key,
+        corrupt payloads (NaN/Inf/negative) hard-fault, persistently
+        failing batches are quarantined and reported on the result.
+        """
+        if n_iter is None:
+            if eps is None:
+                raise ValueError("pass n_iter or eps (to derive the bound)")
+            n_iter = niter_bound(self.k, eps, delta)
+        if key is None:
+            key = prng.key(0)
+        b = batch or min(8, n_iter)
+        sample = self.sample_fn  # builds the plan
+        mgr, state = _resolve_checkpointing(checkpoint, resume)
+        t0 = time.perf_counter()
+        est = estimate_counts(
+            sample,
+            n_iter,
+            key,
+            delta=delta,
+            batch=b,
+            progress=progress,
+            retry=_retry_policy(retry, max_retries),
+            checkpoint=mgr,
+            checkpoint_every=checkpoint_every,
+            resume=state,
+            target_rsd=target_rsd,
+            signature_extra=self._signature_extra(),
+        )
+        return CountResult(
+            estimate=est.estimate,
+            mean=est.mean,
+            relative_sd=est.relative_sd,
+            niter=est.niter,
+            samples=est.samples,
+            backend=self.backend,
+            template=self.tree.name,
+            graph=self.graph.name,
+            delta=delta,
+            eps=eps,
+            elapsed_s=time.perf_counter() - t0,
+            quarantined=est.quarantined,
+            resumed_from=est.resumed_from,
+        )
+
+    def count_one(self, key: prng.Key) -> float:
+        """One coloring iteration: an unbiased copy estimate from ``key``."""
+        return float(self.sample_fn(key, 1)[0])
+
+    def count_coloring(self, coloring: np.ndarray) -> float:
+        """Exact colorful map count for a FIXED coloring ``[n]``; multiply
+        by :attr:`scale` for the per-iteration copy estimate."""
+        coloring = np.asarray(coloring, np.int32).reshape(-1)
+        if coloring.shape[0] != self.graph.n:
+            raise ValueError(f"coloring has {coloring.shape[0]} entries, "
+                             f"graph has {self.graph.n} vertices")
+        return float(colorful_map_count(self.plan, coloring))
+
+    # ------------------------------------------------------- not yet ported
+    def estimate_many(self, *args, **kwargs):
+        raise NotImplementedError(f"estimate_many: {_TODO['family']}")
+
+    def sample_stream(self, *args, **kwargs):
+        raise NotImplementedError(f"sample_stream: {_TODO['serve']}")
+
+    def serve(self, *args, **kwargs):
+        raise NotImplementedError(f"serve: {_TODO['serve']}")

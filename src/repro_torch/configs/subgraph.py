@@ -1,9 +1,10 @@
 """Counting-workload configs — the paper's own experiment grid (Table 2/Fig 5).
 
 A data copy of ``repro/configs/subgraph.py``'s ``CountingConfig`` rows.
-The port's launcher runs the single-device rows; the distributed fields
-(``num_shards``, ``mode``, ...) are carried so that rows stay identical to
-the reference's, and are read by later slices.
+The port's launcher runs the single-device rows through
+:meth:`CountingConfig.to_request`; the distributed fields (``num_shards``,
+``mode``, ...) ride the request as the reference's do, and the single
+backend drops them.
 """
 
 from __future__ import annotations
@@ -45,6 +46,44 @@ class CountingConfig:
 
         g = rmat(self.num_vertices, self.num_edges, skew=self.skew, seed=seed, name=self.name)
         return relabel_random(g, seed=seed + 1)
+
+    def to_request(self, graph=None, *, backend: str = "auto", n_iter=None, eps=None,
+                   delta: float = 0.1, batch=None, **plan_opts):
+        """Resolve this config row to a :class:`repro_torch.api.CountRequest`
+        (the reference's ``to_request``, ``configs/subgraph.py:73-113``).
+
+        ``graph`` defaults to the synthesized RMAT dataset.  The request
+        carries both backends' options, and ``plan_opts`` overrides or
+        extends the row's own (e.g. ``fuse=True``, ``device="cpu"``).
+        """
+        from ..api import CountRequest
+
+        if graph is None:
+            graph = self.synthesize()
+        return CountRequest(
+            graph=graph,
+            template=self.template,
+            backend=backend,
+            n_iter=n_iter,
+            eps=eps,
+            delta=delta,
+            batch=batch,
+            max_retries=self.max_retries,
+            checkpoint_every=self.checkpoint_every,
+            target_rsd=self.target_rsd,
+            plan_opts={
+                "num_shards": self.num_shards,
+                "mode": self.mode,
+                "group_factor": self.group_factor,
+                "bucket_tile": self.bucket_tile,
+                "compact": self.compact,
+                "density_threshold": self.density_threshold,
+                "capacity_factor": self.capacity_factor,
+                "wire_dtype": self.wire_dtype,
+                "adaptive": self.adaptive,
+                **plan_opts,
+            },
+        )
 
 
 # Paper Table 2 datasets (name -> (V, E, source))

@@ -13,8 +13,10 @@ Counterpart of ``repro/core/count_engine.py``.  Per coloring iteration
 
 Batched colorings are a written-out dimension of every table (the
 reference ``vmap``s the DP instead): ``count_fn(plan, batch=B)`` runs each
-node as one launch over all ``B`` colorings.  Colorings come from an
-explicit ``torch.Generator`` on the plan's device.
+node as one launch over all ``B`` colorings.  Colorings come from a
+threefry key (:mod:`.prng`), drawn on the plan's device bit for bit as the
+reference's ``jax.random.randint(key, (B, n_pad), 0, k)``, so the same key
+gives the same colorings, and the same counts, in both packages.
 
 The DP uses ``d = 1`` in the recurrence and divides the final count by
 ``|Aut(T)|`` once (DESIGN.md §1), so a fixed coloring's count is exactly
@@ -32,6 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from . import prng
 from .graphs import Graph, edge_list
 from .table_program import (
     build_node_tables,
@@ -92,9 +95,10 @@ def build_counting_plan(
     fuse: bool = False,
     device: Optional[Union[str, torch.device]] = None,
 ) -> CountingPlan:
-    """Plan a tree template on graph ``g``: the CSR and split tables go to
-    ``device`` (default ``cuda``; pass ``device="cpu"`` for the plain
-    versions).
+    """Plan a tree template on graph ``g``: the adjacency and split tables go
+    to ``device`` (default ``cuda``; pass ``device="cpu"`` for the plain
+    versions).  ``spmm_kind`` is ``"edges"``, ``"blocks"`` or ``"auto"``
+    (``ops.build_spmm_plan``); ``fuse`` takes effect on edge plans.
     """
     dev = resolve_device(device)
     chain = template_program(tree, root=root)
@@ -146,45 +150,44 @@ def colorful_map_count(plan: CountingPlan, coloring) -> torch.Tensor:
     return maps[0] if single else maps
 
 
-def draw_colorings(plan: CountingPlan, batch: int, generator: torch.Generator) -> torch.Tensor:
-    """``[batch, n_pad]`` int32 colorings uniform in ``{0..k-1}``."""
-    return torch.randint(0, plan.k, (batch, plan.n_pad), generator=generator,
-                         device=plan.device, dtype=torch.int32)
+def draw_colorings(plan: CountingPlan, batch: int, key: prng.Key) -> torch.Tensor:
+    """``[batch, n_pad]`` int32 colorings uniform in ``{0..k-1}`` on the plan's
+    device: the reference's ``jax.random.randint(key, (batch, n_pad), 0, k,
+    dtype=int32)`` (``count_engine.py:547``), bit for bit."""
+    return prng.randint(key, (batch, plan.n_pad), 0, plan.k, device=plan.device)
 
 
 def count_fn(
     plan: CountingPlan, batch: int = 1
-) -> Callable[[torch.Generator], Tuple[torch.Tensor, torch.Tensor]]:
-    """Per-call counter ``f(generator) -> (maps[B], estimates[B])``.
+) -> Callable[[prng.Key], Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-call counter ``f(key) -> (maps[B], estimates[B])``, float64 on the
+    plan's device.
 
-    Each call draws ``batch`` independent colorings from ``generator`` (on
-    ``plan.device``) and runs the DP once over all of them: every internal
-    node is one launch with the batch as a table dimension.
+    Each call draws ``batch`` independent colorings from ``key`` and runs
+    the DP once over all of them: every internal node is one launch with
+    the batch as a table dimension.
     """
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
 
-    def f(generator: torch.Generator):
-        maps = colorful_map_count(plan, draw_colorings(plan, batch, generator))
+    def f(key: prng.Key):
+        maps = colorful_map_count(plan, draw_colorings(plan, batch, key))
         return maps, maps * plan.scale
 
     return f
 
 
 def plan_sample_fn(plan: CountingPlan):
-    """Adapt a plan to the estimator's backend protocol:
-    ``sample_fn(seed, batch) -> float64 [batch]`` copy estimates for
-    ``batch`` colorings drawn from a generator on the plan's device seeded
-    with ``seed``."""
+    """Adapt a plan to the estimator's backend protocol: ``sample_fn(key,
+    batch) -> float64 [batch]`` copy estimates for ``batch`` colorings
+    drawn from ``key`` (the reference's protocol, ``count_engine.py:600``)."""
     fns: Dict[int, Callable] = {}
 
-    def sample(seed: int, batch: int) -> np.ndarray:
+    def sample(key: prng.Key, batch: int) -> np.ndarray:
         f = fns.get(batch)
         if f is None:
             f = fns[batch] = count_fn(plan, batch)
-        gen = torch.Generator(device=plan.device)
-        gen.manual_seed(seed)
-        _, est = f(gen)
+        _, est = f(key)
         return est.cpu().numpy().astype(np.float64).reshape(-1)
 
     return sample

@@ -113,19 +113,20 @@ def root_count(root: torch.Tensor) -> torch.Tensor:
 def local_node_fn(spmm_plan: ops.SpmmPlan, *, fuse: bool = False) -> NodeFn:
     """The in-core neighbor-sum strategy: SpMM over the whole graph.
 
-    With ``fuse=True`` each node is one ``ops.fused_count`` call that never
-    holds the whole ``[n_pad, B, W]`` neighbor sum (the paper's
-    fine-grained pipeline, §3.2, at kernel granularity).  Unfused, ``M``
-    needs no pad-row mask: pad rows have no edges, so the SpMM writes them
-    as exact zeros.
+    The SpMM goes through the plan's format (``ops.spmm``: the edge kernel
+    or the block-dense kernel).  With ``fuse=True`` on an edge plan each
+    node is one ``ops.fused_count`` call that never holds the whole
+    ``[n_pad, B, W]`` neighbor sum (the paper's fine-grained pipeline,
+    §3.2, at kernel granularity).  The fused kernel walks the CSR, so a
+    block plan runs block SpMM then combine, as the reference's
+    ``ops.fused_count`` does on a plan without edge slabs.  ``M`` needs no
+    pad-row mask: pad rows have no edges, so every SpMM writes them as
+    exact zeros.
     """
 
-    indptr, indices = spmm_plan.indptr, spmm_plan.indices
-
     def node_fn(i, tbl, c_left, c_right):
-        if fuse:
-            return ops.fused_count(indptr, indices, c_left, c_right, tbl)
-        m = ops.spmm(indptr, indices, c_right)
-        return ops.color_combine(c_left, m, tbl)
+        if fuse and spmm_plan.kind == "edges":
+            return ops.fused_count(spmm_plan.indptr, spmm_plan.indices, c_left, c_right, tbl)
+        return ops.color_combine(c_left, ops.spmm(spmm_plan, c_right), tbl)
 
     return node_fn

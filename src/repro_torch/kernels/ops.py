@@ -28,7 +28,8 @@ import torch
 from ..core.colorsets import split_tables
 from .color_combine import color_combine
 from .fused_count import fused_count
-from .spmm_edgetile import spmm_edge_tile as spmm
+from .spmm_block import spmm_block
+from .spmm_edgetile import spmm_edge_tile
 
 __all__ = [
     "pad_to",
@@ -36,22 +37,24 @@ __all__ = [
     "AUTO_DENSITY_THRESHOLD",
     "SpmmPlan",
     "build_spmm_plan",
+    "expected_patch_density",
+    "patch_density",
     "spmm",
+    "spmm_edge_tile",
+    "spmm_block",
     "CombineTables",
     "build_combine_tables",
     "color_combine",
     "fused_count",
 ]
 
-#: the block-dense SpMM format is not ported yet
-_BLOCKS_TODO = "the block-dense SpMM format is ROADMAP queue 1 item 6 of the PyTorch port"
-
-#: the vertex dimension is padded to a multiple of this, and ``kind="auto"``
-#: measures density over ``ROW_BLOCK x ROW_BLOCK`` adjacency patches
+#: the vertex dimension is padded to a multiple of this; the block-dense
+#: format stores ``ROW_BLOCK x ROW_BLOCK`` adjacency patches
 ROW_BLOCK = 128
 
-#: ``kind="auto"`` would pick the block-dense format at this many edges per
-#: occupied patch (the reference's threshold, ops.py:131)
+#: ``kind="auto"`` picks the block-dense format once occupied patches
+#: average this many edges (the reference's threshold, ops.py:131; it was
+#: derived for the TPU's matrix unit and is not yet re-derived for the card)
 AUTO_DENSITY_THRESHOLD = 64.0
 
 
@@ -61,11 +64,18 @@ def pad_to(x: int, multiple: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SpmmPlan:
-    """The graph's CSR on the device, for the neighbor-sum ops.
+    """The graph's adjacency on the device, for the neighbor-sum ops.
 
-    ``indptr`` int64 ``[n_pad + 1]`` (rows ``>= n`` have no edges) and
-    ``indices`` int32 ``[E_dir]`` in destination order: the layout every
-    SpMM and fused-count kernel walks.  Only ``kind == "edges"`` exists.
+    Every plan carries the CSR: ``indptr`` int64 ``[n_pad + 1]`` (rows
+    ``>= n`` have no edges) and ``indices`` int32 ``[E_dir]`` in
+    destination order, the layout the edge SpMM and the fused kernel walk.
+    A ``kind == "blocks"`` plan also carries the block-dense layout that
+    ``spmm_block`` walks: the occupied ``128 x 128`` patches sorted by row
+    block, then column block, as a patch CSR (``patch_ptr`` int32
+    ``[n_pad / 128 + 1]``, ``patch_col`` int32 ``[NB]``) and 0/1 bitmasks
+    ``patch_bits`` int32 ``[NB, 128, 4]`` (bit ``k % 32`` of word ``k // 32``
+    of row ``r`` is the edge from source ``128 * col + k`` to destination
+    ``128 * row_block + r``; the words are uint32 bit patterns).
     """
 
     kind: str
@@ -75,17 +85,62 @@ class SpmmPlan:
     indices: torch.Tensor
     #: measured edges per occupied 128x128 patch (set by ``kind="auto"``)
     patch_density: Optional[float] = None
+    patch_ptr: Optional[torch.Tensor] = None
+    patch_col: Optional[torch.Tensor] = None
+    patch_bits: Optional[torch.Tensor] = None
 
     @property
     def num_directed(self) -> int:
         return int(self.indices.numel())
 
+    @property
+    def num_patches(self) -> int:
+        return 0 if self.patch_col is None else int(self.patch_col.numel())
 
-def _patch_density(rows: np.ndarray, cols: np.ndarray, n_pad: int) -> float:
+
+def patch_density(rows: np.ndarray, cols: np.ndarray, n_pad: int) -> float:
+    """Edges per occupied ``ROW_BLOCK x ROW_BLOCK`` adjacency patch: the
+    ``kind="auto"`` signal, keyed as the reference keys it."""
     if not len(rows):
         return 0.0
     keys = (rows // ROW_BLOCK).astype(np.int64) * (n_pad // ROW_BLOCK) + cols // ROW_BLOCK
     return len(rows) / len(np.unique(keys))
+
+
+def expected_patch_density(n: int, e_directed: int, block: int = ROW_BLOCK) -> float:
+    """Model of the ``kind="auto"`` signal for shape-only plans, where no
+    edges exist to measure: expected edges per occupied ``block x block``
+    patch under uniform placement, ``E[occupied] = patches * (1 -
+    exp(-e / patches))`` (the reference's ``ops.py:328``)."""
+    nb = max(1, pad_to(n + 1, block) // block)
+    patches = float(nb) * float(nb)
+    occupied = patches * (1.0 - math.exp(-float(e_directed) / patches))
+    return float(e_directed) / max(occupied, 1.0)
+
+
+def _block_layout(rows: np.ndarray, cols: np.ndarray, n_pad: int):
+    """Patch CSR and bitmasks of a CSR-ordered edge list (see :class:`SpmmPlan`)."""
+    vb = ROW_BLOCK
+    same_row = np.diff(rows) == 0
+    if np.any(same_row & (np.diff(cols) <= 0)):
+        raise ValueError(
+            "the block-dense plan needs each row's neighbors strictly ascending: "
+            "a duplicate edge would make a patch entry other than 0/1"
+        )
+    nrb = n_pad // vb
+    stride = nrb + 1  # the reference's patch key
+    keys = (rows // vb).astype(np.int64) * stride + cols // vb
+    uniq, inv = np.unique(keys, return_inverse=True)
+    nb = len(uniq)
+    patch_ptr = np.zeros(nrb + 1, np.int64)
+    np.cumsum(np.bincount(uniq // stride, minlength=nrb), out=patch_ptr[1:])
+    r, c = rows % vb, cols % vb
+    word = inv.astype(np.int64) * (vb * vb // 32) + r * (vb // 32) + c // 32
+    # distinct bits of one word sum to their OR, exactly in float64
+    bits = np.bincount(word, weights=np.left_shift(np.int64(1), (c % 32).astype(np.int64)).astype(np.float64),
+                       minlength=nb * vb * vb // 32)
+    patch_bits = bits.astype(np.uint32).view(np.int32).reshape(nb, vb, vb // 32)
+    return (patch_ptr.astype(np.int32), (uniq % stride).astype(np.int32), patch_bits)
 
 
 def build_spmm_plan(
@@ -98,39 +153,50 @@ def build_spmm_plan(
 ) -> SpmmPlan:
     """Build the plan from a directed edge list (``rows`` nondecreasing).
 
-    ``kind="auto"`` measures the density over occupied :data:`ROW_BLOCK`
-    patches as the reference does and keeps the edge plan below
-    :data:`AUTO_DENSITY_THRESHOLD`; above it, and for ``kind="blocks"``,
-    it raises ``NotImplementedError``.
+    ``kind="auto"`` measures the density over occupied patches as the
+    reference does (``ops.py:235-325``) and picks ``"blocks"`` at
+    :data:`AUTO_DENSITY_THRESHOLD` edges per patch or more, ``"edges"``
+    below.
     """
     n_pad = pad_to(n + 1, ROW_BLOCK)
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     density = None
     if kind == "auto":
-        density = _patch_density(rows, cols, n_pad)
-        if density >= AUTO_DENSITY_THRESHOLD:
-            raise NotImplementedError(
-                f"spmm kind 'auto' picks the block-dense format at {density:.1f} "
-                f"edges/patch; {_BLOCKS_TODO}"
-            )
-        kind = "edges"
-    if kind == "blocks":
-        raise NotImplementedError(_BLOCKS_TODO)
-    if kind != "edges":
+        density = patch_density(rows, cols, n_pad)
+        kind = "blocks" if density >= AUTO_DENSITY_THRESHOLD else "edges"
+    if kind not in ("edges", "blocks"):
         raise ValueError(f"unknown spmm plan kind {kind!r}")
     if len(rows) and np.any(np.diff(rows) < 0):
         raise ValueError("edge rows must be nondecreasing (CSR order)")
     indptr = np.zeros(n_pad + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_pad), out=indptr[1:])
+    blocks = {}
+    if kind == "blocks":
+        ptr, col, bits = _block_layout(rows, cols, n_pad)
+        blocks = dict(patch_ptr=torch.from_numpy(ptr).to(device),
+                      patch_col=torch.from_numpy(col).to(device),
+                      patch_bits=torch.from_numpy(bits).to(device))
     return SpmmPlan(
-        kind="edges",
+        kind=kind,
         n=n,
         n_pad=n_pad,
         indptr=torch.from_numpy(indptr).to(device),
         indices=torch.from_numpy(np.ascontiguousarray(cols, np.int32)).to(device),
         patch_density=density,
+        **blocks,
     )
+
+
+def spmm(plan: SpmmPlan, table: torch.Tensor) -> torch.Tensor:
+    """Neighbor sum ``M[v] = sum_{(v, u) in E} table[u]`` over ``[n_pad, B, W]``,
+    through the plan's format: ``spmm_block`` for a block plan, else
+    ``spmm_edge_tile``.  Both add each row's neighbors in ascending source
+    order into one accumulator, so the two give bitwise-equal tables on the
+    card; rows without edges come out exactly zero."""
+    if plan.kind == "blocks":
+        return spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table)
+    return spmm_edge_tile(plan.indptr, plan.indices, table)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three count-table kernels.
+"""Plain PyTorch versions of the four count-table kernels.
 
 They are the kernels' oracles: the CPU runs them (every wrapper routes a
 CPU tensor here), and ``chip_smoke.py`` holds each CUDA kernel against its
@@ -16,7 +16,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ELEMENT_BUDGET", "spmm_segment_ref", "color_combine_ref", "fused_count_ref"]
+__all__ = [
+    "ELEMENT_BUDGET",
+    "spmm_segment_ref",
+    "unpack_patches",
+    "spmm_block_ref",
+    "color_combine_ref",
+    "fused_count_ref",
+]
 
 #: bound on the elements of one chunked gather intermediate
 ELEMENT_BUDGET = 1 << 27
@@ -44,6 +51,44 @@ def spmm_segment_ref(indptr: torch.Tensor, indices: torch.Tensor, table: torch.T
         src = indices[base + e0 : base + e1].long()
         out.index_add_(0, dst[e0:e1], flat[src])
     return out.reshape((rows,) + tuple(table.shape[1:]))
+
+
+def unpack_patches(bits: torch.Tensor) -> torch.Tensor:
+    """``[P, R, R/32]`` int32 bitmask words -> ``[P, R, R]`` 0/1 float32 patches
+    (bit ``k % 32`` of word ``k // 32`` is column ``k``)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    dense = (bits[..., None] >> shifts) & 1
+    return dense.reshape(bits.shape[0], bits.shape[1], -1).to(torch.float32)
+
+
+def spmm_block_ref(
+    patch_ptr: torch.Tensor, patch_col: torch.Tensor, patch_bits: torch.Tensor, table: torch.Tensor
+) -> torch.Tensor:
+    """Block-dense neighbor sum over 0/1 patches (the reference's XLA
+    oracle, ``repro/kernels/ops.py:366-373``).
+
+    For patch ``p`` of row block ``R`` (``patch_ptr[R] <= p <
+    patch_ptr[R+1]``) and column block ``patch_col[p]``: unpack its bitmask
+    to a dense ``[128, 128]`` float32 patch, gather the source block
+    ``table[128 * col : 128 * col + 128]``, multiply, and add the product
+    into output row block ``R``.  Row blocks without a patch are zero.
+    ``table`` is ``[n_pad, ...]`` with ``n_pad = 128 * (patch_ptr.numel() -
+    1)``; chunked over patches within :data:`ELEMENT_BUDGET`.
+    """
+    vb = patch_bits.shape[1]
+    nrb = patch_ptr.numel() - 1
+    flat = table.reshape(nrb, vb, -1)
+    width = flat.shape[2]
+    out = torch.zeros_like(flat)
+    patch_row = torch.repeat_interleave(torch.arange(nrb, device=table.device),
+                                        torch.diff(patch_ptr.long()))
+    n_patches = patch_col.numel()
+    chunk = max(1, ELEMENT_BUDGET // (vb * max(width, vb)))
+    for p0 in range(0, n_patches, chunk):
+        p1 = min(p0 + chunk, n_patches)
+        src = flat[patch_col[p0:p1].long()]
+        out.index_add_(0, patch_row[p0:p1], torch.bmm(unpack_patches(patch_bits[p0:p1]), src))
+    return out.reshape(table.shape)
 
 
 def color_combine_ref(

@@ -1,14 +1,18 @@
 """Subgraph-counting launcher for the PyTorch port: one tree template, one device.
 
 ``python -m repro_torch.launch.count --config bench-small --mode single
-[--fuse] --iters N --batch B --seed S [--device cuda|cpu]``
+[--fuse] [--spmm-kind auto|edges|blocks] --iters N --batch B --seed S
+[--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
 
-Synthesizes the configured R-MAT graph (or loads ``--graph``), plans the
-config's template on the device (``cuda`` unless ``--device cpu``), warms
-the kernels outside the timer, runs the median-of-means estimator and
-prints the reference launcher's report lines.  The other backends and
-features of ``repro.launch.count`` exit with an error naming the ROADMAP
-item that ports them.
+Synthesizes the configured R-MAT graph (or loads ``--graph``), resolves the
+config row into a ``CountRequest`` and runs it through the ``Counter``
+facade as ``repro.launch.count`` does: the plan lives on the device
+(``cuda`` unless ``--device cpu``), the kernels are warmed outside the
+timer, and ``--seed S`` keys the run with ``prng.key(S)``, so the port
+draws the reference launcher's colorings.  ``--checkpoint-dir`` persists
+the estimator state; ``--resume`` continues a killed run bit for bit.  The
+other backends and features of ``repro.launch.count`` exit with an error
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,18 +22,33 @@ import time
 
 import torch
 
+from ..api import Counter
 from ..configs.subgraph import COUNTING_CONFIGS
-from ..core.count_engine import build_counting_plan, plan_sample_fn
-from ..core.estimator import call_seed, estimate_counts, num_groups_for
+from ..core import prng
+from ..core.estimator import num_groups_for
 from ..core.graphs import load_edge_file, load_npz
-from ..core.templates import template
 
 _TODO = {
     "mode": "the distributed exchange modes are ROADMAP queue 1 item 7",
     "templates": "family counting is ROADMAP queue 1 item 3",
     "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
-    "checkpoint": "checkpoint and resume are ROADMAP queue 1 item 2",
 }
+
+
+def _plan_report(plan):
+    """The density signal the plan's format choice used."""
+    spmm = plan.spmm_plan
+    if spmm.patch_density is not None:
+        print(f"spmm auto: {spmm.patch_density:.1f} edges/patch -> kind={spmm.kind}")
+
+
+def _robust_report(res):
+    """Recovery provenance: what was restored, what was given up on."""
+    if res.resumed_from:
+        print(f"resumed: {res.resumed_from} colorings restored from "
+              f"checkpoint (progress/RSD include them)")
+    for q in res.quarantined:
+        print(f"quarantined: {q}")
 
 
 def _report(label, shards, res, dt, ran):
@@ -58,8 +77,21 @@ def main(argv=None):
                     help="fused SpMM->combine kernel: never holds the neighbor sum M")
     ap.add_argument("--spmm-kind", default="auto", choices=["auto", "edges", "blocks"])
     ap.add_argument("--compact", action="store_true")
-    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR")
-    ap.add_argument("--resume", default=None, metavar="DIR")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="persist estimator state (atomic, checksummed) under DIR "
+                         "every --checkpoint-every colorings")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="resume from the latest readable checkpoint in DIR (implies "
+                         "--checkpoint-dir DIR); bit-exact vs an uninterrupted run")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="checkpoint cadence in colorings (default: every batch when a "
+                         "checkpoint dir is set)")
+    ap.add_argument("--max-retries", type=int, default=None,
+                    help="retry transient per-batch faults up to N times, then "
+                         "quarantine the batch and report it")
+    ap.add_argument("--target-rsd", type=float, default=None,
+                    help="stop early once the running relative standard error of the "
+                         "mean reaches this (resume-aware)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -69,8 +101,6 @@ def main(argv=None):
         ap.error(f"--templates: {_TODO['templates']}")
     if args.compact:
         ap.error(f"--compact: {_TODO['compact']}")
-    if args.checkpoint_dir or args.resume:
-        ap.error(f"--checkpoint-dir/--resume: {_TODO['checkpoint']}")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1 (got {args.batch})")
     ccfg = COUNTING_CONFIGS[args.config]
@@ -78,7 +108,14 @@ def main(argv=None):
         ap.error(f"config {args.config} is a template family: {_TODO['templates']}")
     if ccfg.compact:
         ap.error(f"config {args.config} sets compact: {_TODO['compact']}")
-    tree = template(ccfg.template)
+    ckpt_dir = args.resume or args.checkpoint_dir
+    robust_kw = dict(
+        checkpoint=ckpt_dir,
+        checkpoint_every=args.checkpoint_every or (args.batch if ckpt_dir else 0),
+        resume=bool(args.resume),
+        max_retries=args.max_retries,
+        target_rsd=args.target_rsd,
+    )
 
     if args.graph:
         g = load_npz(args.graph) if args.graph.endswith(".npz") else load_edge_file(args.graph)
@@ -87,20 +124,28 @@ def main(argv=None):
         print(f"synthesizing RMAT: V={ccfg.num_vertices} E={ccfg.num_edges} "
               f"skew={ccfg.skew}")
         g = ccfg.synthesize()
-    plan = build_counting_plan(g, tree, spmm_kind=args.spmm_kind, fuse=args.fuse,
-                               device=args.device)
-    if plan.spmm_plan.patch_density is not None:
-        print(f"spmm auto: {plan.spmm_plan.patch_density:.1f} edges/patch "
-              f"-> kind={plan.spmm_plan.kind}")
+    # the fused kernel walks the CSR and a block plan has no edge layout to
+    # fuse over: when fusing, steer 'auto' to 'edges' (as the reference does)
+    spmm_kind = "edges" if args.fuse and args.spmm_kind == "auto" else args.spmm_kind
+    request = ccfg.to_request(g, backend="single", n_iter=args.iters, delta=args.delta,
+                              batch=args.batch, spmm_kind=spmm_kind, fuse=args.fuse,
+                              device=args.device)
+    counter = Counter.from_request(request)
+    plan = counter.plan
+    _plan_report(plan)
     if plan.device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(plan.device)}")
-    label = f"single(batch={args.batch},fuse={args.fuse},spmm={plan.spmm_plan.kind})"
-    sample = plan_sample_fn(plan)
-    sample(call_seed(args.seed, 0), args.batch)  # build and load kernels outside the timer
+    # report whether fusion really engaged: it needs the edge layout
+    fused = args.fuse and plan.spmm_plan.kind == "edges"
+    label = f"single(batch={args.batch},fuse={fused},spmm={plan.spmm_plan.kind})"
+    key = prng.key(args.seed)
+    counter.sample_fn(key, args.batch)  # build and load kernels outside the timer
     ran = -(-args.iters // args.batch) * args.batch
     t0 = time.perf_counter()
-    res = estimate_counts(sample, args.iters, args.seed, delta=args.delta, batch=args.batch)
-    dt = time.perf_counter() - t0  # estimate_counts copied every result to the host
+    res = counter.estimate(n_iter=request.n_iter, delta=request.delta, key=key,
+                           batch=request.batch, **robust_kw)
+    dt = time.perf_counter() - t0  # the estimator copied every result to the host
+    _robust_report(res)
     _report(label, 1, res, dt, ran)
     return res
 

@@ -1,11 +1,13 @@
 """The port's estimator against the reference's aggregation math, and its
-prefix-stable per-call seeds."""
+prefix-stable per-call keys."""
 
+import jax
 import numpy as np
 import pytest
 
 from repro.core import estimator as ref_est
 from repro_torch.core import estimator as est
+from repro_torch.core import prng
 from repro_torch.core.count_engine import build_counting_plan
 from repro_torch.core.graphs import erdos_renyi
 from repro_torch.core.templates import path_tree
@@ -28,15 +30,29 @@ def test_aggregates_match_reference(n, groups):
     assert est.niter_bound(5, 0.1, 0.1) == ref_est.niter_bound(5, 0.1, 0.1)
 
 
-def test_call_seeds_prefix_stable():
+def test_call_keys_prefix_stable():
     plan = build_counting_plan(erdos_renyi(30, 4.0, seed=11), path_tree(3), device="cpu")
-    short = est.estimate_counts(plan, 6, seed=9, batch=2)
-    long = est.estimate_counts(plan, 20, seed=9, batch=2)
+    key = prng.key(9)
+    short = est.estimate_counts(plan, 6, key, batch=2)
+    long = est.estimate_counts(plan, 20, key, batch=2)
     np.testing.assert_array_equal(long.samples[:6], short.samples)
-    assert len({est.call_seed(9, i) for i in range(100)}) == 100
-    assert est.call_seed(9, 3) != est.call_seed(10, 3)
-    again = est.estimate_counts(plan, 6, seed=9, batch=2)
+    assert len({prng.key_data(est.call_key(key, i)) for i in range(100)}) == 100
+    assert prng.key_data(est.call_key(key, 3)) != prng.key_data(est.call_key(prng.key(10), 3))
+    again = est.estimate_counts(plan, 6, key, batch=2)
     np.testing.assert_array_equal(again.samples, short.samples)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2**31 + 5])
+def test_call_key_matches_reference(seed):
+    for i in (0, 1, 5, 1000, 2**32 - 1):
+        want = jax.random.key_data(ref_est.call_key(jax.random.key(seed), i))
+        assert prng.key_data(est.call_key(prng.key(seed), i)) == tuple(int(w) for w in want)
+
+
+def test_run_signature_matches_reference():
+    for seed, extra in [(0, ""), (3, "g|V=10|E=20|u5-2|single"), (2**31 + 5, "x")]:
+        assert est.run_signature(24, 8, 0.1, prng.key(seed), extra=extra) == \
+            ref_est.run_signature(24, 8, 0.1, jax.random.key(seed), extra=extra)
 
 
 def test_estimate_unbiased_small():
@@ -46,7 +62,7 @@ def test_estimate_unbiased_small():
     tree = path_tree(3)
     truth = count_copies(g, tree)
     res = est.estimate_counts(build_counting_plan(g, tree, fuse=True, device="cpu"), 300,
-                              seed=1, batch=32)
+                              prng.key(1), batch=32)
     assert res.niter == 300 and res.samples.shape == (300,)
     assert res.mean == pytest.approx(truth, rel=0.15)
     assert res.estimate == pytest.approx(truth, rel=0.25)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.brute_force import count_colorful_maps
 from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
 from repro_torch.core.graphs import edge_list, erdos_renyi, rmat
@@ -21,6 +22,7 @@ from repro_torch.core.templates import template
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.color_combine import color_combine
 from repro_torch.kernels.fused_count import fused_count
+from repro_torch.kernels.spmm_block import spmm_block
 from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
 pytestmark = pytest.mark.gpu
@@ -44,7 +46,7 @@ def test_cuda_kernels_match_plain(cuda_device, k, t1, t2, batch):
     left = torch.randint(0, 2, (plan.n_pad, batch, a), generator=gen, device=cuda_device).float()
     right = torch.randint(0, 2, (plan.n_pad, batch, w), generator=gen, device=cuda_device).float()
     launched = (spmm_edge_tile.launches, color_combine.launches, fused_count.launches)
-    m = ops.spmm(plan.indptr, plan.indices, right)
+    m = ops.spmm(plan, right)
     assert torch.equal(m, ref.spmm_segment_ref(plan.indptr, plan.indices, right))
     c = ops.color_combine(left, m, tbl)
     assert torch.equal(c, ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2))
@@ -71,12 +73,63 @@ def test_cuda_kernels_refuse_bad_tensors(cuda_device):
         fused_count(plan.indptr, plan.indices, table, table, tbl)
 
 
+@pytest.mark.parametrize("width", [1, 3, 12, 128, 192, 1000, 1056])
+def test_spmm_block_matches_plain_and_edges(cuda_device, width):
+    """``spmm_block`` == its plain version on integer tables (exact sums), and
+    == ``spmm_edge_tile`` bitwise on float tables whose sums round: both add
+    each row's neighbors in ascending source order.  Widths cover the
+    scalar path (not a multiple of 4) and partial column tiles."""
+    g = rmat(1 << 11, 60_000, skew=3, seed=4)  # dense: the reference's 'auto' picks blocks
+    plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="auto", device=cuda_device)
+    assert plan.kind == "blocks"
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(width)
+    b = 2 if width % 2 == 0 else 1
+    ints = torch.randint(0, 4, (plan.n_pad, b, width // b), generator=gen,
+                         device=cuda_device).float()
+    ints[g.n:] = 0
+    launched = spmm_block.launches
+    got = spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, ints)
+    assert spmm_block.launches == launched + 1
+    assert torch.equal(got, ref.spmm_block_ref(plan.patch_ptr, plan.patch_col, plan.patch_bits,
+                                               ints))
+    assert torch.equal(got, spmm_edge_tile(plan.indptr, plan.indices, ints))
+    floats = torch.rand((plan.n_pad, b, width // b), generator=gen, device=cuda_device) * 1e4
+    floats[g.n:] = 0
+    assert torch.equal(ops.spmm(plan, floats), spmm_edge_tile(plan.indptr, plan.indices, floats))
+    torch.cuda.synchronize()
+
+
+def test_spmm_block_refuses_bad_tensors(cuda_device):
+    g = rmat(512, 30_000, skew=3, seed=1)
+    plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="blocks", device=cuda_device)
+    table = torch.ones(plan.n_pad, 1, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table.double())
+    with pytest.raises(ValueError):
+        spmm_block(plan.patch_ptr.long(), plan.patch_col, plan.patch_bits, table)
+    with pytest.raises(ValueError):
+        spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table[:-128])
+
+
 @pytest.mark.parametrize("name", ["u3-1", "u5-2", "u7-2"])
 def test_engine_on_card_matches_brute_force(cuda_device, name):
     tree = template(name)
     for g in (erdos_renyi(40, 4.0, seed=2), rmat(64, 300, skew=3, seed=5)):
         coloring = np.random.default_rng(7).integers(0, tree.n, g.n).astype(np.int32)
         want = count_colorful_maps(g, tree, coloring)
-        for fuse in (False, True):
-            plan = build_counting_plan(g, tree, fuse=fuse, device=cuda_device)
-            assert float(colorful_map_count(plan, coloring)) == want
+        for kind in ("edges", "blocks"):
+            for fuse in (False, True):
+                plan = build_counting_plan(g, tree, spmm_kind=kind, fuse=fuse, device=cuda_device)
+                assert float(colorful_map_count(plan, coloring)) == want
+
+
+@pytest.mark.parametrize("seed,k", [(0, 12), (7, 5), (2**31 + 5, 15)])
+def test_colorings_on_card_equal_cpu(cuda_device, seed, k):
+    """Threefry on the card draws what it draws on the CPU (which the CPU
+    tests hold == jax.random), including past 2^24 elements."""
+    key = prng.fold_in(prng.key(seed), 3)
+    for shape in [(1, 5), (3, 1000), (17, 1 << 20)]:
+        got = prng.randint(key, shape, 0, k, device=cuda_device)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), prng.randint(key, shape, 0, k, device="cpu"))

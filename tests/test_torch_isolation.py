@@ -34,10 +34,23 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+NEW_MODULES = ["api", "core/prng.py", "core/supervisor.py", "train/checkpoint.py",
+               "testing/faults.py", "kernels/spmm_block.py"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_slice_two_modules_are_checked(module):
+    """The modules slice 2 added are among the files the import check reads."""
+    path = ROOT / "src" / "repro_torch" / (module if module.endswith(".py") else module + ".py")
+    assert path in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
-        "repro_torch.launch.count; "
+        "repro_torch.core.prng, repro_torch.core.supervisor, repro_torch.api, "
+        "repro_torch.train.checkpoint, repro_torch.testing.faults, "
+        "repro_torch.kernels.spmm_block, repro_torch.launch.count; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -21,10 +21,14 @@ from repro.core.graphs import edge_list
 from repro.kernels import ops as jops
 from repro.kernels.color_combine import color_combine_pallas
 from repro.kernels.fused_count import fused_count_pallas
-from repro.kernels.spmm_edgetile import spmm_edge_tile_pallas
+from repro.kernels.spmm_edgetile import spmm_block_pallas, spmm_edge_tile_pallas
+from repro_torch.api import Counter
+from repro_torch.core.graphs import erdos_renyi as port_erdos_renyi
+from repro_torch.core.graphs import rmat as port_rmat
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.color_combine import color_combine
 from repro_torch.kernels.fused_count import fused_count, rows_per_block
+from repro_torch.kernels.spmm_block import spmm_block
 from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
 CPU = torch.device("cpu")
@@ -36,8 +40,8 @@ def _int_table(rng, n_pad, width, n_valid, hi=4):
     return t
 
 
-def _port_plan(g):
-    return ops.build_spmm_plan(*edge_list(g), g.n, device=CPU)
+def _port_plan(g, kind="edges"):
+    return ops.build_spmm_plan(*edge_list(g), g.n, kind=kind, device=CPU)
 
 
 SPMM_CASES = [
@@ -59,7 +63,7 @@ def test_spmm_matches_pallas(make_graph, width, tile):
         jplan.slab_dst, jplan.slab_cols, jnp.asarray(table),
         slabs_per_block=jplan.slabs_per_block, interpret=True,
     ))
-    got = ops.spmm(plan.indptr, plan.indices, torch.from_numpy(table)[:, None, :])[:, 0]
+    got = ops.spmm(plan, torch.from_numpy(table)[:, None, :])[:, 0]
     np.testing.assert_array_equal(got.numpy(), want)
     assert not got[g.n:].any()  # zero-degree, sentinel and pad rows are exactly zero
 
@@ -101,7 +105,7 @@ def test_fused_count_matches_pallas(k, t1, t2):
     got = ops.fused_count(plan.indptr, plan.indices, lt, rt, tbl)[:, 0]
     np.testing.assert_array_equal(got[: g.n].numpy(), want)
     # and the unfused composition of the port's own ops, bitwise
-    unfused = ops.color_combine(lt, ops.spmm(plan.indptr, plan.indices, rt), tbl)[:, 0]
+    unfused = ops.color_combine(lt, ops.spmm(plan, rt), tbl)[:, 0]
     assert torch.equal(got, unfused)
 
 
@@ -124,17 +128,85 @@ def test_rows_per_block():
         rows_per_block(100_000, 232448)
 
 
-def test_plan_kinds():
-    g = erdos_renyi(5000, 3.0, seed=2)  # sparse patches: the reference keeps edges
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ops.build_spmm_plan(*edge_list(g), g.n, kind="blocks", device=CPU)
-    plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="auto", device=CPU)
-    jplan = jops.build_spmm_plan(*edge_list(g), g.n, kind="auto")
-    assert plan.kind == jplan.kind == "edges"
-    assert plan.patch_density == pytest.approx(jplan.patch_density)
-    dense = rmat(512, 30_000, skew=3, seed=1)  # the reference picks blocks here
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ops.build_spmm_plan(*edge_list(dense), dense.n, kind="auto", device=CPU)
+@pytest.mark.parametrize("make_graph", [
+    lambda: erdos_renyi(5000, 3.0, seed=2),  # sparse patches
+    lambda: rmat(512, 30_000, skew=3, seed=1),  # dense patches
+    lambda: rmat(300, 2000, skew=8, seed=3),
+    lambda: erdos_renyi(90, 2.0, seed=9),  # one row block
+], ids=["er-sparse", "rmat-dense", "rmat-skew", "er-small"])
+def test_plan_kinds(make_graph):
+    """The block layout holds the reference's patches: the same occupied
+    (row block, column block) pairs in the same order, the same 0/1
+    entries, the same written rows, the same measured density."""
+    g = make_graph()
+    rows, cols = edge_list(g)
+    plan = ops.build_spmm_plan(rows, cols, g.n, kind="blocks", device=CPU)
+    jplan = jops.build_spmm_plan(rows, cols, g.n, kind="blocks")
+    assert plan.kind == jplan.kind == "blocks" and plan.n_pad == jplan.n_pad
+    patch_row = np.repeat(np.arange(plan.n_pad // 128), np.diff(plan.patch_ptr.numpy()))
+    np.testing.assert_array_equal(patch_row, np.asarray(jplan.block_rows)[:-1])  # [-1]: sentinel
+    np.testing.assert_array_equal(plan.patch_col.numpy(), np.asarray(jplan.block_cols)[:-1])
+    np.testing.assert_array_equal(ref.unpack_patches(plan.patch_bits).numpy(),
+                                  np.asarray(jplan.patches)[:-1])
+    written = np.repeat(np.diff(plan.patch_ptr.numpy()) > 0, 128)
+    np.testing.assert_array_equal(written, np.asarray(jplan.written_mask))
+    auto = ops.build_spmm_plan(rows, cols, g.n, kind="auto", device=CPU)
+    jauto = jops.build_spmm_plan(rows, cols, g.n, kind="auto")
+    assert auto.kind == jauto.kind
+    assert auto.patch_density == jauto.patch_density
+    assert ops.patch_density(rows, cols, plan.n_pad) == jauto.patch_density
+
+
+def test_auto_picks_what_the_reference_picks():
+    dense = rmat(512, 30_000, skew=3, seed=1)
+    sparse = erdos_renyi(5000, 3.0, seed=2)
+    assert _port_plan(dense, "auto").kind == "blocks"
+    assert _port_plan(sparse, "auto").kind == "edges"
+    assert ops.AUTO_DENSITY_THRESHOLD == jops.AUTO_DENSITY_THRESHOLD == 64.0
+    for n, e in [(1000, 5000), (1 << 16, 29_426_902), (1 << 20, 19_985_166), (5, 0)]:
+        assert ops.expected_patch_density(n, e) == jops.expected_patch_density(n, e)
+
+
+def test_block_plan_refuses_duplicates_and_other_patch_sizes():
+    rows = np.array([0, 0, 1], np.int32)
+    with pytest.raises(ValueError, match="0/1"):
+        ops.build_spmm_plan(rows, np.array([1, 1, 0], np.int32), 2, kind="blocks", device=CPU)
+    with pytest.raises(ValueError, match="128x128"):
+        Counter.from_graph(port_erdos_renyi(90, 2.0, seed=9), "u3-1", backend="single",
+                           spmm_kind="blocks", block_size=64, device=CPU)
+
+
+@pytest.mark.parametrize("n,deg,width", [(200, 6.0, 128), (500, 10.0, 256)])
+def test_spmm_block_matches_pallas(n, deg, width):
+    """The reference's block-kernel cases: the plain version == the Pallas
+    kernel in interpret mode (masked by its written rows), == the port's
+    edge path, and the block wrapper takes the plain version on the CPU."""
+    g = rmat(n, int(n * deg / 2), skew=3, seed=n)
+    rows, cols = edge_list(g)
+    jplan = jops.build_spmm_plan(rows, cols, g.n, kind="blocks")
+    plan = _port_plan(g, "blocks")
+    table = _int_table(np.random.default_rng(1), plan.n_pad, width, g.n)
+    want = spmm_block_pallas(jplan.block_rows, jplan.block_cols, jplan.patches,
+                             jnp.asarray(table), num_row_blocks=plan.n_pad // 128,
+                             interpret=True)[: plan.n_pad]
+    want = np.asarray(jnp.where(jplan.written_mask[:, None], want, 0))
+    t = torch.from_numpy(table).reshape(plan.n_pad, 2, width // 2)
+    got = ref.spmm_block_ref(plan.patch_ptr, plan.patch_col, plan.patch_bits, t)
+    np.testing.assert_array_equal(got.reshape(plan.n_pad, width).numpy(), want)
+    assert torch.equal(ops.spmm(plan, t), got)
+    assert torch.equal(ops.spmm(_port_plan(g), t), got)
+
+
+def test_spmm_block_on_port_graphs():
+    """The port's own graph generators give the same block layout and sums."""
+    g = port_rmat(700, 20_000, skew=3, seed=8)
+    plan = _port_plan(g, "auto")
+    assert plan.kind == "blocks" and plan.num_patches > 1
+    t = torch.from_numpy(_int_table(np.random.default_rng(3), plan.n_pad, 66, g.n)).reshape(
+        plan.n_pad, 6, 11)
+    assert torch.equal(ops.spmm(plan, t), ops.spmm(_port_plan(g), t))
+    small = port_erdos_renyi(40, 4.0, seed=2)  # one patch
+    assert _port_plan(small, "blocks").num_patches == 1
 
 
 def test_plain_versions_chunk(monkeypatch):
@@ -145,10 +217,12 @@ def test_plain_versions_chunk(monkeypatch):
     rng = np.random.default_rng(0)
     left = torch.from_numpy(_int_table(rng, plan.n_pad, 2 * 35, g.n)).reshape(-1, 2, 35)
     right = torch.from_numpy(_int_table(rng, plan.n_pad, 2 * 21, g.n)).reshape(-1, 2, 21)
-    m = ops.spmm(plan.indptr, plan.indices, right)
+    m = ops.spmm(plan, right)
     whole = ops.color_combine(left, m, tbl)
+    bplan = _port_plan(g, "blocks")
     monkeypatch.setattr(ref, "ELEMENT_BUDGET", 1000)
-    assert torch.equal(ops.spmm(plan.indptr, plan.indices, right), m)
+    assert torch.equal(ops.spmm(plan, right), m)
+    assert torch.equal(ops.spmm(bplan, right), m)
     assert torch.equal(ops.color_combine(left, m, tbl), whole)
     assert torch.equal(
         ref.fused_count_ref(plan.indptr, plan.indices, left, right, tbl.idx1, tbl.idx2,
@@ -193,7 +267,7 @@ def test_fused_never_materializes_m():
     with _Shapes() as fused_mode:
         fused = ops.fused_count(plan.indptr, plan.indices, left, right, tbl)
     with _Shapes() as unfused_mode:
-        unfused = ops.color_combine(left, ops.spmm(plan.indptr, plan.indices, right), tbl)
+        unfused = ops.color_combine(left, ops.spmm(plan, right), tbl)
     assert forbidden & set(unfused_mode.shapes)  # detector sanity
     assert not forbidden & set(fused_mode.shapes)
     assert (plan.n_pad, batch, tbl.s) in fused_mode.shapes  # the fused output
@@ -206,7 +280,11 @@ def test_wrappers_route_by_device():
     plan = _port_plan(g)
     tbl = ops.build_combine_tables(3, 1, 1, device=CPU)
     t = torch.ones(plan.n_pad, 1, 3)
-    before = (spmm_edge_tile.launches, color_combine.launches, fused_count.launches)
+    bplan = _port_plan(g, "blocks")
+    counts = lambda: (spmm_edge_tile.launches, spmm_block.launches,  # noqa: E731
+                      color_combine.launches, fused_count.launches)
+    before = counts()
     ops.fused_count(plan.indptr, plan.indices, t, t, tbl)
-    ops.color_combine(t, ops.spmm(plan.indptr, plan.indices, t), tbl)
-    assert (spmm_edge_tile.launches, color_combine.launches, fused_count.launches) == before
+    ops.color_combine(t, ops.spmm(plan, t), tbl)
+    ops.spmm(bplan, t)
+    assert counts() == before
