@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: the single-device tree-template
-estimate on one NVIDIA card, end to end, with every kernel of its paths
-built from this checkout and held against its plain PyTorch version.
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
+the single-device tree-template estimate and the granite-3-8b serving path
+(prefill, then decode), with every kernel of their paths built from this
+checkout and held against its plain PyTorch version.
 
-    python3 chip_smoke.py            # all phases, one card (about 4 minutes)
+    python3 chip_smoke.py            # all phases, one card (about 5 minutes)
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
-1. build   — compile the four CUDA kernels with nvcc (sm_90a), in parallel;
+1. build   — compile the five CUDA kernels with nvcc (sm_90a), in parallel;
 2. kernels — each kernel against its plain version at its path's shapes
              (every u12-2 node width), exact (==) on integer tables whose
              sums stay below 2^24; timed beside the plain version, a library
@@ -32,7 +33,25 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 6. launch  — the launcher: bench-small with and without --fuse prints
              identical estimates; --checkpoint-dir then --resume prints the
              same estimate; --fuse --spmm-kind auto on a dense --graph file
-             reports kind=edges and fuse=True.
+             reports kind=edges and fuse=True;
+7. flash   — the flash-attention kernel against its plain version at the
+             shape granite-3-8b's prefill launches it (B=4, Hq=32, Hkv=8,
+             L=4096, D=128, bf16, causal), within one bf16 step of the plain
+             version's float32 result rounded (plus 1e-6 near zero: both sum
+             in float32, in other orders); also B=1, float32 inputs, D=64 with
+             window 1024, bidirectional and a ragged L; the B=4 launch timed
+             beside the plain version, scaled_dot_product_attention (a
+             yardstick only) and its bound;
+8. lm      — granite-3-8b at full width and depth (40 layers, bf16 weights from
+             a seed): one warm and two timed prefills of B=4 prompts of 4096
+             tokens, then 32 greedy decode steps with finite logits; 40 kernel
+             launches per prefill; on the same weights in float32, the first
+             decode step's logits == a forward over the 4097 tokens at the last
+             position within 2e-2 (the reference's own tolerance); in bf16, the
+             first decode step no more than 1.5x as far from that float32
+             forward as the bf16 forward is; and a 2-layer full-width granite
+             in float32 (L=256) whose prefill on the card == the CPU's on the
+             same weights within 1e-4 relative.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -64,6 +83,18 @@ DENSE_BATCH = 16  # colorings per call on the dense cell (widest table 3.33 GB)
 DENSE_ITERS = 32  # colorings per estimate on the dense cell: 2 calls
 DENSE_PLAIN_BLOCKS = 8  # row blocks the dense-product plain block SpMM is held on
 PLAIN_RTOL = 1e-5  # float32 order: index_add_ uses atomics, counts exceed 2^24
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
+LM_ARCH = "granite-3-8b"
+LM_BATCH = 4  # prompts per prefill
+LM_LEN = 4096  # tokens per prompt
+LM_TIMED = 2  # timed prefills, after one warm one
+LM_DECODE = 32  # greedy decode steps
+LM_DECODE_TOL = 2e-2  # float32 decode vs forward logits (tests/test_models.py:114)
+LM_BF16_RATIO = 1.5  # bf16 decode vs float32 forward, over bf16 forward vs float32 forward
+LM_CARD_CPU_LEN = 256  # tokens of the 2-layer float32 card-vs-CPU prefill
+LM_CARD_CPU_RTOL = 1e-4  # float32 on both sides, TF32 off: summation order only
+FLASH_F32_TOL = 1e-5  # float32 kernel vs float32 plain version: summation order
+FLASH_BF16_ATOL = 1e-6  # beyond one bf16 step, for the float32 order near zero
 
 
 def log(msg: str) -> None:
@@ -118,21 +149,22 @@ def rmat_graph(n: int, m: int):
     return g
 
 
-def reset_launches():
-    from repro_torch.kernels import color_combine, fused_count, spmm_block, spmm_edgetile
+def _wrappers():
+    from repro_torch.kernels import (color_combine, flash_attention, fused_count, spmm_block,
+                                     spmm_edgetile)
 
-    for fn in (spmm_edgetile.spmm_edge_tile, spmm_block.spmm_block,
-               color_combine.color_combine, fused_count.fused_count):
+    return {"spmm_edgetile": spmm_edgetile.spmm_edge_tile, "spmm_block": spmm_block.spmm_block,
+            "color_combine": color_combine.color_combine, "fused_count": fused_count.fused_count,
+            "flash_attention": flash_attention.flash_attention}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels import color_combine, fused_count, spmm_block, spmm_edgetile
-
-    return {"spmm_edgetile": spmm_edgetile.spmm_edge_tile.launches,
-            "spmm_block": spmm_block.spmm_block.launches,
-            "color_combine": color_combine.color_combine.launches,
-            "fused_count": fused_count.fused_count.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def node_shapes(plan):
@@ -436,7 +468,7 @@ def phase_main(plan, batch: int, calls: int):
     launches = read_launches()
     want = n_internal * calls
     if launches != {"spmm_edgetile": want, "spmm_block": 0, "color_combine": want,
-                    "fused_count": want}:
+                    "fused_count": want, "flash_attention": 0}:
         raise AssertionError(f"launch counts {launches}, plan predicts {want} each")
     # the unfused DP alone, on colorings drawn before the timer: what the
     # draw adds to the end-to-end time
@@ -496,7 +528,8 @@ def phase_dense(g, dev):
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated(dev)
         want = len(plan.chain.internal_nodes()) * -(-DENSE_ITERS // DENSE_BATCH)
-        expect = {"spmm_edgetile": 0, "spmm_block": 0, "color_combine": want, "fused_count": 0}
+        expect = {"spmm_edgetile": 0, "spmm_block": 0, "color_combine": want, "fused_count": 0,
+                  "flash_attention": 0}
         expect[spmm] = want
         if launches != expect:
             raise AssertionError(f"spmm_kind={kind}: launch counts {launches}, plan predicts {expect}")
@@ -568,10 +601,285 @@ def phase_launch():
         "(unfused auto picks blocks; same estimates)")
 
 
+def attention_pairs(l: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask allows in self-attention over ``l`` tokens."""
+    import torch
+
+    i = torch.arange(l, dtype=torch.int64)
+    hi = i + 1 if causal else torch.full_like(i, l)
+    lo = (i - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(i)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def flash_bound(q, k, causal: bool, window: int):
+    """The larger of q, k, v and o moved once at the HBM rate and the masked
+    pairs' 4 D flops each at the bf16 tensor-core rate."""
+    b, hq, l, d = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * b * hq * attention_pairs(l, causal, window) * d / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa(q, k, v, causal: bool):
+    """PyTorch's fused attention on the same inputs: the library yardstick,
+    which the port never calls."""
+    import torch.nn.functional as F
+
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    g = q.shape[1] // k.shape[1]
+    kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    return lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
+
+
+def flash_check(q, k, v, causal: bool, window: int):
+    """The kernel against its plain version; returns the max abs error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.testing.numerics import bf16_excess
+
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = max_abs_err(got.float().flatten(0, 2), want.float().flatten(0, 2))
+    if q.dtype == torch.bfloat16:
+        excess = bf16_excess(got, want, atol=FLASH_BF16_ATOL)
+        ok = excess == 0.0
+    else:
+        excess = err - FLASH_F32_TOL
+        ok = err <= FLASH_F32_TOL
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention != plain at {tuple(q.shape)} {q.dtype} "
+                             f"causal={causal} window={window}: max_abs_err {err}, beyond the "
+                             f"tolerance by {excess}")
+    return err
+
+
+def phase_flash(dev):
+    """The flash kernel against its plain version at granite-3-8b's layer
+    shape, timed; then the other dtypes, head dims and masks."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+
+    def qkv(b, hq, hkv, l, d, dtype):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in ((b, hq, l, d), (b, hkv, l, d), (b, hkv, l, d))]
+
+    # the prefill's own launch: B=4 prompts, granite's heads, distinct q, k and v
+    q, k, v = qkv(LM_BATCH, 32, 8, LM_LEN, 128, torch.bfloat16)
+    err = flash_check(q, k, v, True, 0)
+    row = dict(
+        shape=f"B={LM_BATCH} Hq=32 Hkv=8 L={LM_LEN} D=128 bf16 causal", err=err,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 1),
+        library_ms=cuda_ms(sdpa(q, k, v, True), reps=10),
+        bound=flash_bound(q, k, True, 0))
+    log(f"phase 7 {row['shape']}: kernel {row['ms']:.3f}ms  plain {row['plain_ms']:.3f}ms  "
+        f"sdpa {row['library_ms']:.3f}ms  bound {row['bound'][0]:.4f} {row['bound'][1]}; "
+        f"max_abs_err {err:.3g} (within one bf16 step + {FLASH_BF16_ATOL})")
+    del q, k, v
+    for b, hq, hkv, l, d, dtype, causal, window in (
+            (1, 32, 8, LM_LEN, 128, torch.bfloat16, True, 0),
+            (1, 32, 8, 1024, 128, torch.float32, True, 0),
+            (1, 32, 8, 2048, 64, torch.bfloat16, True, 1024),
+            (2, 16, 8, 1024, 128, torch.bfloat16, False, 0),
+            (2, 8, 2, 1000, 64, torch.float32, False, 300)):
+        e = flash_check(*qkv(b, hq, hkv, l, d, dtype), causal, window)
+        log(f"phase 7 B={b} Hq={hq} Hkv={hkv} L={l} D={d} {dtype} causal={causal} "
+            f"window={window}: == plain, max_abs_err {e:.3g}")
+    return row
+
+
+def phase_lm(dev, flash_ms: float):
+    """granite-3-8b served on the card: prefill, then greedy decode.
+    ``flash_ms`` is phase 7's time of one kernel launch at the prefill's shape."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import forward
+
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg, cast_params=True, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_fn(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"phase 8 {LM_ARCH}: {n_params} parameters ({weight_bytes / 1e9:.2f} GB) drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gen.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_LEN), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    logits, caches = model.prefill_fn(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s, per_prefill = [], []
+    for _ in range(LM_TIMED):
+        del logits, caches
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        logits, caches = model.prefill_fn(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        per_prefill.append(flash_attention.launches - before)
+    tok = logits.argmax(-1, keepdim=True)
+    first_tok, steps = tok, []
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        step, caches = model.decode_fn(params, {"tokens": tok, "pos": LM_LEN + i, "caches": caches})
+        steps.append(step)
+        tok = step.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / LM_DECODE * 1e3
+    first_logits = steps[0]
+    if not all(torch.isfinite(x).all() for x in steps):
+        raise AssertionError("a bf16 decode step gave logits that are not finite")
+    del steps
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if per_prefill != [cfg.num_layers] * LM_TIMED:
+        raise AssertionError(f"flash launches per prefill {per_prefill}, want {cfg.num_layers}")
+    if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH, cfg.padded_vocab):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    prefill_ms = min(prefill_s) * 1e3
+    log(f"phase 8 prefill B={LM_BATCH} L={LM_LEN}: {[round(t * 1e3, 1) for t in prefill_s]} ms "
+        f"({LM_BATCH * LM_LEN / min(prefill_s):.0f} tokens/s); decode {decode_ms:.2f} ms/step "
+        f"over {LM_DECODE} steps; peak {peak / 2 ** 30:.2f} GiB; flash launches per prefill "
+        f"{per_prefill}; path launches {launches}")
+    split = device_split(lambda: model.prefill_fn(params, {"tokens": prompt}))
+    log(f"phase 8 prefill under the profiler: {split}")
+    dsplit = device_split(lambda: model.decode_fn(
+        params, {"tokens": tok, "pos": LM_LEN + LM_DECODE, "caches": caches}))
+    log(f"phase 8 decode step under the profiler: {dsplit}")
+    # decode == forward: the first decode step against a forward over L + 1
+    # tokens, at the last position.  In bf16 the two paths round at other
+    # places (a 4-row GEMM against a 16,388-row one, the plain decode
+    # attention against the kernel), and 40 layers of random weights carry
+    # those bf16 steps to the logits, so the reference's 2e-2 is held on the
+    # same weights in float32 (caches stay bf16, as the reference fixes them).
+    # The bf16 path that is served is held to the float32 forward instead:
+    # its decode step may stray from it at most LM_BF16_RATIO times as far
+    # as the bf16 forward does.
+    toks = torch.cat([prompt, first_tok], 1)
+    v = cfg.vocab_size  # the pad columns hold -1e30 on both sides
+    full, _ = forward(params, cfg, toks, mode="train")
+    fwd_bf16 = full[:, -1, :v].clone()
+    del full, caches, logits, step
+    torch.cuda.empty_cache()
+    params.float()  # the same weights, exactly, in float32 (in place)
+    model32 = build_model(cfg, dtype=torch.float32, device=dev)
+    _, caches = model32.prefill_fn(params, {"tokens": prompt})
+    dec32, caches = model32.decode_fn(params, {"tokens": first_tok, "pos": LM_LEN,
+                                               "caches": caches})
+    del caches
+    full, _ = forward(params, cfg, toks, mode="train", dtype=torch.float32)
+    fwd32 = full[:, -1].clone()
+    del full
+    dec_err = (dec32[:, :v] - fwd32[:, :v]).abs().max().item()
+    if not torch.allclose(dec32, fwd32, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL):
+        raise AssertionError(f"float32 decode step 0 vs forward over {LM_LEN + 1} tokens: max abs "
+                             f"err {dec_err} beyond {LM_DECODE_TOL}")
+    fwd32 = fwd32[:, :v]
+    bf16_dist = {"decode_vs_forward": (first_logits[:, :v] - fwd_bf16).abs().max().item(),
+                 "decode_vs_float32_forward": (first_logits[:, :v] - fwd32).abs().max().item(),
+                 "forward_vs_float32_forward": (fwd_bf16 - fwd32).abs().max().item()}
+    bf16_ratio = bf16_dist["decode_vs_float32_forward"] / bf16_dist["forward_vs_float32_forward"]
+    if not bf16_ratio <= LM_BF16_RATIO:
+        raise AssertionError(f"bf16 decode step 0 is {bf16_ratio:.3g}x as far from the float32 "
+                             f"forward as the bf16 forward is, beyond {LM_BF16_RATIO}: {bf16_dist}")
+    log(f"phase 8: float32 decode step 0 == forward over {LM_LEN + 1} tokens within "
+        f"{LM_DECODE_TOL} (max abs err {dec_err:.3g}; logits rms "
+        f"{fwd32.pow(2).mean().sqrt().item():.3g}, max {fwd32.abs().max().item():.3g}); bf16 "
+        f"decode step 0 {bf16_ratio:.3g}x as far from the float32 forward as the bf16 forward "
+        f"(limit {LM_BF16_RATIO}; max abs distances {bf16_dist}); flash {flash_ms:.2f} ms x "
+        f"{cfg.num_layers} = {flash_ms * cfg.num_layers / prefill_ms:.1%} of the prefill")
+    del params, model, model32
+    torch.cuda.empty_cache()
+    # the kernel in the model where the CPU can follow: 2 layers, full width, float32
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    card = build_model(cfg2, dtype=torch.float32, device=dev)
+    cpu = build_model(cfg2, dtype=torch.float32, device="cpu")
+    gen.manual_seed(2)
+    p_card = card.init_fn(gen)
+    p_cpu = copy.deepcopy(p_card).to("cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_CARD_CPU_LEN), generator=gen, device=dev)
+    before = flash_attention.launches
+    got, _ = card.prefill_fn(p_card, {"tokens": toks})
+    if flash_attention.launches - before != cfg2.num_layers:
+        raise AssertionError("the 2-layer prefill did not run the kernel once per layer")
+    t0 = time.perf_counter()
+    want, _ = cpu.prefill_fn(p_cpu, {"tokens": toks.cpu()})
+    cpu_s = time.perf_counter() - t0
+    got, want = got.cpu(), want
+    rel = (got[:, :v] - want[:, :v]).abs().max().item() / want[:, :v].abs().max().item()
+    if not rel <= LM_CARD_CPU_RTOL or not torch.equal(got[:, v:], want[:, v:]):
+        raise AssertionError(f"2-layer float32 prefill: card vs CPU relative error {rel}")
+    log(f"phase 8: 2-layer full-width float32 prefill (L={LM_CARD_CPU_LEN}) on the card == the "
+        f"CPU's within {LM_CARD_CPU_RTOL} (relative error {rel:.3g}; CPU {cpu_s:.1f}s)")
+    del p_card, p_cpu, card, cpu
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=prefill_ms,
+                prefill_ms_runs=[t * 1e3 for t in prefill_s],
+                tokens_per_s=LM_BATCH * LM_LEN / min(prefill_s), decode_ms_per_step=decode_ms,
+                peak_bytes=peak, flash_launches_per_prefill=per_prefill[0],
+                flash_ms_per_launch=flash_ms,
+                flash_share_of_prefill=flash_ms * cfg.num_layers / prefill_ms,
+                decode_vs_forward_max_abs_err_float32=dec_err, bf16_max_abs_distances=bf16_dist,
+                bf16_decode_over_forward_distance=bf16_ratio,
+                card_vs_cpu_rel_err=rel,
+                n_params=n_params, weight_bytes=weight_bytes, prefill_split=split,
+                decode_split=dsplit)
+
+
+def device_split(fn):
+    """Device time of the kernels ``fn()`` launches, by kind, from a
+    torch.profiler trace, beside the host clock around the call (their
+    ratio is the device's busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds, top = {}, []
+    for ev in prof.key_averages():
+        # kernels only: CPU ops report the device time of what they launch,
+        # and "Command Buffer Full" is the runtime waiting for room to launch
+        if ev.device_type != DeviceType.CUDA or ev.key == "Command Buffer Full":
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        ms = (ev.self_cuda_time_total if us is None else us) / 1e3
+        name = ev.key.lower()
+        kind = ("flash_attention" if "flash_attention_kernel" in name else
+                "matmul" if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        top.append((ev.key, ms, ev.count))
+    busy = sum(kinds.values())
+    top = sorted(top, key=lambda x: -x[1])[:6]
+    return {"device_ms_by_kind": kinds, "device_busy_ms": busy, "wall_ms": wall_ms,
+            "busy_share": busy / wall_ms if wall_ms else None,
+            "top_kernels": [[n[:80], ms, c] for n, ms, c in top]}
+
+
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, card):
+def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, card):
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
                           "src/repro/kernels/spmm_edgetile.py:137"),
@@ -615,12 +923,28 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, card):
                       f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("sample_ms"),
                       "library": "torch.sparse.mm, CSR"}
         out.append(entry)
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:111",
+        "launches": sum(p["flash_attention"] for p in launches.values()),
+        "launches_by_path": {path: p["flash_attention"] for path, p in launches.items()},
+        "max_abs_err": flash["err"], "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound"][0], "bound_by": flash["bound"][1],
+        "library_ms": flash["library_ms"],
+        "check": f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}",
+        "cell": "lm", "time_unit": f"ms per launch at {flash['shape']}",
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+    })
     main_path = {("fused" if fuse else "unfused"): {"ms_per_coloring": ms, "peak_bytes": peak}
                  for fuse, (ms, peak) in per.items()}
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
     return {"kernels": out, "card": card, "batch": {"main": MAIN_BATCH, "dense": DENSE_BATCH},
             "time_unit": "ms per u12-2 DP pass over all node shapes", "main_path": main_path,
-            "dense_path": dense}
+            "dense_path": dense,
+            "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
+                        "decode_steps": LM_DECODE}
+            | {k: v for k, v in lm.items() if k != "launches"}}
 
 
 def run_phases(dev):
@@ -652,13 +976,16 @@ def run_phases(dev):
     dense = phase_dense(dense_graph, dev)
     del dense_graph
     phase_launch()
+    flash = phase_flash(dev)
+    lm = phase_lm(dev, flash["ms"])
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
-                          for k in main_launches}}
+                          for k in main_launches},
+                "lm": lm["launches"]}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
-    return rows, dense_rows, launches, per, draw_ms, dense
+    return rows, dense_rows, launches, per, draw_ms, dense, flash, lm
 
 
 def main() -> int:

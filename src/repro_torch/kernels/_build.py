@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Sequence
 __all__ = ["KERNELS", "build", "kernel_fn", "check"]
 
 #: one shared library per source file
-KERNELS = ("spmm_edgetile", "spmm_block", "color_combine", "fused_count")
+KERNELS = ("spmm_edgetile", "spmm_block", "color_combine", "fused_count", "flash_attention")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"

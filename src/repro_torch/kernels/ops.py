@@ -1,6 +1,7 @@
-"""Plans and dispatch for the count-table ops.
+"""Plans and dispatch for the count-table ops, and flash attention.
 
-Counterpart of ``repro/kernels/ops.py`` for the single-device tree path.
+Counterpart of ``repro/kernels/ops.py`` for the single-device tree path and
+the language model's attention.
 There is no ``impl`` switch: every op is its kernel module's wrapper,
 re-exported here, and routes by the tensor's device.  A CPU tensor runs the
 op's plain PyTorch version; a CUDA tensor runs the hand-written kernel or
@@ -27,6 +28,7 @@ import torch
 
 from ..core.colorsets import split_tables
 from .color_combine import color_combine
+from .flash_attention import flash_attention
 from .fused_count import fused_count
 from .spmm_block import spmm_block
 from .spmm_edgetile import spmm_edge_tile
@@ -46,6 +48,7 @@ __all__ = [
     "build_combine_tables",
     "color_combine",
     "fused_count",
+    "flash_attention",
 ]
 
 #: the vertex dimension is padded to a multiple of this; the block-dense

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four count-table kernels.
+"""Plain PyTorch versions of the four count-table kernels and of flash attention.
 
 They are the kernels' oracles: the CPU runs them (every wrapper routes a
 CPU tensor here), and ``chip_smoke.py`` holds each CUDA kernel against its
@@ -23,6 +23,7 @@ __all__ = [
     "spmm_block_ref",
     "color_combine_ref",
     "fused_count_ref",
+    "flash_attention_ref",
 ]
 
 #: bound on the elements of one chunked gather intermediate
@@ -139,4 +140,60 @@ def fused_count_ref(
         r1 = min(r0 + row_block, rows)
         m_blk = spmm_segment_ref(indptr[r0 : r1 + 1], indices, right)
         out[r0:r1] = color_combine_ref(left[r0:r1], m_blk, idx1, idx2)
+    return out
+
+
+#: the finite mask value of the TPU flash kernel (``flash_attention.py:31``)
+NEG = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Softmax attention as the TPU flash kernel computes it.
+
+    ``q`` is ``[B, Hq, Lq, D]``, ``k`` and ``v`` ``[B, Hkv, Lk, D]``; query
+    head ``h`` reads KV head ``h // (Hq / Hkv)`` (GQA).  In float32: logits
+    ``q k^T * D**-0.5``, masked with the
+    finite ``-1e30`` where ``kpos > qpos`` (``causal``) or ``kpos <= qpos -
+    window`` (``window > 0``), query positions aligned to the end of the keys
+    (``qpos = i + Lk - Lq``); then ``p = exp(logits - max)`` zeroed where
+    masked, ``out = (p v) / l`` with ``l = sum p`` and ``l == 0`` read as 1, so
+    a fully masked row gives 0.  The output is in ``q``'s dtype.  Chunked per
+    (batch, KV head) and over query rows, so the logits of one chunk stay
+    within :data:`ELEMENT_BUDGET` and no ``[B, H, Lq, Lk]`` tensor is made.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    g = hq // hkv
+    scale = d ** -0.5
+    out = torch.empty_like(q)
+    qpos = torch.arange(lq, device=q.device) + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)
+    rows = max(1, ELEMENT_BUDGET // (g * max(lk, 1)))
+    for ib in range(b):
+        for kh in range(hkv):
+            kf, vf = k[ib, kh].float(), v[ib, kh].float()
+            heads = slice(kh * g, (kh + 1) * g)
+            for r0 in range(0, lq, rows):
+                r1 = min(r0 + rows, lq)
+                logits = (q[ib, heads, r0:r1].float() @ kf.T) * scale  # [g, r, Lk]
+                mask = torch.ones((r1 - r0, lk), dtype=torch.bool, device=q.device)
+                if causal:
+                    mask &= kpos[None, :] <= qpos[r0:r1, None]
+                if window > 0:
+                    mask &= kpos[None, :] > qpos[r0:r1, None] - window
+                logits = torch.where(mask, logits, NEG)
+                p = torch.exp(logits - logits.amax(-1, keepdim=True))
+                p = torch.where(mask, p, 0.0)
+                l = p.sum(-1, keepdim=True)
+                l = torch.where(l == 0.0, 1.0, l)
+                out[ib, heads, r0:r1] = ((p @ vf) / l).to(q.dtype)
     return out

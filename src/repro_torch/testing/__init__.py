@@ -1,1 +1,2 @@
-"""Test support shipped with the port: deterministic fault injection."""
+"""Test support shipped with the port: deterministic fault injection, and
+tolerances in bf16 steps."""

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each against its plain version, and
-the engine against the brute-force oracle.
+"""The port's CUDA kernels on the card: each against its plain version, the
+engine against the brute-force oracle, and the LM's prefill and decode on
+the card against the same weights on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports nothing of JAX, so it runs on
@@ -8,12 +9,15 @@ a machine with only PyTorch:
     PYTHONPATH=src python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
 
+import copy
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import prng
 from repro_torch.core.brute_force import count_colorful_maps
 from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
@@ -21,9 +25,12 @@ from repro_torch.core.graphs import edge_list, erdos_renyi, rmat
 from repro_torch.core.templates import template
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.color_combine import color_combine
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_count import fused_count
 from repro_torch.kernels.spmm_block import spmm_block
 from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+from repro_torch.models import build_model
+from repro_torch.testing.numerics import bf16_excess
 
 pytestmark = pytest.mark.gpu
 
@@ -133,3 +140,71 @@ def test_colorings_on_card_equal_cpu(cuda_device, seed, k):
         got = prng.randint(key, shape, 0, k, device=cuda_device)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), prng.randint(key, shape, 0, k, device="cpu"))
+
+
+def _qkv(device, dtype, b, hq, hkv, l, d, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, hq, l, d), (b, hkv, l, d), (b, hkv, l, d))]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window,l", [(True, 0, 256), (True, 100, 300), (False, 0, 200),
+                                             (False, 64, 129), (True, 0, 1)])
+def test_flash_attention_matches_plain(cuda_device, d, dtype, causal, window, l):
+    """The kernel == its plain version on the same inputs: float32 within
+    1e-5 (float32 sums in other orders), bf16 within one bf16 step of the
+    plain version's float32 result rounded, plus 1e-6 for the sums' order
+    near zero.  Ragged L, windows and bidirectional masks included."""
+    q, k, v = _qkv(cuda_device, dtype, 2, 8, 2, l, d, seed=d + l)
+    launched = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == launched + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bf16_excess(got, want, atol=1e-6) == 0.0
+
+
+def test_flash_attention_refuses_bad_tensors(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 64, 64, seed=0)
+    with pytest.raises(ValueError):
+        flash_attention(q.half(), k.half(), v.half())  # dtype
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :32], k[..., :32], v[..., :32])  # head dim, contiguity
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())  # head dim 32
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :32].contiguous(), k, v)  # Lq != Lk
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda_device):
+    """A small granite (head_dim 64, so the kernel runs) in float32: the
+    card's prefill and decode logits equal the CPU's on the same weights
+    within 1e-4 (TF32 off), with one kernel launch per layer per prefill."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("granite-3-8b").reduced(), head_dim=64, num_layers=3)
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
+    card = build_model(cfg, dtype=torch.float32, device=cuda_device)
+    params = cpu.init_fn(torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(params).to(cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 201)))
+    launched = flash_attention.launches
+    got, caches = card.prefill_fn(on_card, {"tokens": toks[:, :200].to(cuda_device)})
+    assert flash_attention.launches == launched + cfg.num_layers
+    want, cpu_caches = cpu.prefill_fn(params, {"tokens": toks[:, :200]})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    got, _ = card.decode_fn(on_card, {"tokens": toks[:, 200:].to(cuda_device), "pos": 200,
+                                      "caches": caches})
+    want, _ = cpu.decode_fn(params, {"tokens": toks[:, 200:], "pos": 200, "caches": cpu_caches})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -45,12 +45,30 @@ def test_slice_two_modules_are_checked(module):
     assert path in PORT_FILES
 
 
+SLICE_THREE_MODULES = ["configs/__init__.py", "configs/base.py", "configs/granite_3_8b.py",
+                       "configs/internlm2_1_8b.py", "configs/qwen1_5_0_5b.py",
+                       "configs/smollm_360m.py", "kernels/flash_attention.py",
+                       "models/__init__.py", "models/layers.py", "models/attention.py",
+                       "models/transformer.py", "models/factory.py", "models/convert.py",
+                       "testing/numerics.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_THREE_MODULES)
+def test_slice_three_modules_are_checked(module):
+    """The LM slice's modules are among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
         "repro_torch.core.prng, repro_torch.core.supervisor, repro_torch.api, "
         "repro_torch.train.checkpoint, repro_torch.testing.faults, "
-        "repro_torch.kernels.spmm_block, repro_torch.launch.count; "
+        "repro_torch.kernels.spmm_block, repro_torch.launch.count, repro_torch.configs, "
+        "repro_torch.configs.base, repro_torch.kernels.flash_attention, repro_torch.models, "
+        "repro_torch.models.layers, repro_torch.models.attention, "
+        "repro_torch.models.transformer, repro_torch.models.factory, "
+        "repro_torch.models.convert, repro_torch.testing.numerics; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
