@@ -8,7 +8,9 @@ checkout and held against its plain PyTorch version.
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
-1. build   — compile the five CUDA kernels with nvcc (sm_90a), in parallel;
+1. build   — compile the six CUDA kernel libraries with nvcc (sm_90a), in
+             parallel; the bf16 flash library's SASS must hold HGMMA (wgmma)
+             and UTMALDG (TMA loads);
 2. kernels — each kernel against its plain version at its path's shapes
              (every u12-2 node width), exact (==) on integer tables whose
              sums stay below 2^24; timed beside the plain version, a library
@@ -34,24 +36,31 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              identical estimates; --checkpoint-dir then --resume prints the
              same estimate; --fuse --spmm-kind auto on a dense --graph file
              reports kind=edges and fuse=True;
-7. flash   — the flash-attention kernel against its plain version at the
-             shape granite-3-8b's prefill launches it (B=4, Hq=32, Hkv=8,
-             L=4096, D=128, bf16, causal), within one bf16 step of the plain
-             version's float32 result rounded (plus 1e-6 near zero: both sum
-             in float32, in other orders); also B=1, float32 inputs, D=64 with
-             window 1024, bidirectional and a ragged L; the B=4 launch timed
-             beside the plain version, scaled_dot_product_attention (a
-             yardstick only) and its bound;
+7. flash   — the bf16 flash-attention kernel (wgmma) against its plain
+             version at the shape granite-3-8b's prefill launches it (B=4,
+             Hq=32, Hkv=8, L=4096, D=128, causal), within one bf16 step of the
+             plain version's float32 result rounded (plus 1e-6 near zero: both
+             sum in float32, in other orders); timed beside the plain version,
+             scaled_dot_product_attention (a yardstick only, whose own distance
+             from the plain version under the same gate is logged) and its
+             bound; the float32 kernel (CUDA cores) at the same shape within
+             1e-5, timed the same way; also B=1, D=64 with window 1024,
+             bidirectional, ragged L (1, 127, 128, 1000, 4097) and GQA groups
+             1, 2, 4 and 8;
 8. lm      — granite-3-8b at full width and depth (40 layers, bf16 weights from
              a seed): one warm and two timed prefills of B=4 prompts of 4096
-             tokens, then 32 greedy decode steps with finite logits; 40 kernel
-             launches per prefill; on the same weights in float32, the first
+             tokens, then 32 greedy decode steps with finite logits; 40
+             launches of the bf16 kernel per prefill; on the same weights in
+             float32 (the float32 kernel), the first
              decode step's logits == a forward over the 4097 tokens at the last
              position within 2e-2 (the reference's own tolerance); in bf16, the
              first decode step no more than 1.5x as far from that float32
              forward as the bf16 forward is; and a 2-layer full-width granite
              in float32 (L=256) whose prefill on the card == the CPU's on the
-             same weights within 1e-4 relative.
+             same weights within 1e-4 relative.  The launches of the served
+             path (the three prefills and the decode steps) and those of the
+             float32 checks are counted apart, as paths "lm" and
+             "lm_float32_checks".
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -149,22 +158,29 @@ def rmat_graph(n: int, m: int):
     return g
 
 
-def _wrappers():
+def _counters():
+    """Each kernel's launch count: its wrapper and the attribute that counts
+    it.  One wrapper takes both flash kernels, counted by route."""
     from repro_torch.kernels import (color_combine, flash_attention, fused_count, spmm_block,
                                      spmm_edgetile)
 
-    return {"spmm_edgetile": spmm_edgetile.spmm_edge_tile, "spmm_block": spmm_block.spmm_block,
-            "color_combine": color_combine.color_combine, "fused_count": fused_count.fused_count,
-            "flash_attention": flash_attention.flash_attention}
+    flash = flash_attention.flash_attention
+    return {"spmm_edgetile": (spmm_edgetile.spmm_edge_tile, "launches"),
+            "spmm_block": (spmm_block.spmm_block, "launches"),
+            "color_combine": (color_combine.color_combine, "launches"),
+            "fused_count": (fused_count.fused_count, "launches"),
+            "flash_attention": (flash, "launches_wgmma"),
+            "flash_attention_fp32": (flash, "launches_fp32")}
 
 
 def reset_launches():
-    for fn in _wrappers().values():
+    for fn, attr in _counters().values():
         fn.launches = 0
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def node_shapes(plan):
@@ -190,6 +206,14 @@ def phase_build():
     times = _build.build(verbose=True)
     log(f"phase 1 build: {', '.join(f'{k} {v:.1f}s' for k, v in times.items())} "
         f"(wall {time.perf_counter() - t0:.1f}s)")
+    sass = _build.sass("flash_attention_wgmma")
+    if sass is None:
+        raise AssertionError("the toolkit has no cuobjdump: the flash library's SASS is unread")
+    counts = {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"the bf16 flash library's SASS lacks wgmma or TMA loads: {counts}")
+    log(f"phase 1: flash_attention_wgmma's SASS holds {counts} (instructions)")
+    return counts
 
 
 def phase_kernels(plan, batch: int):
@@ -468,7 +492,7 @@ def phase_main(plan, batch: int, calls: int):
     launches = read_launches()
     want = n_internal * calls
     if launches != {"spmm_edgetile": want, "spmm_block": 0, "color_combine": want,
-                    "fused_count": want, "flash_attention": 0}:
+                    "fused_count": want, "flash_attention": 0, "flash_attention_fp32": 0}:
         raise AssertionError(f"launch counts {launches}, plan predicts {want} each")
     # the unfused DP alone, on colorings drawn before the timer: what the
     # draw adds to the end-to-end time
@@ -529,7 +553,7 @@ def phase_dense(g, dev):
         peak = torch.cuda.max_memory_allocated(dev)
         want = len(plan.chain.internal_nodes()) * -(-DENSE_ITERS // DENSE_BATCH)
         expect = {"spmm_edgetile": 0, "spmm_block": 0, "color_combine": want, "fused_count": 0,
-                  "flash_attention": 0}
+                  "flash_attention": 0, "flash_attention_fp32": 0}
         expect[spmm] = want
         if launches != expect:
             raise AssertionError(f"spmm_kind={kind}: launch counts {launches}, plan predicts {expect}")
@@ -658,11 +682,13 @@ def flash_check(q, k, v, causal: bool, window: int):
 
 
 def phase_flash(dev):
-    """The flash kernel against its plain version at granite-3-8b's layer
-    shape, timed; then the other dtypes, head dims and masks."""
+    """The flash kernels against their plain version at granite-3-8b's
+    prefill launch, timed: bf16 (wgmma) and float32 (CUDA cores); then other
+    head dims, masks, lengths and GQA groups."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.testing.numerics import bf16_excess, bf16_ulp
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
@@ -671,29 +697,50 @@ def phase_flash(dev):
         return [torch.randn(s, generator=gen, device=dev).to(dtype)
                 for s in ((b, hq, l, d), (b, hkv, l, d), (b, hkv, l, d))]
 
-    # the prefill's own launch: B=4 prompts, granite's heads, distinct q, k and v
-    q, k, v = qkv(LM_BATCH, 32, 8, LM_LEN, 128, torch.bfloat16)
-    err = flash_check(q, k, v, True, 0)
-    row = dict(
-        shape=f"B={LM_BATCH} Hq=32 Hkv=8 L={LM_LEN} D=128 bf16 causal", err=err,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 1),
-        library_ms=cuda_ms(sdpa(q, k, v, True), reps=10),
-        bound=flash_bound(q, k, True, 0))
-    log(f"phase 7 {row['shape']}: kernel {row['ms']:.3f}ms  plain {row['plain_ms']:.3f}ms  "
-        f"sdpa {row['library_ms']:.3f}ms  bound {row['bound'][0]:.4f} {row['bound'][1]}; "
-        f"max_abs_err {err:.3g} (within one bf16 step + {FLASH_BF16_ATOL})")
-    del q, k, v
+    rows = {}
+    for dtype, reps in ((torch.bfloat16, 10), (torch.float32, 3)):
+        # the prefill's own launch: B=4 prompts, granite's heads, distinct q, k and v
+        q, k, v = qkv(LM_BATCH, 32, 8, LM_LEN, 128, dtype)
+        err = flash_check(q, k, v, True, 0)
+        lib = sdpa(q, k, v, True)
+        row = dict(
+            shape=f"B={LM_BATCH} Hq=32 Hkv=8 L={LM_LEN} D=128 {str(dtype)[6:]} causal", err=err,
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 1),
+            library_ms=cuda_ms(lib, reps=reps), bound=flash_bound(q, k, True, 0))
+        note = ""
+        if dtype == torch.bfloat16:
+            # what the yardstick computes: SDPA under the kernel's own gate
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            got = lib()
+            beyond = ((got.float() - want.float()).abs() - bf16_ulp(want) - FLASH_BF16_ATOL > 0)
+            row["library_bf16_excess"] = bf16_excess(got, want, atol=FLASH_BF16_ATOL)
+            row["library_share_beyond_gate"] = beyond.float().mean().item()
+            note = (f"; sdpa beyond the same gate by {row['library_bf16_excess']:.3g} on "
+                    f"{row['library_share_beyond_gate']:.2%} of the outputs")
+            del want, got, beyond
+        tol = (f"one bf16 step + {FLASH_BF16_ATOL}" if dtype == torch.bfloat16
+               else f"{FLASH_F32_TOL}")
+        log(f"phase 7 {row['shape']}: kernel {row['ms']:.3f}ms  plain {row['plain_ms']:.3f}ms  "
+            f"sdpa {row['library_ms']:.3f}ms  bound {row['bound'][0]:.4f} {row['bound'][1]}; "
+            f"max_abs_err {err:.3g} (within {tol}){note}")
+        rows[dtype] = row
+        del q, k, v, lib
     for b, hq, hkv, l, d, dtype, causal, window in (
             (1, 32, 8, LM_LEN, 128, torch.bfloat16, True, 0),
             (1, 32, 8, 1024, 128, torch.float32, True, 0),
             (1, 32, 8, 2048, 64, torch.bfloat16, True, 1024),
             (2, 16, 8, 1024, 128, torch.bfloat16, False, 0),
-            (2, 8, 2, 1000, 64, torch.float32, False, 300)):
+            (2, 8, 2, 1000, 64, torch.float32, False, 300),
+            (2, 8, 8, 127, 128, torch.bfloat16, True, 0),  # GQA group 1
+            (2, 16, 8, 128, 64, torch.bfloat16, False, 0),  # group 2, one tile
+            (1, 32, 8, LM_LEN + 1, 128, torch.bfloat16, True, 0),  # group 4, a key past a tile
+            (2, 32, 4, 1, 128, torch.bfloat16, True, 0),  # group 8, one token
+            (1, 8, 1, 1000, 64, torch.bfloat16, True, 300)):  # group 8, window
         e = flash_check(*qkv(b, hq, hkv, l, d, dtype), causal, window)
         log(f"phase 7 B={b} Hq={hq} Hkv={hkv} L={l} D={d} {dtype} causal={causal} "
             f"window={window}: == plain, max_abs_err {e:.3g}")
-    return row
+    return rows[torch.bfloat16], rows[torch.float32]
 
 
 def phase_lm(dev, flash_ms: float):
@@ -727,12 +774,12 @@ def phase_lm(dev, flash_ms: float):
     prefill_s, per_prefill = [], []
     for _ in range(LM_TIMED):
         del logits, caches
-        before = flash_attention.launches
+        before = flash_attention.launches_wgmma
         t0 = time.perf_counter()
         logits, caches = model.prefill_fn(params, {"tokens": prompt})
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-        per_prefill.append(flash_attention.launches - before)
+        per_prefill.append(flash_attention.launches_wgmma - before)
     tok = logits.argmax(-1, keepdim=True)
     first_tok, steps = tok, []
     t0 = time.perf_counter()
@@ -748,15 +795,16 @@ def phase_lm(dev, flash_ms: float):
     del steps
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
-    if per_prefill != [cfg.num_layers] * LM_TIMED:
-        raise AssertionError(f"flash launches per prefill {per_prefill}, want {cfg.num_layers}")
+    if per_prefill != [cfg.num_layers] * LM_TIMED or launches["flash_attention_fp32"]:
+        raise AssertionError(f"bf16 flash launches per prefill {per_prefill}, want "
+                             f"{cfg.num_layers} on the wgmma route; path launches {launches}")
     if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH, cfg.padded_vocab):
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     prefill_ms = min(prefill_s) * 1e3
     log(f"phase 8 prefill B={LM_BATCH} L={LM_LEN}: {[round(t * 1e3, 1) for t in prefill_s]} ms "
         f"({LM_BATCH * LM_LEN / min(prefill_s):.0f} tokens/s); decode {decode_ms:.2f} ms/step "
-        f"over {LM_DECODE} steps; peak {peak / 2 ** 30:.2f} GiB; flash launches per prefill "
-        f"{per_prefill}; path launches {launches}")
+        f"over {LM_DECODE} steps; peak {peak / 2 ** 30:.2f} GiB; wgmma flash launches per "
+        f"prefill {per_prefill}; path launches {launches}")
     split = device_split(lambda: model.prefill_fn(params, {"tokens": prompt}))
     log(f"phase 8 prefill under the profiler: {split}")
     dsplit = device_split(lambda: model.decode_fn(
@@ -777,6 +825,7 @@ def phase_lm(dev, flash_ms: float):
     fwd_bf16 = full[:, -1, :v].clone()
     del full, caches, logits, step
     torch.cuda.empty_cache()
+    reset_launches()  # the float32 checks below are a path of their own
     params.float()  # the same weights, exactly, in float32 (in place)
     model32 = build_model(cfg, dtype=torch.float32, device=dev)
     _, caches = model32.prefill_fn(params, {"tokens": prompt})
@@ -814,10 +863,10 @@ def phase_lm(dev, flash_ms: float):
     p_card = card.init_fn(gen)
     p_cpu = copy.deepcopy(p_card).to("cpu")
     toks = torch.randint(0, cfg.vocab_size, (1, LM_CARD_CPU_LEN), generator=gen, device=dev)
-    before = flash_attention.launches
+    before = flash_attention.launches_fp32
     got, _ = card.prefill_fn(p_card, {"tokens": toks})
-    if flash_attention.launches - before != cfg2.num_layers:
-        raise AssertionError("the 2-layer prefill did not run the kernel once per layer")
+    if flash_attention.launches_fp32 - before != cfg2.num_layers:
+        raise AssertionError("the 2-layer prefill did not run the float32 kernel once per layer")
     t0 = time.perf_counter()
     want, _ = cpu.prefill_fn(p_cpu, {"tokens": toks.cpu()})
     cpu_s = time.perf_counter() - t0
@@ -827,9 +876,12 @@ def phase_lm(dev, flash_ms: float):
         raise AssertionError(f"2-layer float32 prefill: card vs CPU relative error {rel}")
     log(f"phase 8: 2-layer full-width float32 prefill (L={LM_CARD_CPU_LEN}) on the card == the "
         f"CPU's within {LM_CARD_CPU_RTOL} (relative error {rel:.3g}; CPU {cpu_s:.1f}s)")
+    check_launches = read_launches()
+    if check_launches["flash_attention"]:
+        raise AssertionError(f"the float32 checks launched the bf16 kernel: {check_launches}")
     del p_card, p_cpu, card, cpu
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=prefill_ms,
+    return dict(launches=launches, float32_check_launches=check_launches, prefill_ms=prefill_ms,
                 prefill_ms_runs=[t * 1e3 for t in prefill_s],
                 tokens_per_s=LM_BATCH * LM_LEN / min(prefill_s), decode_ms_per_step=decode_ms,
                 peak_bytes=peak, flash_launches_per_prefill=per_prefill[0],
@@ -923,19 +975,29 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, car
                       f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("sample_ms"),
                       "library": "torch.sparse.mm, CSR"}
         out.append(entry)
-    out.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:111",
-        "launches": sum(p["flash_attention"] for p in launches.values()),
-        "launches_by_path": {path: p["flash_attention"] for path, p in launches.items()},
-        "max_abs_err": flash["err"], "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound"][0], "bound_by": flash["bound"][1],
-        "library_ms": flash["library_ms"],
-        "check": f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}",
-        "cell": "lm", "time_unit": f"ms per launch at {flash['shape']}",
-        "library": "torch.nn.functional.scaled_dot_product_attention",
-    })
+    flash, flash32, sass = flash
+    for name, row, src, extra in (
+            ("flash_attention", flash, "flash_attention_wgmma.cu", {
+                "design": "wgmma+tma, split P (three bf16 terms)",
+                "earlier_design": "float32 FMAs on the CUDA cores (flash_attention_fp32; "
+                                  "PR 13's bf16 time is in PERF.md row 5)",
+                "sass": sass, "library_bf16_excess": flash["library_bf16_excess"],
+                "library_share_beyond_gate": flash["library_share_beyond_gate"],
+                "check": f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}",
+                "cell": "lm"}),
+            ("flash_attention_fp32", flash32, "flash_attention.cu", {
+                "design": "float32 FMAs on the CUDA cores",
+                "check": f"within {FLASH_F32_TOL} of the plain version",
+                "cell": "lm (its float32 checks)"})):
+        out.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": sum(p[name] for p in launches.values()),
+            "launches_by_path": {path: p[name] for path, p in launches.items()},
+            "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"], "time_unit": f"ms per launch at {row['shape']}",
+            "library": "torch.nn.functional.scaled_dot_product_attention"} | extra)
     main_path = {("fused" if fuse else "unfused"): {"ms_per_coloring": ms, "peak_bytes": peak}
                  for fuse, (ms, peak) in per.items()}
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
@@ -944,7 +1006,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, car
             "dense_path": dense,
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
-            | {k: v for k, v in lm.items() if k != "launches"}}
+            | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
 
 
 def run_phases(dev):
@@ -953,7 +1015,7 @@ def run_phases(dev):
     from repro_torch.core.count_engine import build_counting_plan
     from repro_torch.core.templates import template
 
-    phase_build()
+    sass = phase_build()
     g = rmat_graph(2 ** 20, 10_000_000)
     t0 = time.perf_counter()
     plan = build_counting_plan(g, template("u12-2"), device=dev)
@@ -976,16 +1038,16 @@ def run_phases(dev):
     dense = phase_dense(dense_graph, dev)
     del dense_graph
     phase_launch()
-    flash = phase_flash(dev)
+    flash, flash32 = phase_flash(dev)
     lm = phase_lm(dev, flash["ms"])
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
-                "lm": lm["launches"]}
+                "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"]}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
-    return rows, dense_rows, launches, per, draw_ms, dense, flash, lm
+    return rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm
 
 
 def main() -> int:

@@ -6,7 +6,8 @@ plain C interface (no PyTorch headers, so a build takes seconds), for
 ``.gitignore``) under a name that carries a digest of the sources, so an
 edited kernel is never served from a stale library.  :func:`build`
 compiles every missing library in parallel, one ``nvcc`` process each;
-:func:`kernel_fn` builds on first use.  Nothing here runs at import time.
+:func:`kernel_fn` builds on first use; :func:`sass` disassembles a built
+library with ``cuobjdump``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
-__all__ = ["KERNELS", "build", "kernel_fn", "check"]
+__all__ = ["KERNELS", "build", "kernel_fn", "check", "sass"]
 
 #: one shared library per source file
-KERNELS = ("spmm_edgetile", "spmm_block", "color_combine", "fused_count", "flash_attention")
+KERNELS = ("spmm_edgetile", "spmm_block", "color_combine", "fused_count", "flash_attention",
+           "flash_attention_wgmma")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -31,15 +33,23 @@ _ARCH = "arch=compute_90a,code=sm_90a"
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str, env: str = "") -> Optional[str]:
+    """A CUDA toolkit program: ``$env``, on PATH, or under CUDA_HOME."""
     for cand in (
-        os.environ.get("NVCC"),
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        os.environ.get(env) if env else None,
+        shutil.which(name),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put nvcc on PATH")
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = _tool("nvcc", "NVCC")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put nvcc on PATH")
+    return nvcc
 
 
 def _lib_path(name: str) -> Path:
@@ -116,3 +126,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error (``cudaGetLastError()``)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def sass(name: str) -> Optional[str]:
+    """``cuobjdump -sass`` of library ``name`` (built first if it is not),
+    or None where the toolkit has no ``cuobjdump``."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return None
+    path = _lib_path(name)
+    if not path.exists():
+        build([name])
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout

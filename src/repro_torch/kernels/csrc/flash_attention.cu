@@ -1,4 +1,8 @@
-// Flash attention (online softmax) with GQA, causal and sliding-window masks.
+// Flash attention (online softmax) with GQA, causal and sliding-window masks,
+// for float32 inputs on the CUDA cores.  bf16 inputs go to the wgmma kernel
+// of flash_attention_wgmma.cu; this kernel serves the float32 routes (the
+// float32 checks of the LM path), whose 1e-5 gate TF32 tensor cores would
+// break.
 //
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py).
 // The TPU kernel runs a grid (B, Hq, L/128, L/128) in order on one core and
@@ -14,17 +18,16 @@
 //     nK grid dimension);
 //   * the loop's bounds skip every tile the causal or window mask excludes,
 //     so no load is issued for it;
-//   * K is staged transposed and V as it is, both as float32 in dynamic shared
-//     memory (64 KB at D = 128), beside the query tile (transposed, 32 KB) and
-//     the probabilities of the current tile (16 KB);
+//   * K is staged transposed and V as it is in dynamic shared memory (64 KB
+//     at D = 128), beside the query tile (transposed, 32 KB) and the
+//     probabilities of the current tile (16 KB);
 //   * GQA: query head h reads KV head h / (Hq / Hkv);
 //   * masked logits are the TPU kernel's finite -1e30, probabilities are zeroed
 //     where masked, and a row whose denominator is 0 gives 0 (the guard at the
 //     TPU kernel's finalize);
 //   * ragged lengths: keys at or past L are masked and staged as zeros, query
 //     rows past L are computed on zeros and not stored, so any L works (the TPU
-//     kernel asserts L % 128 == 0; the reference's XLA path takes any L);
-//   * bf16 or float32 in, float32 math, the output rounded to the input type.
+//     kernel asserts L % 128 == 0; the reference's XLA path takes any L).
 //
 // 256 threads as 16 x 16: thread (ty, tx) computes the logits of query rows
 // 4 ty .. 4 ty + 3 against keys 4 tx .. 4 tx + 3 of the tile, and owns the
@@ -32,17 +35,11 @@
 // rows.  The 16 threads of a row sit in one half-warp, so row max and row sum
 // are xor-shuffle butterflies, which give every lane the same bits.  Both
 // products are float32 FMAs on the CUDA cores, as the TPU kernel's
-// float32 dot_generals are: no tensor cores in this version.
+// float32 dot_generals are.
 //
 // Bound on the H100: operations.  One (query, key) pair allowed by the mask
 // costs 2 D flops for q.k and 2 D for p.v, so the work is 4 B Hq pairs D
-// flops; at granite-3-8b's layer shape (B = 4, Hq = 32, L = 4096 causal,
-// D = 128) that is 5.5e11 flops, 0.56 ms at the 989e12 bf16 tensor-core
-// flop/s, against 0.10 ms to move q, k, v and o (335 MB) once at 3.35e12 B/s.
-// This version issues its FMAs on the CUDA cores (33.5e12 FMA/s, 8.2 ms for
-// the same work), so it cannot come within 14x of that bound; wgmma on bf16
-// tiles staged by TMA is the redesign that can.
-#include <cuda_bf16.h>
+// float32 flops, at the 67e12 float32 flop/s of the CUDA cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,59 +52,27 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// 16 bytes of T, widened to float32
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = x.x;
-    out[1] = x.y;
-    out[2] = x.z;
-    out[3] = x.w;
-  }
-  __device__ __forceinline__ static void store4(float* p, float a, float b, float c, float d) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned w[4] = {x.x, x.y, x.z, x.w};  // element 2 i in the low half of word i
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(w[i] & 0xffffu)));
-      out[2 * i + 1] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(w[i] >> 16)));
-    }
-  }
-  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float a, float b, float c,
-                                                float d) {
-    const unsigned ab = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
-                        ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
-    const unsigned cd = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(c)) |
-                        ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(d)) << 16);
-    *reinterpret_cast<uint2*>(p) = make_uint2(ab, cd);
-  }
-};
+// 16 bytes, four floats
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = x.x;
+  out[1] = x.y;
+  out[2] = x.z;
+  out[3] = x.w;
+}
 
 // Rows r0 .. r0 + 63 of a [L, D] matrix into dst[d * kTile + n] (transposed),
 // zeros for rows at or past L.  Consecutive threads take consecutive rows, so
 // the shared-memory writes of a warp hit 32 banks.
-template <typename T, int D>
-__device__ __forceinline__ void stage_transposed(const T* __restrict__ src, int r0, int L,
+template <int D>
+__device__ __forceinline__ void stage_transposed(const float* __restrict__ src, int r0, int L,
                                                  float* dst) {
-  constexpr int V = Vec<T>::kN;
+  constexpr int V = 4;
   for (int idx = threadIdx.x; idx < kTile * (D / V); idx += kThreads) {
     const int n = idx % kTile, c = idx / kTile;
     float x[V];
     if (r0 + n < L) {
-      Vec<T>::load(src + (int64_t)(r0 + n) * D + c * V, x);
+      load4(src + (int64_t)(r0 + n) * D + c * V, x);
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) x[i] = 0.0f;
@@ -119,22 +84,14 @@ __device__ __forceinline__ void stage_transposed(const T* __restrict__ src, int 
 
 // Rows r0 .. r0 + 63 of a [L, D] matrix into dst[n * D + d], zeros past L.
 // Consecutive threads take consecutive 16-byte pieces of a row (coalesced).
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int r0, int L, float* dst) {
-  constexpr int V = Vec<T>::kN;
-  for (int idx = threadIdx.x; idx < kTile * (D / V); idx += kThreads) {
-    const int c = idx % (D / V), n = idx / (D / V);
-    float x[V];
-    if (r0 + n < L) {
-      Vec<T>::load(src + (int64_t)(r0 + n) * D + c * V, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) x[i] = 0.0f;
-    }
-    float4* out = reinterpret_cast<float4*>(dst + n * D + c * V);
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i)
-      out[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+template <int D>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int r0, int L,
+                                           float* dst) {
+  for (int idx = threadIdx.x; idx < kTile * (D / 4); idx += kThreads) {
+    const int c = idx % (D / 4), n = idx / (D / 4);
+    float4* out = reinterpret_cast<float4*>(dst + n * D + c * 4);
+    *out = r0 + n < L ? __ldg(reinterpret_cast<const float4*>(src + (int64_t)(r0 + n) * D + c * 4))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
@@ -156,11 +113,11 @@ constexpr int smem_bytes() {
   return (int)sizeof(float) * (3 * D * kTile + kTile * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int hq, int hkv, int L,
-                           float scale, int causal, int window) {
+    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, int hq, int hkv,
+                           int L, float scale, int causal, int window) {
   constexpr int G = D / 64;  // 64-column groups of the output a thread writes
   extern __shared__ float4 smem4[];
   float* q_t = reinterpret_cast<float*>(smem4);  // [D][kTile] query tile, transposed
@@ -177,7 +134,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t kv_off = ((int64_t)b * hkv + kh) * L * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  stage_transposed<T, D>(q + q_off, m0, L, q_t);
+  stage_transposed<D>(q + q_off, m0, L, q_t);
 
   float m_run[4], l_run[4], acc[4][4 * G];
 #pragma unroll
@@ -196,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int n0 = kt * kTile;
     __syncthreads();  // q_t is staged; the last tile's k_t, v_s and p_t are read
-    stage_transposed<T, D>(k + kv_off, n0, L, k_t);
-    stage_rows<T, D>(v + kv_off, n0, L, v_s);
+    stage_transposed<D>(k + kv_off, n0, L, k_t);
+    stage_rows<D>(v + kv_off, n0, L, v_s);
     __syncthreads();
 
     float s[4][4];
@@ -273,45 +230,42 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float l = l_run[i] == 0.0f ? 1.0f : l_run[i];
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      Vec<T>::store4(o + q_off + (int64_t)row * D + 64 * g + 4 * tx, acc[i][4 * g] / l,
-                     acc[i][4 * g + 1] / l, acc[i][4 * g + 2] / l, acc[i][4 * g + 3] / l);
+      *reinterpret_cast<float4*>(o + q_off + (int64_t)row * D + 64 * g + 4 * tx) =
+          make_float4(acc[i][4 * g] / l, acc[i][4 * g + 1] / l, acc[i][4 * g + 2] / l,
+                      acc[i][4 * g + 3] / l);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int L,
            int causal, int window, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   // D**-0.5 rounded once to float32, as the plain version's Python float is
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((L + kTile - 1) / kTile), (unsigned)hq, (unsigned)b);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, hq, hkv, L, scale, causal, window);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, hkv, L, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q and o [b, hq, L, d], k and v [b, hkv, L, d], contiguous and 16-byte
-// aligned, all float32 (bf16 == 0) or all bf16 (bf16 == 1); d is 64 or 128,
-// hq a multiple of hkv; the logits are q.k * d**-0.5.  causal != 0 masks keys
-// after the query; window > 0
-// masks keys at or before query - window.  Returns cudaGetLastError() after
+// q and o [b, hq, L, d], k and v [b, hkv, L, d], float32, contiguous and
+// 16-byte aligned; d is 64 or 128, hq a multiple of hkv; the logits are
+// q.k * d**-0.5.  causal != 0 masks keys after the query; window > 0 masks
+// keys at or before query - window.  Returns cudaGetLastError() after
 // the launch (or the error of setting the kernel's shared-memory size).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int b, int hq, int hkv, int L, int d, int bf16, int causal,
+                                      int b, int hq, int hkv, int L, int d, int causal,
                                       int window, void* stream) {
   if (b <= 0 || hq <= 0 || L <= 0) return (int)cudaGetLastError();
   if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128)
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, b, hq, hkv, L, causal, window, s)
-                : launch<float, 128>(q, k, v, o, b, hq, hkv, L, causal, window, s);
-  if (d == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, b, hq, hkv, L, causal, window, s)
-                : launch<float, 64>(q, k, v, o, b, hq, hkv, L, causal, window, s);
+  if (d == 128) return launch<128>(q, k, v, o, b, hq, hkv, L, causal, window, s);
+  if (d == 64) return launch<64>(q, k, v, o, b, hq, hkv, L, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,49 +1,106 @@
 """Flash attention (online softmax, GQA, causal and sliding-window masks):
-CUDA kernel, plain version, launch count.
+two CUDA kernels by dtype, the plain version, launch counts.
 
 Replaces ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py``),
 whose grid ``(B, Hq, L/128, L/128)`` runs in order on one TPU core and
 carries the running max, denominator and accumulator in VMEM scratch across
 the innermost KV dimension.  On the card the CTAs run in no order, so the KV
-sweep is a loop inside one CTA.
+sweep is a loop inside one CTA.  Both kernels compute
+:func:`~repro_torch.kernels.ref.flash_attention_ref`: the finite ``-1e30``
+mask, probabilities zeroed where masked, a zero denominator read as 1, any
+``L``, D in {64, 128}.
 
-Kernel (``csrc/flash_attention.cu``): one CTA per (64-row query tile, query
-head, batch); it stages its query tile once and walks the KV tiles of 64
-keys in ascending order, staging K (transposed) and V as float32 in dynamic
-shared memory and keeping ``m``, ``l`` and ``acc`` in registers.  The loop's
-bounds skip the tiles the causal or window mask excludes.  Masking is the
-TPU kernel's finite ``-1e30`` with probabilities zeroed where masked, and a
-row with a zero denominator gives 0.  Keys past ``L`` are masked and query
-rows past ``L`` are not stored, so any ``L`` works.  bf16 or float32 in,
-float32 FMAs on the CUDA cores, output in the input type.
+- **bf16** (``csrc/flash_attention_wgmma.cu``): one CTA per (128-row query
+  tile, query head, batch), a producer warp that stages Q once and K and V
+  through a two-stage ring with TMA (3-D tensor maps ``(D, L, B H)``, 128-byte
+  swizzle, rows past ``L`` read as zeros), and two consumer warpgroups of 64
+  rows that run ``Q K^T`` and ``P V`` as ``wgmma`` with float32 accumulators.
+  P is split into three bf16 terms, each the bf16 truncation of what the
+  terms before it leave, which hold float32 P exactly, and all three go
+  through ``P V``, so the products keep the reference's float32 P: P rounded
+  to bf16 alone, or split in two, misses the one-bf16-step gate.  Bound on the H100:
+  operations, ``4 B Hq pairs D`` flops at 989e12 bf16 flop/s; the split does
+  ``8 D`` a pair.
+- **float32** (``csrc/flash_attention.cu``): one CTA per (64-row query tile,
+  head, batch), K and V staged as float32 in shared memory, float32 FMAs on
+  the CUDA cores (TF32 tensor cores would break the float32 checks' 1e-5).
 
-Bound on the H100: operations, ``4 B Hq pairs D`` flops for the (query,
-key) pairs the mask allows, at the 989e12 bf16 tensor-core flop/s; q, k, v
-and o moved once at 3.35e12 B/s take about a sixth of that at granite-3-8b's
-layer shape.  This first version issues its products as float32 FMAs on the
-CUDA cores, a fifteenth of that rate, so it stays above 14x its bound;
-``wgmma`` on bf16 tiles is the redesign.
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel of its
+dtype or raises.  The host-side arithmetic of the bf16 kernel lives here as
+plain functions the CPU tests reach: :func:`launch_grid`,
+:func:`tensor_map_geometry`, and :func:`kv_tiles` / :func:`tile_needs_mask`,
+which the kernel computes on the device the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
+
 import torch
 
 from . import _build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = [
+    "flash_attention", "flash_attention_plain", "HEAD_DIMS", "TILE", "BOX_COLS", "query_tiles",
+    "kv_tiles", "tile_needs_mask", "launch_grid", "tensor_map_geometry",
+]
 
 #: the plain version the wrapper takes for a CPU tensor
 flash_attention_plain = flash_attention_ref
 
-#: head dimensions the kernel is built for
+#: head dimensions the kernels are built for
 HEAD_DIMS = (64, 128)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: query rows per CTA and keys per KV tile of the bf16 kernel
+TILE = 128
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+#: bf16 columns of one 128-byte-swizzled TMA box
+BOX_COLS = 64
+
+_FP32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_uint), ctypes.POINTER(ctypes.c_longlong),
+                      ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+
+
+def query_tiles(length: int) -> int:
+    """Query tiles (and KV tiles) of ``TILE`` rows over ``length`` tokens."""
+    return -(-length // TILE)
+
+
+def kv_tiles(qt: int, length: int, causal: bool, window: int) -> range:
+    """The KV tiles query tile ``qt`` visits: every tile holding a key that
+    some row of the tile may attend, in ascending order."""
+    m0 = qt * TILE
+    q_last = min(m0 + TILE, length) - 1
+    end = q_last // TILE + 1 if causal else query_tiles(length)
+    begin = max(0, m0 - window + 1) // TILE if window > 0 else 0
+    return range(begin, end)
+
+
+def tile_needs_mask(qt: int, kt: int, length: int, causal: bool, window: int) -> bool:
+    """Whether some (row < length, key) pair of the tiles is masked (keys past
+    ``length`` included); the kernel skips the mask code on the others."""
+    m0, n0 = qt * TILE, kt * TILE
+    q_last = min(m0 + TILE, length) - 1
+    return (n0 + TILE > length or (causal and n0 + TILE - 1 > m0)
+            or (window > 0 and n0 <= q_last - window))
+
+
+def launch_grid(b: int, hq: int, length: int) -> Tuple[int, int, int]:
+    """``(Hq, B, query tiles)``: one CTA per (query tile, head, batch); the
+    kernel reverses the tile index so the longest causal tiles start first."""
+    return hq, b, query_tiles(length)
+
+
+def tensor_map_geometry(batch_heads: int, length: int, d: int) -> Tuple[int, ...]:
+    """One bf16 tensor map over ``[B, H, L, D]`` as 3-D ``(D, L, B H)``: its
+    dims (innermost first), the byte strides of dims 1 and 2, and the box of
+    ``BOX_COLS`` columns by ``TILE`` rows of one head (a 128-byte row, the
+    swizzle's width, so D = 128 takes two boxes)."""
+    return (d, length, batch_heads, 2 * d, 2 * d * length, BOX_COLS, TILE, 1)
 
 
 def flash_attention(
@@ -60,7 +117,8 @@ def flash_attention(
     after the query, ``window > 0`` keys at or before ``query - window``;
     the logits are scaled by ``D**-0.5``.  Returns ``[B, Hq, L, D]`` in ``q``'s
     dtype.  A CPU tensor runs the plain version (which also takes ``Lq !=
-    Lk``); a CUDA tensor launches the kernel or raises.
+    Lk``); a CUDA tensor launches the bf16 (wgmma) or the float32 (CUDA-core)
+    kernel, or raises.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q [B, Hq, L, D], k and v [B, Hkv, L, D]; got {tuple(q.shape)}, "
@@ -73,22 +131,35 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check_cuda(q, k, v)
     out = torch.empty_like(q)
-    fn = _build.kernel_fn("flash_attention", "flash_attention_launch", _ARGTYPES)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, d,
+            int(bool(causal)), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, d,
-                 _DTYPES[q.dtype], int(bool(causal)), int(window), stream)
-    _build.check(err, "flash_attention_launch")
+        if q.dtype == torch.bfloat16:
+            fn = _build.kernel_fn("flash_attention_wgmma", "flash_attention_wgmma_launch",
+                                  _WGMMA_ARGTYPES)
+            grid = (ctypes.c_uint * 3)(*launch_grid(b, hq, lq))
+            q_geo = (ctypes.c_longlong * 8)(*tensor_map_geometry(b * hq, lq, d))
+            kv_geo = (ctypes.c_longlong * 8)(*tensor_map_geometry(b * hkv, lq, d))
+            err = fn(*args, grid, q_geo, kv_geo, stream)
+            _build.check(err, "flash_attention_wgmma_launch")
+            flash_attention.launches_wgmma += 1
+        else:
+            fn = _build.kernel_fn("flash_attention", "flash_attention_launch", _FP32_ARGTYPES)
+            _build.check(fn(*args, stream), "flash_attention_launch")
+            flash_attention.launches_fp32 += 1
     flash_attention.launches += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the counts were last set to 0: all, and by route
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0  # bf16, csrc/flash_attention_wgmma.cu
+flash_attention.launches_fp32 = 0  # float32, csrc/flash_attention.cu
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """The kernel's argument contract; raises on anything it does not take."""
+    """The kernels' argument contract; raises on anything they do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"q must be on a CUDA device or the CPU, got {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -96,12 +167,13 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is {q.dtype} on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernels take bfloat16 (wgmma) or float32, got {q.dtype}")
     if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head dims {HEAD_DIMS}, got {q.shape[3]}")
+        raise ValueError(f"the kernels are built for head dims {HEAD_DIMS}, got {q.shape[3]}")
     if q.shape[2] != k.shape[2]:
-        raise ValueError(f"the kernel is self-attention (Lq == Lk), got Lq {q.shape[2]} and "
+        raise ValueError(f"the kernels are self-attention (Lq == Lk), got Lq {q.shape[2]} and "
                          f"Lk {k.shape[2]}")
-    if q.shape[0] > 65535 or q.shape[1] > 65535:
-        raise ValueError(f"batch and heads must each be at most 65535, got {tuple(q.shape[:2])}")
+    if q.shape[0] > 65535 or q.shape[1] > 65535 or query_tiles(q.shape[2]) > 65535:
+        raise ValueError(f"batch, heads and query tiles must each be at most 65535, got "
+                         f"{tuple(q.shape[:3])}")

@@ -1,12 +1,17 @@
 """The port's flash-attention plain version against the JAX package's Pallas
 kernel (interpret mode, as tests/test_kernels.py runs it) and its XLA
-oracle, on the same numpy inputs.
+oracle, on the same numpy inputs; the bf16 kernel's host-side tile
+arithmetic against a brute-force mask; and a torch emulation of the bf16
+kernel's numerics against the plain version and the Pallas kernel.
 
 Float32 agrees to rtol = atol = 2e-4 and bf16 to 5e-2, the reference
 test's own tolerances (the two sum in other orders; bf16 inputs round the
-products' inputs, not the float32 sums).  The CUDA kernel is held against
-the plain version on the card in test_torch_gpu.py.
+products' inputs, not the float32 sums).  The emulation is held to the gate
+the card holds the kernel to (chip_smoke.py, test_torch_gpu.py): within one
+bf16 step of the plain version's float32 result rounded, plus 1e-6.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +20,10 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.testing.numerics import bf16_excess, bf16_ulp
 
 
 def _qkv(seed, b, hq, hkv, lq, d, lk=None):
@@ -104,6 +111,17 @@ def test_ops_on_cpu_runs_the_plain_version():
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=True), rtol=0, atol=0)
 
 
+def test_wrapper_takes_the_plain_version_only_on_the_cpu():
+    """A tensor on neither the CPU nor a CUDA device raises: the plain version
+    is taken because a tensor lies on the CPU, never as a fallback."""
+    q, k, v = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+               for s in ((1, 4, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64)))
+    launched = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == launched
+
+
 @pytest.mark.parametrize("shapes", [
     ((1, 4, 8, 64), (1, 3, 8, 64), (1, 3, 8, 64)),  # heads do not group
     ((1, 4, 8, 64), (1, 2, 8, 32), (1, 2, 8, 32)),  # head dims differ
@@ -113,3 +131,171 @@ def test_ops_on_cpu_runs_the_plain_version():
 def test_wrapper_rejects_bad_shapes(shapes):
     with pytest.raises(ValueError):
         flash_attention(*(torch.zeros(s) for s in shapes))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's host-side arithmetic and its numerics
+# ---------------------------------------------------------------------------
+
+MASKS = [(True, 0), (True, 100), (True, 1024), (False, 0), (False, 300)]
+LENGTHS = [1, 129, 1000, 4097]
+
+
+def _allowed(length, causal, window):
+    """Brute force: ``[rows, keys]`` of the query rows < length against keys
+    padded to whole tiles (keys past ``length`` masked)."""
+    n = fa.query_tiles(length) * fa.TILE
+    r = np.arange(length)[:, None]
+    c = np.arange(n)[None, :]
+    ok = (c < length) & (r >= 0)
+    if causal:
+        ok = ok & (c <= r)
+    if window > 0:
+        ok = ok & (c > r - window)
+    return ok
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_kv_tiles_and_masks_match_brute_force(causal, window, length):
+    """A query tile visits exactly the KV tiles where one of its rows may
+    attend a key, in ascending order, and skips the mask code exactly where
+    every (row < L, key) pair of the two tiles is allowed."""
+    ok = _allowed(length, causal, window)
+    t = fa.TILE
+    nt = fa.query_tiles(length)
+    for qt in range(nt):
+        rows = ok[qt * t : (qt + 1) * t]
+        want = [kt for kt in range(nt) if rows[:, kt * t : (kt + 1) * t].any()]
+        got = fa.kv_tiles(qt, length, causal, window)
+        assert list(got) == want, (qt, list(got), want)
+        for kt in got:
+            masked = not rows[:, kt * t : (kt + 1) * t].all()
+            assert fa.tile_needs_mask(qt, kt, length, causal, window) == masked, (qt, kt)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("length", LENGTHS)
+def test_grid_and_tensor_maps(length, d):
+    """The grid covers every query row once; each tensor map addresses
+    element (bh, l, d) of a contiguous [B, H, L, D] bf16 tensor where torch
+    does, its box is one 128-byte swizzle row wide and ``TILE`` rows tall,
+    and D is a whole number of boxes."""
+    b, hq = 3, 4
+    grid = fa.launch_grid(b, hq, length)
+    assert grid[:2] == (hq, b)
+    assert (grid[2] - 1) * fa.TILE < length <= grid[2] * fa.TILE
+    dims = fa.tensor_map_geometry(b * hq, length, d)
+    (d0, d1, d2, s1, s2, box0, box1, box2) = dims
+    assert (d0, d1, d2) == (d, length, b * hq) and (box1, box2) == (fa.TILE, 1)
+    assert box0 * 2 == 128 and d % box0 == 0
+    strides = torch.empty(b, hq, length, d, dtype=torch.bfloat16).stride()
+    assert (s1, s2) == (2 * strides[2], 2 * strides[1]) and strides[3] == 1
+    assert s1 % 16 == 0 and s2 % 16 == 0  # TMA's stride alignment
+
+
+def _truncate_bf16(x):
+    """x truncated toward zero to bf16 (its high 16 bits), as float32."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _emulate(q, k, v, *, causal=True, window=0, terms=3, nearest=False):
+    """The bf16 kernel's numerics in torch: 128-row query tiles over the KV
+    tiles ``kv_tiles`` visits, float32 logits scaled in base 2, an online
+    softmax with the finite -1e30 mask, P split into ``terms`` bf16 terms
+    (each the bf16 truncation of what the terms before it leave; rounded to
+    nearest with ``nearest``) that each go through P.V with float32
+    accumulation, l summed from the float32 P, and acc / l rounded to bf16."""
+    b, hq, length, d = q.shape
+    g = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(math.log2(math.e),
+                                                                    dtype=torch.float32)
+    pos = torch.arange(length)
+    out = torch.empty_like(qf)
+    for qt in range(fa.query_tiles(length)):
+        r = slice(qt * fa.TILE, min((qt + 1) * fa.TILE, length))
+        m = torch.full((b, hq, r.stop - r.start), ref.NEG)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, hq, r.stop - r.start, d)
+        for kt in fa.kv_tiles(qt, length, causal, window):
+            kk = slice(kt * fa.TILE, min((kt + 1) * fa.TILE, length))
+            t = (qf[:, :, r] @ kf[:, :, kk].transpose(-1, -2)) * c
+            mask = torch.ones(r.stop - r.start, kk.stop - kk.start, dtype=torch.bool)
+            if causal:
+                mask &= pos[kk][None] <= pos[r][:, None]
+            if window > 0:
+                mask &= pos[kk][None] > pos[r][:, None] - window
+            t = torch.where(mask, t, ref.NEG)
+            m_new = torch.maximum(m, t.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(mask, torch.exp2(t - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None]
+            m = m_new
+            rest = p
+            for _ in range(terms):
+                part = rest.bfloat16().float() if nearest else _truncate_bf16(rest)
+                acc = acc + part @ vf[:, :, kk]
+                rest = rest - part
+        out[:, :, r] = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.to(q.dtype)
+
+
+def _bf16(*xs):
+    return [torch.from_numpy(x).bfloat16() for x in xs]
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,d,causal,window", [
+    (1, 8, 2, 1000, 128, True, 0),  # ragged L, GQA group 4
+    (2, 4, 4, 384, 64, True, 0),  # group 1
+    (1, 8, 1, 512, 128, False, 0),  # group 8, bidirectional
+    (1, 4, 2, 700, 64, True, 300),  # window
+    (1, 4, 2, 129, 128, False, 64),  # bidirectional window, one key past a tile
+    (1, 2, 1, 1, 128, True, 0),  # one token
+])
+def test_kernel_numerics_match_plain(b, hq, hkv, l, d, causal, window):
+    q, k, v = _bf16(*_qkv(7, b, hq, hkv, l, d))
+    got = _emulate(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bf16_excess(got, want, atol=1e-6) == 0.0
+
+
+@pytest.mark.parametrize("d,causal,window", [(128, True, 0), (64, False, 0), (128, True, 100)])
+def test_kernel_numerics_match_pallas(d, causal, window):
+    q, k, v = _qkv(8, 1, 4, 2, 256, d)
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window, interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    got = _emulate(*_bf16(q, k, v), causal=causal, window=window)
+    assert bf16_excess(got, want, atol=1e-6) == 0.0
+
+
+def test_p_rounded_to_bf16_misses_the_gate():
+    """Why P is split: rounded to bf16 once, as SDPA's P.V does, P moves a
+    tenth of the outputs beyond one bf16 step (+ 1e-6) of the plain version."""
+    q, k, v = _bf16(*_qkv(9, 1, 4, 1, 1024, 128))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    one = _emulate(q, k, v, causal=True, terms=1, nearest=True)
+    assert bf16_excess(one, want, atol=1e-6) > 1e-4
+    err = (one.float() - want.float()).abs() - bf16_ulp(want) - 1e-6
+    assert (err > 0).float().mean() > 0.05
+    assert bf16_excess(_emulate(q, k, v, causal=True), want, atol=1e-6) == 0.0
+
+
+@pytest.mark.parametrize("nearest", [False, True])
+def test_three_bf16_terms_hold_float32_p_exactly(nearest):
+    """Why three terms: P_0 + P_1 keeps about 16 bits of a float32 P in (0, 1],
+    P_0 + P_1 + P_2 all 24 (each difference is exact in float32), down to
+    P = 2^-100, where the products stop mattering to a row's sum; with the
+    kernel's truncated terms and with terms rounded to nearest."""
+    split = (lambda x: x.bfloat16().float()) if nearest else _truncate_bf16
+    p = torch.from_numpy(np.random.default_rng(10).random(1 << 16, dtype=np.float32))
+    p = torch.cat([p, torch.exp2(-torch.arange(0, 100, dtype=torch.float32)) * 0.7071067])
+    p0 = split(p)
+    p1 = split(p - p0)
+    p2 = split(p - p0 - p1)
+    assert torch.equal(p0 + p1 + p2, p)
+    two = (p0 + p1 - p).abs() / p
+    assert (two > 0).float().mean() > 0.5 and two.max() <= 2.0 ** -15

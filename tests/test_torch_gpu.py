@@ -23,7 +23,7 @@ from repro_torch.core.brute_force import count_colorful_maps
 from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
 from repro_torch.core.graphs import edge_list, erdos_renyi, rmat
 from repro_torch.core.templates import template
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.color_combine import color_combine
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_count import fused_count
@@ -151,17 +151,24 @@ def _qkv(device, dtype, b, hq, hkv, l, d, seed):
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("causal,window,l", [(True, 0, 256), (True, 100, 300), (False, 0, 200),
-                                             (False, 64, 129), (True, 0, 1)])
-def test_flash_attention_matches_plain(cuda_device, d, dtype, causal, window, l):
+                                             (False, 64, 129), (True, 0, 1), (True, 0, 127),
+                                             (False, 0, 128), (True, 0, 4097)])
+def test_flash_attention_matches_plain(cuda_device, d, dtype, group, causal, window, l):
     """The kernel == its plain version on the same inputs: float32 within
     1e-5 (float32 sums in other orders), bf16 within one bf16 step of the
     plain version's float32 result rounded, plus 1e-6 for the sums' order
-    near zero.  Ragged L, windows and bidirectional masks included."""
-    q, k, v = _qkv(cuda_device, dtype, 2, 8, 2, l, d, seed=d + l)
-    launched = flash_attention.launches
+    near zero.  GQA groups 1, 4 and 8; ragged L, one tile, windows and
+    bidirectional masks.  bf16 takes the wgmma kernel, float32 the CUDA-core
+    one."""
+    q, k, v = _qkv(cuda_device, dtype, 2, 2 * group, 2, l, d, seed=d + l + group)
+    launched = (flash_attention.launches, flash_attention.launches_wgmma,
+                flash_attention.launches_fp32)
     got = flash_attention(q, k, v, causal=causal, window=window)
-    assert flash_attention.launches == launched + 1
+    route = (1, 1, 0) if dtype == torch.bfloat16 else (1, 0, 1)
+    assert (flash_attention.launches, flash_attention.launches_wgmma,
+            flash_attention.launches_fp32) == tuple(x + y for x, y in zip(launched, route))
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -169,6 +176,15 @@ def test_flash_attention_matches_plain(cuda_device, d, dtype, causal, window, l)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert bf16_excess(got, want, atol=1e-6) == 0.0
+
+
+def test_flash_library_sass_has_wgmma_and_tma(cuda_device):
+    """The bf16 kernel runs its products on the tensor cores (HGMMA) and
+    stages its tiles with TMA (UTMALDG)."""
+    text = _build.sass("flash_attention_wgmma")
+    if text is None:
+        pytest.skip("the CUDA toolkit here has no cuobjdump")
+    assert "HGMMA" in text and "UTMALDG" in text
 
 
 def test_flash_attention_refuses_bad_tensors(cuda_device):
