@@ -9,16 +9,22 @@ checkout and held against its plain PyTorch version.
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. build   — compile the six CUDA kernel libraries with nvcc (sm_90a), in
-             parallel; the bf16 flash library's SASS must hold HGMMA (wgmma)
-             and UTMALDG (TMA loads);
+             parallel; the SASS must hold what each redesigned library's
+             design rests on: HGMMA (wgmma) and UTMALDG (TMA loads) in the
+             bf16 flash library, UBLKCP (bulk asynchronous copies) and
+             LDGSTS (cp.async) in spmm_block's, LDG.E.128 in spmm_edgetile's;
 2. kernels — each kernel against its plain version at its path's shapes
              (every u12-2 node width), exact (==) on integer tables whose
              sums stay below 2^24; timed beside the plain version, a library
-             call where one exists, and its bound.  The edge SpMM, combine
+             call where one exists, and its bound; the edge SpMM also on a
+             CSR whose ten largest rows are cut.  The edge SpMM, combine
              and fused kernels run on the main cell's graph; the block SpMM
              on the dense cell's, where it is held == the plain edge-list
              sum and == spmm_edgetile on the whole graph, and == its own
-             dense-patch plain version on a sample of row blocks;
+             dense-patch plain version on a sample of row blocks.  On each
+             cell, a table near 2^22 whose sums round: spmm_edgetile == the
+             sequential float32 sum in CSR order, and on the dense cell
+             spmm_block == spmm_edgetile, bitwise;
 3. exact   — small graphs, templates u3-1/u5-2/u7-2, a fixed coloring: the
              port on the card, edge and block plans, fused and unfused, ==
              the brute-force oracle;
@@ -92,6 +98,7 @@ DENSE_BATCH = 16  # colorings per call on the dense cell (widest table 3.33 GB)
 DENSE_ITERS = 32  # colorings per estimate on the dense cell: 2 calls
 DENSE_PLAIN_BLOCKS = 8  # row blocks the dense-product plain block SpMM is held on
 PLAIN_RTOL = 1e-5  # float32 order: index_add_ uses atomics, counts exceed 2^24
+ORDER_WIDTH = 66  # node width of phase 2's order-sensitive checks (the sequential sum is slow)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
 LM_ARCH = "granite-3-8b"
 LM_BATCH = 4  # prompts per prefill
@@ -199,6 +206,15 @@ def node_shapes(plan):
 # ---------------------------------------------------------------------------
 
 
+#: instructions each redesigned library's design rests on (cuobjdump -sass):
+#: wgmma and TMA loads; bulk asynchronous copies for the block kernel's
+#: staging (and cp.async for tables whose rows are not 16-byte aligned);
+#: 128-bit gathers for the edge kernel
+SASS_NEEDS = {"flash_attention_wgmma": ("HGMMA", "UTMALDG"),
+              "spmm_block": ("UBLKCP", "LDGSTS"),
+              "spmm_edgetile": ("LDG.E.128",)}
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -206,14 +222,75 @@ def phase_build():
     times = _build.build(verbose=True)
     log(f"phase 1 build: {', '.join(f'{k} {v:.1f}s' for k, v in times.items())} "
         f"(wall {time.perf_counter() - t0:.1f}s)")
-    sass = _build.sass("flash_attention_wgmma")
-    if sass is None:
-        raise AssertionError("the toolkit has no cuobjdump: the flash library's SASS is unread")
-    counts = {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
-    if not all(counts.values()):
-        raise AssertionError(f"the bf16 flash library's SASS lacks wgmma or TMA loads: {counts}")
-    log(f"phase 1: flash_attention_wgmma's SASS holds {counts} (instructions)")
+    counts = {}
+    for name, ops_ in SASS_NEEDS.items():
+        sass = _build.sass(name)
+        if sass is None:
+            raise AssertionError(f"the toolkit has no cuobjdump: the {name} library's SASS is unread")
+        counts[name] = {op: sum(op in line for line in sass.splitlines()) for op in ops_}
+        if not all(counts[name].values()):
+            raise AssertionError(f"the {name} library's SASS lacks an instruction of its design: "
+                                 f"{counts[name]}")
+        log(f"phase 1: {name}'s SASS holds {counts[name]} (instructions)")
     return counts
+
+
+def near_2_22(gen, n_pad: int, batch: int, width: int, n_valid: int):
+    """Integers 2^22 .. 2^22 + 1023 as float32 (exact), 0 on the sentinel and
+    pad rows: a row of degree above 4 sums past 2^24, where float32 rounds,
+    so the result shows the order of the adds."""
+    import torch
+
+    t = (torch.randint(0, 1024, (n_pad, batch, width), generator=gen, device=gen.device)
+         + 2.0 ** 22).float()
+    t[n_valid:] = 0
+    return t
+
+
+def order_check(sp, n_valid: int, batch: int, width: int, gen):
+    """On a table whose sums round: spmm_edgetile == the sequential float32
+    sum in CSR order (the order csr_row_sum, and so fused_count, uses) and,
+    on a block plan, spmm_block == spmm_edgetile, bitwise.  Also records
+    whether the plain version (index_add_) happens to give the same bits."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_block import spmm_block
+    from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+
+    t = near_2_22(gen, sp.n_pad, batch, width, n_valid)
+    t0 = time.perf_counter()
+    seq = ref.spmm_csr_order_ref(sp.indptr, sp.indices, t)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    edges = spmm_edge_tile(sp.indptr, sp.indices, t)
+    deg = torch.diff(sp.indptr)
+    res = {"width": width, "batch": batch, "values": "2^22 + randint(0, 1024)",
+           "rows_past_2_24": int((deg > 4).sum()),
+           "edges_eq_csr_order": torch.equal(edges, seq),
+           "index_add_eq_csr_order": torch.equal(ref.spmm_segment_ref(sp.indptr, sp.indices, t), seq)}
+    if sp.kind == "blocks":
+        res["blocks_eq_edges"] = torch.equal(spmm_block(sp, t), edges)
+    del t, seq, edges
+    torch.cuda.empty_cache()
+    if not (res["edges_eq_csr_order"] and res.get("blocks_eq_edges", True)):
+        raise AssertionError(f"summation order differs on sums past 2^24: {res}")
+    log(f"phase 2 order (sequential sum {seq_s:.2f}s): {res}")
+    return res
+
+
+def hub_cut(sp, count: int = 10):
+    """A copy of the CSR whose ``count`` largest rows have no edges: the edge
+    kernel's time on it, beside its time on the whole CSR, is what the hub
+    rows cost."""
+    import torch
+
+    deg = torch.diff(sp.indptr)
+    keep = torch.ones_like(deg, dtype=torch.bool)
+    keep[torch.topk(deg, count).indices] = False
+    dst = torch.repeat_interleave(torch.arange(deg.numel(), device=deg.device), deg)
+    ptr = torch.zeros_like(sp.indptr)
+    ptr[1:] = torch.cumsum(torch.where(keep, deg, 0), 0)
+    return ptr, sp.indices[keep[dst]].contiguous()
 
 
 def phase_kernels(plan, batch: int):
@@ -236,6 +313,7 @@ def phase_kernels(plan, batch: int):
     csr_bytes = (n_pad + 1) * 8 + e * 4
     csr = torch.sparse_csr_tensor(sp.indptr, sp.indices.long(),
                                   torch.ones(e, device=dev), (n_pad, n_pad))
+    hub_ptr, hub_idx = hub_cut(sp)
     rows = {"spmm_edgetile": [], "color_combine": [], "fused_count": []}
     for (a, bw, s, j), (mult, tbl) in sorted(node_shapes(plan).items()):
         shape = f"A={a} B={bw} S={s} J={j} x{mult}"
@@ -263,6 +341,7 @@ def phase_kernels(plan, batch: int):
             ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right)),
             plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
+            hub_cut_ms=cuda_ms(lambda: spmm_edge_tile(hub_ptr, hub_idx, right)),
             bound=bound_ms(nb, e * batch * bw), gather_ms=gather_ms))
         del right, flat
         # combine: J * 3 * 3 <= 4455 per output
@@ -299,42 +378,43 @@ def phase_kernels(plan, batch: int):
         del left, right
         log(f"phase 2 {shape}: " + "  ".join(
             f"{k} {v[-1]['ms']:.3f}ms (plain {v[-1]['plain_ms']:.1f}, bound "
-            f"{v[-1]['bound'][0]:.3f} {v[-1]['bound'][1]})" for k, v in rows.items()))
+            f"{v[-1]['bound'][0]:.3f} {v[-1]['bound'][1]})" for k, v in rows.items())
+            + f"; spmm_edgetile library {rows['spmm_edgetile'][-1]['library_ms']:.3f}ms, ten "
+            f"largest rows cut {rows['spmm_edgetile'][-1]['hub_cut_ms']:.3f}ms, gather "
+            f"{gather_ms:.1f}ms")
         torch.cuda.empty_cache()
-    return rows
+    del hub_ptr, hub_idx
+    order = order_check(sp, plan.n, batch, ORDER_WIDTH, gen)
+    return rows, order
 
 
 def row_block_sample(sp, count: int):
-    """The patch CSR restricted to ``count`` row blocks spread over the graph
-    (first and last included): the other row blocks keep no patch."""
+    """A block plan of the graph's edges into ``count`` row blocks spread
+    over the graph (first and last included), built as any plan is: its
+    other row blocks keep no patch.  Returns it and the sampled rows."""
     import torch
+    from repro_torch.kernels import ops
 
     nrb = sp.patch_ptr.numel() - 1
-    keep = torch.linspace(0, nrb - 1, count, device=sp.patch_ptr.device).round().long().unique()
-    counts = torch.diff(sp.patch_ptr.long())
-    sel = torch.zeros(nrb, dtype=torch.bool, device=keep.device)
+    dev = sp.indptr.device
+    keep = torch.linspace(0, nrb - 1, count, device=dev).round().long().unique()
+    deg = torch.diff(sp.indptr)
+    dst = torch.repeat_interleave(torch.arange(deg.numel(), device=dev), deg)
+    sel = torch.zeros(nrb, dtype=torch.bool, device=dev)
     sel[keep] = True
-    ptr = torch.zeros(nrb + 1, dtype=torch.long, device=keep.device)
-    ptr[1:] = torch.cumsum(torch.where(sel, counts, 0), 0)
-    patches = torch.cat([torch.arange(int(sp.patch_ptr[r]), int(sp.patch_ptr[r + 1]),
-                                      device=keep.device) for r in keep.tolist()])
-    rows = (keep[:, None] * 128 + torch.arange(128, device=keep.device)).reshape(-1)
-    return (ptr.int(), sp.patch_col[patches].contiguous(), sp.patch_bits[patches].contiguous(),
-            rows, len(keep))
+    edge = sel[dst // 128]
+    sub = ops.build_spmm_plan(dst[edge].cpu().numpy(), sp.indices[edge].cpu().numpy(), sp.n,
+                              kind="blocks", device=dev)
+    rows = (keep[:, None] * 128 + torch.arange(128, device=dev)).reshape(-1)
+    return sub, rows, len(keep)
 
 
 def used_source_rows(sp) -> int:
     """Source rows the block kernel stages, summed over patches: the
     popcount of each patch's column union."""
-    import torch
+    from repro_torch.kernels import ops
 
-    union = torch.zeros_like(sp.patch_bits[:, 0, :]).long()
-    for r in range(sp.patch_bits.shape[1]):
-        union |= sp.patch_bits[:, r, :].long() & 0xFFFFFFFF
-    x = union - ((union >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+    return int(ops.popcount32(sp.patch_union.cpu().numpy()).sum())
 
 
 def phase_kernels_dense(plan, batch: int):
@@ -355,10 +435,12 @@ def phase_kernels_dense(plan, batch: int):
     nrb = n_pad // 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-    sub_ptr, sub_col, sub_bits, sub_rows, n_sub = row_block_sample(sp, DENSE_PLAIN_BLOCKS)
+    sub, sub_rows, n_sub = row_block_sample(sp, DENSE_PLAIN_BLOCKS)
+    sub_bits = sub.patch_bits.to(dev)  # the plan keeps its bitmasks on the host
     used = used_source_rows(sp)
     log(f"phase 2 dense: {nb} patches, {e / nb:.1f} edges/patch, staged source rows "
-        f"{used} ({used / (nb * 128):.3f} of 128 per patch)")
+        f"{used} ({used / (nb * 128):.3f} of 128 per patch, at most {sp.patch_max_used}); "
+        f"slot lists {sp.patch_slots.numel()} bytes (at most {sp.patch_max_slots} a patch)")
     csr = torch.sparse_csr_tensor(sp.indptr, sp.indices.long(), torch.ones(e, device=dev),
                                   (n_pad, n_pad))
     block_bytes = nb * 128 * 4 * 4 + (nrb + 1 + nb) * 4
@@ -371,13 +453,13 @@ def phase_kernels_dense(plan, batch: int):
         bw = batch * w
         table = torch.randint(0, 4, (n_pad, batch, w), generator=gen, device=dev).float()
         table[plan.n:] = 0
-        got = spmm_block(sp.patch_ptr, sp.patch_col, sp.patch_bits, table)
+        got = spmm_block(sp, table)
         edges_equal = torch.equal(got, spmm_edge_tile(sp.indptr, sp.indices, table))
         err = max_abs_err(got, ref.spmm_segment_ref(sp.indptr, sp.indices, table))
-        plain = ref.spmm_block_ref(sub_ptr, sub_col, sub_bits, table)
-        sub = spmm_block(sub_ptr, sub_col, sub_bits, table)
-        sub_err = max(max_abs_err(sub, plain), max_abs_err(got[sub_rows], plain[sub_rows]))
-        del got, sub, plain
+        plain = ref.spmm_block_ref(sub.patch_ptr, sub.patch_col, sub_bits, table)
+        on_sub = spmm_block(sub, table)
+        sub_err = max(max_abs_err(on_sub, plain), max_abs_err(got[sub_rows], plain[sub_rows]))
+        del got, on_sub, plain
         if err != 0 or sub_err != 0 or not edges_equal:
             raise AssertionError(f"spmm_block at {shape}: max_abs_err vs the whole-graph plain "
                                  f"version {err}, vs the dense-patch one on {n_sub} row blocks "
@@ -385,12 +467,13 @@ def phase_kernels_dense(plan, batch: int):
         flat = table.reshape(n_pad, -1)
         row = dict(
             shape=shape, mult=mult, err=err,
-            ms=cuda_ms(lambda: spmm_block(sp.patch_ptr, sp.patch_col, sp.patch_bits, table)),
+            ms=cuda_ms(lambda: spmm_block(sp, table)),
             edgetile_ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, table)),
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
             plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, table), 1),
-            block_ref_ms=cuda_ms(lambda: ref.spmm_block_ref(sub_ptr, sub_col, sub_bits, table), 1),
-            sample_ms=cuda_ms(lambda: spmm_block(sub_ptr, sub_col, sub_bits, table)),
+            block_ref_ms=cuda_ms(lambda: ref.spmm_block_ref(sub.patch_ptr, sub.patch_col,
+                                                            sub_bits, table), 1),
+            sample_ms=cuda_ms(lambda: spmm_block(sub, table)),
             bound=bound_ms(block_bytes + 2 * n_pad * bw * 4, e * bw),
             staging_ms=used * bw * 4 / HBM_BYTES_PER_S * 1e3,
             gather_ms=e * bw * 4 / HBM_BYTES_PER_S * 1e3)
@@ -403,7 +486,8 @@ def phase_kernels_dense(plan, batch: int):
             f"{row['staging_ms']:.1f}, gather {row['gather_ms']:.1f}); on {n_sub} of {nrb} row "
             f"blocks: dense-patch plain {row['block_ref_ms']:.1f}ms, kernel "
             f"{row['sample_ms']:.3f}ms")
-    return rows
+    order = order_check(sp, plan.n, batch, ORDER_WIDTH, gen)
+    return rows, order
 
 
 def phase_exact(device):
@@ -931,7 +1015,25 @@ def device_split(fn):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, card):
+#: the two SpMM kernels' designs, and where the times of the designs they
+#: replace are recorded (this run does not measure them, so gives none)
+SPMM_DESIGNS = {
+    "spmm_edgetile": dict(
+        design="warp per (row, 128-float chunk of the B*W row), float4 gathers, 8 in flight, "
+               "chunk-major grid",
+        earlier_design="warp per (row, coloring), 32 columns a pass, scalar gathers, 4 in flight",
+        earlier_ms="PERF.md kernel table row 1"),
+    "spmm_block": dict(
+        design="producer warps stage each patch's slot lists and used rows with cp.async.bulk "
+               "into a ring of mbarrier stages; 16 consumer warps add in CSR order",
+        earlier_design="one serial chain a patch: bitmask load, union by one warp, synchronous "
+                       "staging, four barriers",
+        earlier_ms="PERF.md kernel table row 4"),
+}
+
+
+def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, card):
+    flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
                           "src/repro/kernels/spmm_edgetile.py:137"),
@@ -962,7 +1064,8 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, car
             "cell": "dense" if name == "spmm_block" else "main",
             "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms")}
                           | {"bound_ms": r["bound"][0], "gather_bound_ms": r["gather_ms"]}
-                          | {k: r[k] for k in ("edgetile_ms", "staging_ms") if k in r}
+                          | {k: r[k] for k in ("edgetile_ms", "staging_ms", "hub_cut_ms")
+                             if k in r}
                           | ({f"block_ref_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": r["block_ref_ms"],
                               f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": r["sample_ms"]}
                              if "block_ref_ms" in r else {})
@@ -974,14 +1077,18 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, car
                       f"block_ref_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("block_ref_ms"),
                       f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("sample_ms"),
                       "library": "torch.sparse.mm, CSR"}
+        if name in SPMM_DESIGNS:
+            entry |= SPMM_DESIGNS[name] | {"sass": sass[name], "order_check": order[name]}
+        if name == "spmm_edgetile":
+            entry["hub_cut_ms"] = tot("hub_cut_ms")
         out.append(entry)
-    flash, flash32, sass = flash
     for name, row, src, extra in (
             ("flash_attention", flash, "flash_attention_wgmma.cu", {
                 "design": "wgmma+tma, split P (three bf16 terms)",
                 "earlier_design": "float32 FMAs on the CUDA cores (flash_attention_fp32; "
                                   "PR 13's bf16 time is in PERF.md row 5)",
-                "sass": sass, "library_bf16_excess": flash["library_bf16_excess"],
+                "sass": sass["flash_attention_wgmma"],
+                "library_bf16_excess": flash["library_bf16_excess"],
                 "library_share_beyond_gate": flash["library_share_beyond_gate"],
                 "check": f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}",
                 "cell": "lm"}),
@@ -1020,7 +1127,7 @@ def run_phases(dev):
     t0 = time.perf_counter()
     plan = build_counting_plan(g, template("u12-2"), device=dev)
     log(f"u12-2 plan on {dev}: n_pad={plan.n_pad} in {time.perf_counter() - t0:.1f}s")
-    rows = phase_kernels(plan, MAIN_BATCH)
+    rows, order_main = phase_kernels(plan, MAIN_BATCH)
     phase_exact(dev)
     main_launches, per, draw_ms = phase_main(plan, MAIN_BATCH, MAIN_CALLS)
     del plan, g
@@ -1032,7 +1139,7 @@ def run_phases(dev):
         f"{dplan.spmm_plan.num_patches} patches in {time.perf_counter() - t0:.1f}s")
     if dplan.spmm_plan.kind != "blocks":
         raise AssertionError(f"spmm_kind='auto' planned {dplan.spmm_plan.kind} on the dense cell")
-    dense_rows = phase_kernels_dense(dplan, DENSE_BATCH)
+    dense_rows, order_dense = phase_kernels_dense(dplan, DENSE_BATCH)
     del dplan
     torch.cuda.empty_cache()
     dense = phase_dense(dense_graph, dev)
@@ -1047,7 +1154,8 @@ def run_phases(dev):
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
-    return rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm
+    order = {"spmm_edgetile": order_main, "spmm_block": order_dense}
+    return rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order
 
 
 def main() -> int:

@@ -1,16 +1,23 @@
-// Device helpers shared by the three count-table kernels.
+// Device helpers shared by the count-table kernels.
 //
-// Both helpers fix an order of floating-point operations, and every kernel
-// that computes the same quantity goes through the same helper:
+// Every helper fixes an order of floating-point operations, and every kernel
+// that computes the same quantity adds in that order:
 //
-//   csr_row_sum   M[v, c] = 0 + src[u_0, c] + src[u_1, c] + ...   (CSR order)
-//   combine_dot   out[s]  = fmaf(l[i1_{J-1}], m[i2_{J-1}], ... fmaf(l[i1_0], m[i2_0], 0))
+//   csr_row_sum    M[v, c] = 0 + src[u_0, c] + src[u_1, c] + ...   (CSR order)
+//   csr_chunk_sum  the same sum, term for term, for one 128-float chunk of
+//                  the row (a float4 of consecutive columns a lane)
+//   combine_dot    out[s]  = fmaf(l[i1_{J-1}], m[i2_{J-1}], ... fmaf(l[i1_0], m[i2_0], 0))
 //
-// spmm_edgetile.cu and fused_count.cu both build M with csr_row_sum, and
-// color_combine.cu and fused_count.cu both contract with combine_dot, so
-// the fused and the unfused path give bitwise-equal tables at any size,
-// including where float32 rounds.  Count tables hold integer-valued
-// float32; nothing here passes through TF32, bf16 or tensor-core inputs.
+// fused_count.cu builds M with csr_row_sum, spmm_edgetile.cu with
+// csr_chunk_sum, and spmm_block.cu adds each destination row's edges (the
+// plan's slot lists, patch by patch) in CSR order into one accumulator that
+// starts at 0: all three
+// give each element of M as the same sequence of float32 adds, so the edge
+// and the block SpMM, and the fused and the unfused path, give bitwise-equal
+// tables at any size, including where float32 rounds.  color_combine.cu and
+// fused_count.cu both contract with combine_dot.  Count tables hold
+// integer-valued float32; nothing here passes through TF32, bf16 or
+// tensor-core inputs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,9 +38,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // gathers are issued before their four adds so that loads overlap; the
 // adds stay in CSR order.  `dst` may be global or shared memory.
 //
-// A hub row is walked by one warp from start to end: balancing such rows
-// across warps (the paper's neighbor-list partitioning, §3.3) is later
-// kernel work.
+// fused_count.cu uses it; its loop order per element is csr_chunk_sum's.
 __device__ __forceinline__ void csr_row_sum(const int64_t* __restrict__ indptr,
                                             const int32_t* __restrict__ indices,
                                             const float* __restrict__ src,
@@ -73,6 +78,72 @@ __device__ __forceinline__ void csr_row_sum(const int64_t* __restrict__ indptr,
       }
     }
     if (active) dst[c] = acc;
+  }
+}
+
+// One warp sums the CSR neighbors of destination row v over one chunk of
+// ncols <= 128 columns: dst[c] = 0 + src[u_0, c] + src[u_1, c] + ... for
+// c < ncols, the per-element order of csr_row_sum.
+//
+// kVec: lane l owns columns 4 l .. 4 l + 3 and gathers them as one float4
+// (src, row_stride and dst keep 16-byte alignment); otherwise lane l owns
+// columns l, l + 32, l + 64, l + 96, one float each.  The row's indices come
+// in coalesced loads of 32, the next 32 loaded while the current ones are
+// walked, and each is broadcast by a shuffle; eight gathers (4 KB a warp)
+// are issued before their eight adds, which stay in CSR order.  Loop bounds
+// depend only on v, so every lane joins every shuffle.
+template <bool kVec>
+__device__ __forceinline__ void csr_chunk_sum(const int64_t* __restrict__ indptr,
+                                              const int32_t* __restrict__ indices,
+                                              const float* __restrict__ src, int64_t row_stride,
+                                              int64_t v, int ncols, float* __restrict__ dst) {
+  constexpr int kBatch = 8;
+  const int lane = threadIdx.x & 31;
+  const int64_t e_begin = __ldg(indptr + v);
+  const int64_t e_end = __ldg(indptr + v + 1);
+  const int c = kVec ? 4 * lane : lane;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int my_u = e_begin + lane < e_end ? __ldg(indices + e_begin + lane) : 0;
+  for (int64_t e0 = e_begin; e0 < e_end; e0 += 32) {
+    const int n_tile = (int)min((int64_t)32, e_end - e0);
+    const int next_u = e0 + 32 + lane < e_end ? __ldg(indices + e0 + 32 + lane) : 0;
+    for (int i = 0; i < n_tile; i += kBatch) {
+      float4 x[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int u = __shfl_sync(kFullMask, my_u, i + j);
+        x[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (i + j < n_tile) {
+          const float* row = src + (int64_t)u * row_stride;
+          if (kVec) {
+            if (c < ncols) x[j] = __ldg(reinterpret_cast<const float4*>(row + c));
+          } else {
+            if (c < ncols) x[j].x = __ldg(row + c);
+            if (c + 32 < ncols) x[j].y = __ldg(row + c + 32);
+            if (c + 64 < ncols) x[j].z = __ldg(row + c + 64);
+            if (c + 96 < ncols) x[j].w = __ldg(row + c + 96);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (i + j < n_tile) {
+          acc.x += x[j].x;
+          acc.y += x[j].y;
+          acc.z += x[j].z;
+          acc.w += x[j].w;
+        }
+      }
+    }
+    my_u = next_u;
+  }
+  if (kVec) {
+    if (c < ncols) *reinterpret_cast<float4*>(dst + c) = acc;
+  } else {
+    if (c < ncols) dst[c] = acc.x;
+    if (c + 32 < ncols) dst[c + 32] = acc.y;
+    if (c + 64 < ncols) dst[c + 64] = acc.z;
+    if (c + 96 < ncols) dst[c + 96] = acc.w;
   }
 }
 

@@ -35,6 +35,7 @@ from .spmm_edgetile import spmm_edge_tile
 
 __all__ = [
     "pad_to",
+    "popcount32",
     "ROW_BLOCK",
     "AUTO_DENSITY_THRESHOLD",
     "SpmmPlan",
@@ -78,7 +79,23 @@ class SpmmPlan:
     ``[n_pad / 128 + 1]``, ``patch_col`` int32 ``[NB]``) and 0/1 bitmasks
     ``patch_bits`` int32 ``[NB, 128, 4]`` (bit ``k % 32`` of word ``k // 32``
     of row ``r`` is the edge from source ``128 * col + k`` to destination
-    ``128 * row_block + r``; the words are uint32 bit patterns).
+    ``128 * row_block + r``; the words are uint32 bit patterns).  The
+    bitmasks stay in host memory whatever the plan's device: only the plain
+    version reads them, and a caller holding it to a CUDA table moves them
+    over.  Beside them, port-only (the reference's plan has no counterpart), what the
+    block kernel reads in place of the bitmasks:
+
+    * ``patch_union`` int32 ``[NB, 4]``: the OR of each patch's 128 rows,
+      the source columns the patch uses.  The kernel stages those rows
+      packed by slot, the popcount of the union's bits below the column;
+      ``patch_max_used`` is the largest popcount and sizes its staging ring.
+    * the patch's edges as slots, in CSR order: ``patch_offs`` int16
+      ``[NB, 136]`` (entry ``r`` is the first edge of row ``r`` within the
+      patch, entry 128 the patch's edge count; 129-135 pad the row to 272
+      bytes), and ``patch_slots`` uint8 (each edge's slot; patch ``p``'s
+      list starts at byte ``patch_slots_ptr[p]``, int64 ``[NB + 1]``, and is
+      padded with zeros to a multiple of 16 bytes, at most
+      ``patch_max_slots``).
     """
 
     kind: str
@@ -91,6 +108,12 @@ class SpmmPlan:
     patch_ptr: Optional[torch.Tensor] = None
     patch_col: Optional[torch.Tensor] = None
     patch_bits: Optional[torch.Tensor] = None
+    patch_union: Optional[torch.Tensor] = None
+    patch_offs: Optional[torch.Tensor] = None
+    patch_slots: Optional[torch.Tensor] = None
+    patch_slots_ptr: Optional[torch.Tensor] = None
+    patch_max_used: int = 0
+    patch_max_slots: int = 0
 
     @property
     def num_directed(self) -> int:
@@ -121,8 +144,49 @@ def expected_patch_density(n: int, e_directed: int, block: int = ROW_BLOCK) -> f
     return float(e_directed) / max(occupied, 1.0)
 
 
+def popcount32(words: np.ndarray) -> np.ndarray:
+    """Set bits of each 32-bit word (any integer dtype holding uint32 bit
+    patterns), as int64."""
+    x = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+#: int16 row offsets per patch in ``SpmmPlan.patch_offs``: 129 used, the
+#: rest pad each patch's entry to 272 bytes (a multiple of 16)
+PATCH_OFFS = 136
+
+
+def _patch_lists(inv: np.ndarray, r: np.ndarray, c: np.ndarray, union: np.ndarray):
+    """Each patch's edges as staging slots, row by row in CSR order: the
+    ``patch_offs``, ``patch_slots`` and ``patch_slots_ptr`` of
+    :class:`SpmmPlan`, and the largest padded list in bytes."""
+    vb = ROW_BLOCK
+    nb = len(union)
+    # the slot of source column k: the union's set bits below k
+    used = np.unpackbits(np.ascontiguousarray(union).view(np.uint8).reshape(nb, -1), axis=1,
+                         bitorder="little")
+    slot_of = np.cumsum(used, axis=1, dtype=np.uint8) - used
+    offs = np.zeros((nb, PATCH_OFFS), np.int64)
+    np.cumsum(np.bincount(inv * vb + r, minlength=nb * vb).reshape(nb, vb), axis=1,
+              out=offs[:, 1:vb + 1])
+    n_edges = offs[:, vb]
+    sizes = -(-n_edges // 16) * 16
+    slots_ptr = np.zeros(nb + 1, np.int64)
+    np.cumsum(sizes, out=slots_ptr[1:])
+    first = slots_ptr[:-1] - np.concatenate([[0], np.cumsum(n_edges)[:-1]])
+    order = np.argsort(inv, kind="stable")  # by patch, CSR order within one
+    slots = np.zeros(slots_ptr[-1], np.uint8)
+    slots[first[inv[order]] + np.arange(len(order))] = slot_of[inv[order], c[order]]
+    offs[:, vb + 1:] = n_edges[:, None]
+    return offs.astype(np.int16), slots, slots_ptr, int(sizes.max(initial=0))
+
+
 def _block_layout(rows: np.ndarray, cols: np.ndarray, n_pad: int):
-    """Patch CSR and bitmasks of a CSR-ordered edge list (see :class:`SpmmPlan`)."""
+    """Patch CSR, bitmasks, column unions and slot lists of a CSR-ordered
+    edge list (see :class:`SpmmPlan`)."""
     vb = ROW_BLOCK
     same_row = np.diff(rows) == 0
     if np.any(same_row & (np.diff(cols) <= 0)):
@@ -143,7 +207,12 @@ def _block_layout(rows: np.ndarray, cols: np.ndarray, n_pad: int):
     bits = np.bincount(word, weights=np.left_shift(np.int64(1), (c % 32).astype(np.int64)).astype(np.float64),
                        minlength=nb * vb * vb // 32)
     patch_bits = bits.astype(np.uint32).view(np.int32).reshape(nb, vb, vb // 32)
-    return (patch_ptr.astype(np.int32), (uniq % stride).astype(np.int32), patch_bits)
+    patch_union = (np.bitwise_or.reduce(patch_bits, axis=1) if nb
+                   else np.zeros((0, vb // 32), np.int32))
+    offs, slots, slots_ptr, max_slots = _patch_lists(inv.astype(np.int64), r, c, patch_union)
+    return dict(patch_ptr=patch_ptr.astype(np.int32), patch_col=(uniq % stride).astype(np.int32),
+                patch_bits=patch_bits, patch_union=patch_union, patch_offs=offs,
+                patch_slots=slots, patch_slots_ptr=slots_ptr), max_slots
 
 
 def build_spmm_plan(
@@ -176,10 +245,11 @@ def build_spmm_plan(
     np.cumsum(np.bincount(rows, minlength=n_pad), out=indptr[1:])
     blocks = {}
     if kind == "blocks":
-        ptr, col, bits = _block_layout(rows, cols, n_pad)
-        blocks = dict(patch_ptr=torch.from_numpy(ptr).to(device),
-                      patch_col=torch.from_numpy(col).to(device),
-                      patch_bits=torch.from_numpy(bits).to(device))
+        arrays, max_slots = _block_layout(rows, cols, n_pad)
+        used = popcount32(arrays["patch_union"]).sum(axis=1)
+        blocks = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+        blocks.update({k: v.to(device) for k, v in blocks.items() if k != "patch_bits"})
+        blocks.update(patch_max_used=int(used.max(initial=0)), patch_max_slots=max_slots)
     return SpmmPlan(
         kind=kind,
         n=n,
@@ -198,7 +268,7 @@ def spmm(plan: SpmmPlan, table: torch.Tensor) -> torch.Tensor:
     order into one accumulator, so the two give bitwise-equal tables on the
     card; rows without edges come out exactly zero."""
     if plan.kind == "blocks":
-        return spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table)
+        return spmm_block(plan, table)
     return spmm_edge_tile(plan.indptr, plan.indices, table)
 
 

@@ -19,6 +19,7 @@ import torch
 __all__ = [
     "ELEMENT_BUDGET",
     "spmm_segment_ref",
+    "spmm_csr_order_ref",
     "unpack_patches",
     "spmm_block_ref",
     "color_combine_ref",
@@ -51,6 +52,32 @@ def spmm_segment_ref(indptr: torch.Tensor, indices: torch.Tensor, table: torch.T
         e1 = min(e0 + chunk, n_edges)
         src = indices[base + e0 : base + e1].long()
         out.index_add_(0, dst[e0:e1], flat[src])
+    return out.reshape((rows,) + tuple(table.shape[1:]))
+
+
+def spmm_csr_order_ref(indptr: torch.Tensor, indices: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """The neighbor sum of :func:`spmm_segment_ref`, added in the order the
+    CUDA kernels fix: one float32 accumulator per output element, starting
+    at 0, adding ``table[u]`` for the row's neighbors ``u`` in CSR order.
+
+    Step ``k`` adds the ``k``-th neighbor of every row whose degree exceeds
+    ``k`` (rows sorted by degree, so the rows still walking are a prefix),
+    with plain elementwise adds and no atomics: sums past 2^24 round as the
+    kernels round them.  ``max_degree`` steps of one gather each, so it is
+    meant for narrow tables.
+    """
+    rows = indptr.numel() - 1
+    flat = table.reshape(table.shape[0], -1)
+    deg = torch.diff(indptr)
+    order = torch.argsort(deg, descending=True, stable=True)
+    start = indptr[:-1][order]
+    walking = torch.bincount(deg, minlength=1).flip(0).cumsum(0).flip(0)  # [k]: rows with deg >= k
+    acc = torch.zeros((rows, flat.shape[1]), dtype=table.dtype, device=table.device)
+    for k, n in enumerate(walking[1:].tolist()):
+        acc[:n] += flat[indices[start[:n] + k].long()]
+    out = torch.empty_like(acc)
+    out[order] = acc
     return out.reshape((rows,) + tuple(table.shape[1:]))
 
 

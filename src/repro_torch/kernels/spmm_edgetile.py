@@ -10,20 +10,32 @@ widths) does not fit any on-chip memory, and a float32 table may not
 go through the tensor cores (counts must stay exact).
 
 Kernel (``csrc/spmm_edgetile.cu``): the plan keeps the graph's CSR
-(``indptr``, ``indices`` in destination order).  One warp owns one
-destination row of one coloring; lanes own the row's ``W`` columns and add
-``table[indices[e], b, c]`` over the row's edges in CSR order with plain
-float32 adds.  No atomics, so the result is deterministic; rows without
-edges (zero-degree, sentinel and pad rows) come out exactly zero.
+(``indptr``, ``indices`` in destination order), and the table is read as
+``[rows, F]`` with ``F = B * W``: the neighbor sum does not depend on the
+coloring, so one ``F``-float run is one gather.  The work unit is (row,
+128-float chunk of that run); one warp owns it, each lane gathers a float4
+(512 B a warp instruction), eight gathers are in flight a warp, and the
+row's indices are read 32 at a time.  A hub row is split by columns into
+``F / 128`` warps, never by edges.  Chunks run on the grid's second axis, so
+the CTAs resident at once share one chunk's source slice (``rows * 512``
+bytes: 33.5 MB on a 2^16-vertex graph, which stays in L2).  Tables whose
+``F`` is not a multiple of 4, or that are not 16-byte aligned, take a scalar
+variant (one float a lane, four columns 32 apart).  Every output element is
+one float32 accumulator that starts at 0 and adds the row's neighbors in
+CSR order (``csr_chunk_sum`` in ``csrc/common.cuh``, term for term the order
+of ``csr_row_sum``, which the fused kernel uses, and of ``spmm_block``), so
+edge and block plans, fused and unfused, agree bitwise.  No atomics, so the
+result is deterministic; rows without edges (zero-degree, sentinel and pad
+rows) come out exactly zero.
 
-Bound on the H100: bytes.  Every edge gathers one ``W``-float row segment
-of the source table, ``E_dir * B * W * 4`` bytes, against ``E_dir * B * W``
-adds (0.25 flop/byte, far below the card's balance point).  The design
-makes each gather a contiguous, coalesced ``B*W``-float run of a
-vertex-major table, so those bytes come in whole sectors; the least the
-card could do is read the table and the CSR once and write ``out`` once.
-Balancing hub rows (the paper's neighbor-list partitioning, §3.3) is
-later kernel work: a max-degree row is walked by one warp today.
+Bound on the H100: bytes.  Every edge gathers one ``F``-float source row,
+``E_dir * F * 4`` bytes, against ``E_dir * F`` adds (0.25 flop/byte, far
+below the card's balance point); the least the card could do is read the
+table and the CSR once and write ``out`` once.  The earlier design (one warp
+per row and coloring, one float a lane) walked each row's indices once per
+32 columns and coloring, kept four 128-byte gathers in flight a warp, left
+a hub row to one warp per coloring and swept the whole table at once, so
+no gather came from L2: half the HBM gather rate on the main cell.
 """
 
 from __future__ import annotations
@@ -40,7 +52,8 @@ __all__ = ["spmm_edge_tile", "spmm_edge_tile_plain"]
 #: the plain version the wrapper takes for a CPU tensor
 spmm_edge_tile_plain = spmm_segment_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p]
 
 
 def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -59,11 +72,13 @@ def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Ten
     rows = indptr.numel() - 1
     _, b, w = table.shape
     out = torch.empty((rows, b, w), dtype=torch.float32, device=table.device)
+    width = b * w
+    vec = width % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = _build.kernel_fn("spmm_edgetile", "spmm_edgetile_launch", _ARGTYPES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(indptr.data_ptr(), indices.data_ptr(), table.data_ptr(), out.data_ptr(),
-                 rows, b, w, stream)
+                 rows, width, int(vec), stream)
     _build.check(err, "spmm_edgetile_launch")
     spmm_edge_tile.launches += 1
     return out

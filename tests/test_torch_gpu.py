@@ -80,12 +80,47 @@ def test_cuda_kernels_refuse_bad_tensors(cuda_device):
         fused_count(plan.indptr, plan.indices, table, table, tbl)
 
 
+def _near_2_22(gen, shape, n_valid, device):
+    """Integers 2^22 .. 2^22 + 1023 as float32 (exact), 0 past ``n_valid``:
+    a row of degree above 4 sums past 2^24, where float32 rounds and the
+    summation order shows in the result."""
+    t = (torch.randint(0, 1024, shape, generator=gen, device=device) + 2.0 ** 22).float()
+    t[n_valid:] = 0
+    return t
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernels take their scalar path for it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _check_orders(plan, n_valid, b, w, gen, device):
+    """spmm_block == spmm_edge_tile == the sequential CSR-order sum, bitwise,
+    on values whose sums round, aligned and through the scalar path."""
+    floats = _near_2_22(gen, (plan.n_pad, b, w), n_valid, device)
+    want = ref.spmm_csr_order_ref(plan.indptr, plan.indices, floats)
+    deg = torch.diff(plan.indptr)
+    assert (want.reshape(plan.n_pad, -1)[deg > 4] >= 2.0 ** 24).all()
+    for table in (floats, _unaligned(floats)):
+        edges = spmm_edge_tile(plan.indptr, plan.indices, table)
+        assert torch.equal(edges, want)
+        if plan.kind == "blocks":
+            assert torch.equal(spmm_block(plan, table), want)
+
+
 @pytest.mark.parametrize("width", [1, 3, 12, 128, 192, 1000, 1056])
 def test_spmm_block_matches_plain_and_edges(cuda_device, width):
-    """``spmm_block`` == its plain version on integer tables (exact sums), and
-    == ``spmm_edge_tile`` bitwise on float tables whose sums round: both add
-    each row's neighbors in ascending source order.  Widths cover the
-    scalar path (not a multiple of 4) and partial column tiles."""
+    """``spmm_block`` == its plain version on integer tables (exact sums);
+    on tables near 2^22, whose sums round, ``spmm_block`` ==
+    ``spmm_edge_tile`` == the sequential float32 sum in CSR order, bitwise,
+    for aligned tables and for an unaligned view (the scalar paths).  Widths
+    cover the scalar path (not a multiple of 4) and partial column tiles
+    and chunks."""
     g = rmat(1 << 11, 60_000, skew=3, seed=4)  # dense: the reference's 'auto' picks blocks
     plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="auto", device=cuda_device)
     assert plan.kind == "blocks"
@@ -96,15 +131,92 @@ def test_spmm_block_matches_plain_and_edges(cuda_device, width):
                          device=cuda_device).float()
     ints[g.n:] = 0
     launched = spmm_block.launches
-    got = spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, ints)
+    got = spmm_block(plan, ints)
     assert spmm_block.launches == launched + 1
-    assert torch.equal(got, ref.spmm_block_ref(plan.patch_ptr, plan.patch_col, plan.patch_bits,
-                                               ints))
+    assert torch.equal(got, ref.spmm_block_ref(plan.patch_ptr, plan.patch_col,
+                                               plan.patch_bits.to(cuda_device), ints))
     assert torch.equal(got, spmm_edge_tile(plan.indptr, plan.indices, ints))
-    floats = torch.rand((plan.n_pad, b, width // b), generator=gen, device=cuda_device) * 1e4
-    floats[g.n:] = 0
-    assert torch.equal(ops.spmm(plan, floats), spmm_edge_tile(plan.indptr, plan.indices, floats))
+    assert torch.equal(got, ops.spmm(plan, ints))
+    _check_orders(plan, g.n, b, width // b, gen, cuda_device)
     torch.cuda.synchronize()
+
+
+def _star(n):
+    """Vertex 0 joined to every other vertex: one hub row of degree n - 1."""
+    others = np.arange(1, n, dtype=np.int32)
+    rows = np.concatenate([np.zeros(n - 1, np.int32), others])
+    cols = np.concatenate([others, np.zeros(n - 1, np.int32)])
+    return rows, cols, n
+
+
+def _patch_shapes():
+    """A directed graph over 4 row blocks: block 0 one patch whose rows use
+    all 128 source columns (row r -> 256 + r, and row 0 -> all of 256..383),
+    block 1 no patch, block 2 one patch using one column (every row -> 5),
+    block 3 random rows over several patches, then the sentinel and pad
+    rows."""
+    rng = np.random.default_rng(0)
+    adj = {r: {256 + r} for r in range(128)}
+    adj[0] |= set(range(256, 384))
+    adj.update({r: {5} for r in range(256, 384)})
+    adj.update({r: set(rng.choice(500, rng.integers(1, 60), replace=False).tolist())
+                for r in range(384, 500)})
+    rows = np.concatenate([np.full(len(adj[r]), r, np.int32) for r in sorted(adj)])
+    cols = np.concatenate([np.array(sorted(adj[r]), np.int32) for r in sorted(adj)])
+    return rows, cols, 500
+
+
+@pytest.mark.parametrize("width", [3, 12, 1056])
+@pytest.mark.parametrize("graph", ["star", "patch-shapes"])
+def test_spmm_hub_rows_and_patch_shapes(cuda_device, graph, width):
+    """A star whose hub has more edges than the grid has column chunks, and
+    row blocks with no patch, one patch using all 128 columns, one using a
+    single column: both kernels == the plain version on integer tables and
+    == the sequential CSR-order sum on tables whose sums round."""
+    rows, cols, n = _star(5000) if graph == "star" else _patch_shapes()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(width)
+    for kind in ("edges", "blocks"):
+        plan = ops.build_spmm_plan(rows, cols, n, kind=kind, device=cuda_device)
+        if graph == "star":
+            assert int(torch.diff(plan.indptr).max()) > -(-width // 128)
+        if kind == "blocks" and graph == "patch-shapes":
+            used = ops.popcount32(plan.patch_union.cpu().numpy()).sum(axis=1)
+            counts = torch.diff(plan.patch_ptr.long()).tolist()
+            assert counts[1] == 0 and counts[0] == counts[2] == 1 and counts[3] > 1
+            assert used[0] == 128 and used[1] == 1 and plan.patch_max_used == 128
+        ints = torch.randint(0, 4, (plan.n_pad, 1, width), generator=gen,
+                             device=cuda_device).float()
+        ints[n:] = 0
+        want = ref.spmm_segment_ref(plan.indptr, plan.indices, ints)
+        assert torch.equal(ops.spmm(plan, ints), want)
+        assert not ops.spmm(plan, ints)[n:].any()
+        _check_orders(plan, n, 1, width, gen, cuda_device)
+    torch.cuda.synchronize()
+
+
+def test_spmm_block_refuses_bad_layouts(cuda_device):
+    """The wrapper raises on staging bounds past what the kernel takes and on
+    unions or offsets of the wrong shape (the kernel itself traps on a patch
+    above the plan's bounds, which would end the test process's context)."""
+    plan = ops.build_spmm_plan(*_patch_shapes(), kind="blocks", device=cuda_device)
+    table = torch.ones(plan.n_pad, 1, 4, device=cuda_device)
+    for bad in (dict(patch_max_used=129), dict(patch_max_slots=plan.patch_max_slots + 8),
+                dict(patch_union=plan.patch_union[:, :3].contiguous()),
+                dict(patch_offs=plan.patch_offs[:, :129].contiguous()),
+                dict(patch_slots=plan.patch_slots.int())):
+        with pytest.raises(ValueError):
+            spmm_block(dataclasses.replace(plan, **bad), table)
+
+
+def test_spmm_library_sass(cuda_device):
+    """The block kernel stages with bulk asynchronous copies and the edge
+    kernel gathers 128 bits a lane."""
+    block, edges = _build.sass("spmm_block"), _build.sass("spmm_edgetile")
+    if block is None:
+        pytest.skip("the CUDA toolkit here has no cuobjdump")
+    assert "UBLKCP" in block and "LDGSTS" in block
+    assert "LDG.E.128" in edges
 
 
 def test_spmm_block_refuses_bad_tensors(cuda_device):
@@ -112,11 +224,11 @@ def test_spmm_block_refuses_bad_tensors(cuda_device):
     plan = ops.build_spmm_plan(*edge_list(g), g.n, kind="blocks", device=cuda_device)
     table = torch.ones(plan.n_pad, 1, 3, device=cuda_device)
     with pytest.raises(ValueError):
-        spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table.double())
+        spmm_block(plan, table.double())
     with pytest.raises(ValueError):
-        spmm_block(plan.patch_ptr.long(), plan.patch_col, plan.patch_bits, table)
+        spmm_block(dataclasses.replace(plan, patch_ptr=plan.patch_ptr.long()), table)
     with pytest.raises(ValueError):
-        spmm_block(plan.patch_ptr, plan.patch_col, plan.patch_bits, table[:-128])
+        spmm_block(plan, table[:-128])
 
 
 @pytest.mark.parametrize("name", ["u3-1", "u5-2", "u7-2"])
