@@ -12,7 +12,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              parallel; the SASS must hold what each redesigned library's
              design rests on: HGMMA (wgmma) and UTMALDG (TMA loads) in the
              bf16 flash library, UBLKCP (bulk asynchronous copies) and
-             LDGSTS (cp.async) in spmm_block's, LDG.E.128 in spmm_edgetile's;
+             LDGSTS (cp.async) in spmm_block's, LDG.E.128 in spmm_edgetile's,
+             LDG.E.128 (16-byte staging loads and, in fused_count, gathers),
+             LDS.128 (the split entries' broadcast) and LDGSTS (their
+             cp.async prefetch) in color_combine's and fused_count's;
 2. kernels — each kernel against its plain version at its path's shapes
              (every u12-2 node width), exact (==) on integer tables whose
              sums stay below 2^24; timed beside the plain version, a library
@@ -21,10 +24,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              and fused kernels run on the main cell's graph; the block SpMM
              on the dense cell's, where it is held == the plain edge-list
              sum and == spmm_edgetile on the whole graph, and == its own
-             dense-patch plain version on a sample of row blocks.  On each
-             cell, a table near 2^22 whose sums round: spmm_edgetile == the
-             sequential float32 sum in CSR order, and on the dense cell
-             spmm_block == spmm_edgetile, bitwise;
+             dense-patch plain version on a sample of row blocks.  The
+             combine and fused kernels also at u14's and u15-2's widest
+             nodes on a small R-MAT graph.  On each cell, a table near 2^22
+             whose sums round: spmm_edgetile == the sequential float32 sum
+             in CSR order, on the main cell fused_count ==
+             color_combine(spmm_edgetile), and on the dense cell spmm_block
+             == spmm_edgetile, bitwise;
 3. exact   — small graphs, templates u3-1/u5-2/u7-2, a fixed coloring: the
              port on the card, edge and block plans, fused and unfused, ==
              the brute-force oracle;
@@ -92,6 +98,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA as 2 (data sheet)
 FP32_ADDS_PER_S = FP32_FLOPS_PER_S / 2  # a lone add issues at the FMA rate
+# shared memory of the H100: 132 SMs x 128 bytes a clock x 1.98 GHz (data
+# sheet); an exact float32 combine FMA with both operands staged there reads
+# 2.25 wavefronts of 128 bytes a warp (two operands, a quarter of a split
+# entries' broadcast), 9 bytes a lane
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
+SMEM_BYTES_PER_FMA = 2.25 * 128 / 32
 MAIN_BATCH = 4  # colorings per call on the main path (unfused peak about 33 GB)
 MAIN_CALLS = 2  # batches per mode on the main path
 DENSE_BATCH = 16  # colorings per call on the dense cell (widest table 3.33 GB)
@@ -209,10 +221,14 @@ def node_shapes(plan):
 #: instructions each redesigned library's design rests on (cuobjdump -sass):
 #: wgmma and TMA loads; bulk asynchronous copies for the block kernel's
 #: staging (and cp.async for tables whose rows are not 16-byte aligned);
-#: 128-bit gathers for the edge kernel
+#: 128-bit gathers for the edge kernel; for the combine and fused kernels,
+#: 128-bit staging loads (and gathers), 128-bit shared-memory reads of the
+#: split entries (four splits a broadcast) and cp.async for their prefetch
 SASS_NEEDS = {"flash_attention_wgmma": ("HGMMA", "UTMALDG"),
               "spmm_block": ("UBLKCP", "LDGSTS"),
-              "spmm_edgetile": ("LDG.E.128",)}
+              "spmm_edgetile": ("LDG.E.128",),
+              "color_combine": ("LDG.E.128", "LDS.128", "LDGSTS"),
+              "fused_count": ("LDG.E.128", "LDS.128", "LDGSTS")}
 
 
 def phase_build():
@@ -247,13 +263,18 @@ def near_2_22(gen, n_pad: int, batch: int, width: int, n_valid: int):
     return t
 
 
-def order_check(sp, n_valid: int, batch: int, width: int, gen):
+def order_check(sp, n_valid: int, batch: int, width: int, gen, tbl=None):
     """On a table whose sums round: spmm_edgetile == the sequential float32
-    sum in CSR order (the order csr_row_sum, and so fused_count, uses) and,
-    on a block plan, spmm_block == spmm_edgetile, bitwise.  Also records
-    whether the plain version (index_add_) happens to give the same bits."""
+    sum in CSR order (the order csr_chunk_gather, and so fused_count, uses)
+    and, on a block plan, spmm_block == spmm_edgetile, bitwise; with the
+    split tables ``tbl`` of a node whose right child is ``width`` wide,
+    fused_count == color_combine(spmm_edgetile), bitwise (left: integers
+    0..3).  Also records whether the plain version (index_add_) happens to
+    give the same bits."""
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.kernels.color_combine import color_combine
+    from repro_torch.kernels.fused_count import fused_count
     from repro_torch.kernels.spmm_block import spmm_block
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
@@ -270,9 +291,18 @@ def order_check(sp, n_valid: int, batch: int, width: int, gen):
            "index_add_eq_csr_order": torch.equal(ref.spmm_segment_ref(sp.indptr, sp.indices, t), seq)}
     if sp.kind == "blocks":
         res["blocks_eq_edges"] = torch.equal(spmm_block(sp, t), edges)
-    del t, seq, edges
+    if tbl is not None:
+        del seq
+        left = torch.randint(0, 4, (sp.n_pad, batch, tbl.a), generator=gen,
+                             device=gen.device).float()
+        unfused = color_combine(left, edges, tbl)
+        res["fused_eq_unfused"] = torch.equal(fused_count(sp.indptr, sp.indices, left, t, tbl),
+                                              unfused)
+        del left, unfused
+    del t, edges
     torch.cuda.empty_cache()
-    if not (res["edges_eq_csr_order"] and res.get("blocks_eq_edges", True)):
+    if not (res["edges_eq_csr_order"] and res.get("blocks_eq_edges", True)
+            and res.get("fused_eq_unfused", True)):
         raise AssertionError(f"summation order differs on sums past 2^24: {res}")
     log(f"phase 2 order (sequential sum {seq_s:.2f}s): {res}")
     return res
@@ -353,11 +383,14 @@ def phase_kernels(plan, batch: int):
         if err != 0:
             raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
         nb = n_pad * batch * (a + bw + s) * 4 + tbl.pairs.numel() * 4
+        # the staged floor: the bound, or the FMAs' shared-memory reads if longer
+        smem_ms = n_pad * batch * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
+        bound = bound_ms(nb, 0, n_pad * batch * s * j)
         rows["color_combine"].append(dict(
             shape=shape, mult=mult, err=err,
             ms=cuda_ms(lambda: color_combine(left, m, tbl)),
             plain_ms=cuda_ms(lambda: ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2), 1),
-            library_ms=None, bound=bound_ms(nb, 0, n_pad * batch * s * j), gather_ms=None))
+            library_ms=None, bound=bound, gather_ms=None, staged_floor_ms=max(bound[0], smem_ms)))
         del left, m
         # fused: 0/1 tables, so J * max_degree stays below 2^24
         left, right = table(a, 2), table(bw, 2)
@@ -374,7 +407,7 @@ def phase_kernels(plan, batch: int):
             plain_ms=cuda_ms(lambda: ref.fused_count_ref(
                 sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2), 1),
             library_ms=None, bound=bound_ms(nb, e * batch * bw, n_pad * batch * s * j),
-            gather_ms=gather_ms))
+            gather_ms=gather_ms, staged_floor_ms=max(gather_ms, smem_ms)))
         del left, right
         log(f"phase 2 {shape}: " + "  ".join(
             f"{k} {v[-1]['ms']:.3f}ms (plain {v[-1]['plain_ms']:.1f}, bound "
@@ -384,8 +417,62 @@ def phase_kernels(plan, batch: int):
             f"{gather_ms:.1f}ms")
         torch.cuda.empty_cache()
     del hub_ptr, hub_idx
-    order = order_check(sp, plan.n, batch, ORDER_WIDTH, gen)
+    order_tbl = next(t for _, t in node_shapes(plan).values() if t.w == ORDER_WIDTH)
+    order = order_check(sp, plan.n, batch, ORDER_WIDTH, gen, order_tbl)
     return rows, order
+
+
+#: (k, t1, t2) of the widest nodes of the named templates: u14's
+#: (364, 3003, 2002, 84), u15-2's (455, 6435, 3003, 120) and its root
+#: (1365, 1365, 1, 1365)
+WIDE_NODES = {"u14": (14, 3, 6), "u15-2": (15, 3, 7), "u15-2 root": (15, 4, 11)}
+
+
+def phase_kernels_wide(dev, batch: int):
+    """The combine and fused kernels at the widest nodes of u14 and u15-2 on
+    a small R-MAT graph: each == its plain version (integer tables), fused
+    == color_combine(spmm_edgetile) bitwise; logs the tile plan and times."""
+    import torch
+    from repro_torch.core.graphs import edge_list, rmat
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.color_combine import color_combine, device_smem_limits, plan_tile
+    from repro_torch.kernels.fused_count import fused_count
+    from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+
+    g = rmat(2 ** 12, 40_000, skew=3, seed=3)
+    sp = ops.build_spmm_plan(*edge_list(g), g.n, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    limits = device_smem_limits(dev)
+    out = {}
+    for name, (k, t1, t2) in WIDE_NODES.items():
+        tbl = ops.build_combine_tables(k, t1, t2, device=dev)
+        left = torch.randint(0, 2, (sp.n_pad, batch, tbl.a), generator=gen, device=dev).float()
+        right = torch.randint(0, 2, (sp.n_pad, batch, tbl.w), generator=gen, device=dev).float()
+        right[g.n:] = 0
+        m = spmm_edge_tile(sp.indptr, sp.indices, right)
+        got = color_combine(left, m, tbl)
+        want = ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
+        fused = fused_count(sp.indptr, sp.indices, left, right, tbl)
+        res = dict(combine_err=max_abs_err(got, want),
+                   fused_err=max_abs_err(fused, ref.fused_count_ref(
+                       sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2)),
+                   fused_eq_unfused=torch.equal(fused, got),
+                   combine_tile=dataclasses.astuple(plan_tile(tbl.a, tbl.w, tbl.s, tbl.jp,
+                                                              limits))[:3],
+                   fused_tile=dataclasses.astuple(plan_tile(tbl.a, tbl.w, tbl.s, tbl.jp,
+                                                            limits, batch=batch))[:3],
+                   combine_ms=cuda_ms(lambda: color_combine(left, m, tbl)),
+                   fused_ms=cuda_ms(lambda: fused_count(sp.indptr, sp.indices, left, right, tbl)))
+        shape = f"A={tbl.a} B={tbl.w} S={tbl.s} J={tbl.j}"
+        if res["combine_err"] or res["fused_err"] or not res["fused_eq_unfused"]:
+            raise AssertionError(f"{name} {shape}: {res}")
+        log(f"phase 2 wide {name} {shape} (batch {batch}, V={g.n}): == plain, fused == unfused; "
+            f"{res}")
+        out[name] = res
+        del left, right, m, got, want, fused
+    torch.cuda.empty_cache()
+    return out
 
 
 def row_block_sample(sp, count: int):
@@ -1015,9 +1102,10 @@ def device_split(fn):
 # ---------------------------------------------------------------------------
 
 
-#: the two SpMM kernels' designs, and where the times of the designs they
-#: replace are recorded (this run does not measure them, so gives none)
-SPMM_DESIGNS = {
+#: the redesigned count-table kernels' designs, and where the times of the
+#: designs they replace are recorded (this run does not measure them, so
+#: gives none)
+DESIGNS = {
     "spmm_edgetile": dict(
         design="warp per (row, 128-float chunk of the B*W row), float4 gathers, 8 in flight, "
                "chunk-major grid",
@@ -1029,10 +1117,23 @@ SPMM_DESIGNS = {
         earlier_design="one serial chain a patch: bitmask load, union by one warp, synchronous "
                        "staging, four barriers",
         earlier_ms="PERF.md kernel table row 4"),
+    "color_combine": dict(
+        design="CTA per tile of up to 128 rows staged column-major in shared memory (odd "
+               "pitch); a warp item is 32 rows x 1-4 output columns (a chain each a lane), "
+               "split entries 16-byte broadcasts prefetched with cp.async; outputs out "
+               "through shared memory in coalesced rows",
+        earlier_design="thread per (row, s), operands at scattered columns through L1",
+        earlier_ms="PERF.md kernel table row 2"),
+    "fused_count": dict(
+        design="CTA per tile of whole vertices, four CTAs an SM where they fit: phase 1 "
+               "csr_chunk_gather units (vertex, 128 floats) taken in turn from a counter, "
+               "into M in shared memory; phase 2 the combine's tile",
+        earlier_design="1024-thread CTA per 64 rows and one coloring, csr_row_sum walk",
+        earlier_ms="PERF.md kernel table row 3"),
 }
 
 
-def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, card):
+def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -1064,8 +1165,8 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "cell": "dense" if name == "spmm_block" else "main",
             "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms")}
                           | {"bound_ms": r["bound"][0], "gather_bound_ms": r["gather_ms"]}
-                          | {k: r[k] for k in ("edgetile_ms", "staging_ms", "hub_cut_ms")
-                             if k in r}
+                          | {k: r[k] for k in ("edgetile_ms", "staging_ms", "hub_cut_ms",
+                                               "staged_floor_ms") if k in r}
                           | ({f"block_ref_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": r["block_ref_ms"],
                               f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": r["sample_ms"]}
                              if "block_ref_ms" in r else {})
@@ -1077,10 +1178,19 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                       f"block_ref_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("block_ref_ms"),
                       f"kernel_ms_{DENSE_PLAIN_BLOCKS}_row_blocks": tot("sample_ms"),
                       "library": "torch.sparse.mm, CSR"}
-        if name in SPMM_DESIGNS:
-            entry |= SPMM_DESIGNS[name] | {"sass": sass[name], "order_check": order[name]}
+        if name in DESIGNS:
+            entry |= DESIGNS[name] | {"sass": sass[name]}
+        if name in order:
+            entry["order_check"] = order[name]
+        if name in ("color_combine", "fused_count"):
+            key = "fused" if name == "fused_count" else "combine"
+            entry["wide_nodes"] = {n: {k: v for k, v in r.items() if k.startswith(key)}
+                                   for n, r in wide.items()}
         if name == "spmm_edgetile":
             entry["hub_cut_ms"] = tot("hub_cut_ms")
+        if name in ("color_combine", "fused_count"):
+            # bytes, shared-memory reads of the FMAs and, fused, the gathers
+            entry["staged_floor_ms"] = tot("staged_floor_ms")
         out.append(entry)
     for name, row, src, extra in (
             ("flash_attention", flash, "flash_attention_wgmma.cu", {
@@ -1128,6 +1238,7 @@ def run_phases(dev):
     plan = build_counting_plan(g, template("u12-2"), device=dev)
     log(f"u12-2 plan on {dev}: n_pad={plan.n_pad} in {time.perf_counter() - t0:.1f}s")
     rows, order_main = phase_kernels(plan, MAIN_BATCH)
+    wide = phase_kernels_wide(dev, MAIN_BATCH)
     phase_exact(dev)
     main_launches, per, draw_ms = phase_main(plan, MAIN_BATCH, MAIN_CALLS)
     del plan, g
@@ -1154,8 +1265,9 @@ def run_phases(dev):
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
-    order = {"spmm_edgetile": order_main, "spmm_block": order_dense}
-    return rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order
+    order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
+    return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
+            wide)
 
 
 def main() -> int:

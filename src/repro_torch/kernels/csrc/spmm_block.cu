@@ -54,7 +54,7 @@
 // the dense cell) no longer fits L2, and a stage would double.
 // The accumulators start at 0 and every row's edges arrive in CSR order
 // (ascending source column, patches in ascending column block), so the sums
-// are those of csr_row_sum and csr_chunk_sum (common.cuh) term for term:
+// are those of csr_chunk_gather and csr_chunk_sum (common.cuh) term for term:
 // spmm_block == spmm_edgetile bitwise.  The output is written once; rows of
 // a row block without a patch come out 0.  No atomics.
 #include "common.cuh"

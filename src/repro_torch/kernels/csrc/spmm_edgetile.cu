@@ -21,8 +21,8 @@
 // gather a float4 each (512 B a warp instruction), eight gathers in flight
 // a warp, indices loaded 32 at a time.  A hub row is split by columns into
 // F / 128 warps, never by edges, so each element still adds its neighbors in
-// CSR order into one accumulator that starts at 0 (the order csr_row_sum
-// and so fused_count.cu uses, and spmm_block.cu's).  Rows run on blockIdx.x
+// CSR order into one accumulator that starts at 0 (the order fused_count.cu's
+// csr_chunk_gather uses, and spmm_block.cu's).  Rows run on blockIdx.x
 // and chunks on blockIdx.y, so the CTAs resident at once share one chunk:
 // its source slice is n_rows * 512 B (33.5 MB on the dense cell, 2^16
 // vertices, which stays in L2; 537 MB on the main cell, which does not).

@@ -11,22 +11,35 @@ without writing ``M`` to device memory, so a node's footprint is
 Replaces ``fused_count_pallas`` (``src/repro/kernels/fused_count.py``),
 which accumulates a ``[row_tile, B]`` block of ``M`` in VMEM scratch over
 the block's edge slabs on a sequential grid and contracts it on the last
-slab.  Hopper has no sequential grid and 227 KB of shared memory per block,
-so the block of rows is sized from the right child's width instead of
-fixed at 128.
+slab.  Hopper has no sequential grid and 227 KB of shared memory per block.
 
-Kernel (``csrc/fused_count.cu``): one CTA per block of ``R`` rows and one
-coloring.  Phase 1 builds the ``[R, W]`` block of ``M`` in dynamic shared
-memory with the SpMM kernel's own edge walk (``csr_row_sum``); phase 2
-runs the combine kernel's own ``j`` loop (``combine_dot``) against it.
-Because both phases share their arithmetic with the unfused kernels,
-fused and unfused counts are bitwise equal on the card at any size.
-``R = min(64, smem_limit // (4 W))``: for u12-2's widest right child
-(``W = 792``) the 227 KB limit allows 73 rows, and 64 are taken.
+Kernel (``csrc/fused_count.cu``): one CTA of 8 warps per tile of ``V`` whole
+vertices, whose ``V B`` (vertex, coloring) rows are one contiguous run of the
+tables.  Phase 1 is the edge kernel's walk: a warp sums one (vertex,
+128-float chunk of the ``B W`` neighbor row) unit with ``csr_chunk_gather``
+(float4 gathers, eight in flight; the scalar variant where ``B W`` is not a
+multiple of 4); the warps take units in turn from a counter, so a hub's
+chunks spread over all of them; each lane writes its sums into the tile's
+``M`` in shared memory, column-major.  Phase 2 is the combine kernel's
+(``csrc/combine_tile.cuh``) on that buffer and ``left``'s staged rows.
+:func:`color_combine.plan_tile` sizes the tile so that four CTAs fit an SM
+wherever they can, so one CTA's gathers run under another's contraction:
+at u12-2's widths, ``V = 2`` at ``W = 792`` (``B = 4``: 8 rows, 41 KB).
+Where one vertex's ``B`` rows do not fit (wide nodes at large ``B``), a tile
+is one vertex and a group of its colorings.  Both phases share their
+arithmetic with the unfused kernels, term for term, so fused and unfused
+counts are bitwise equal on the card at any size.
 
-Bound on the H100: bytes, as the SpMM's — the gathers of ``right`` rows
-dominate; the fused kernel saves the ``M`` write and re-read
-(``2 * rows * B * W * 4`` bytes) and the ``M`` allocation.
+Bound on the H100: bytes, as the edge SpMM's: every edge gathers its
+neighbor's ``B W`` floats, ``E_dir B W 4`` bytes (234.4 ms over a u12-2
+pass on the main cell at the HBM rate); the contraction runs under the
+gathers, and the ``M`` write and re-read of the unfused path
+(``2 rows B W 4`` bytes) and the ``M`` allocation are saved.  Unlike the
+edge kernel's chunk-major grid, concurrent tiles share no source rows, so
+no gather comes from L2.  The earlier design (one CTA of 1024 threads per
+64 rows and one coloring, each row's walk one warp's, 32 columns a pass)
+filled an SM with one CTA at ``W >= 495`` and ran at 53.9x its bound over a
+u12-2 pass.
 """
 
 from __future__ import annotations
@@ -36,44 +49,20 @@ import ctypes
 import torch
 
 from . import _build
+from .color_combine import check_pairs, device_smem_limits, plan_tile
 from .ref import fused_count_ref
 from .spmm_edgetile import _check_cuda
 
-__all__ = ["fused_count", "fused_count_plain", "rows_per_block", "MAX_ROWS_PER_BLOCK"]
+__all__ = ["fused_count", "fused_count_plain"]
 
-#: upper bound on the destination rows one CTA owns
-MAX_ROWS_PER_BLOCK = 64
-
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_smem_limit = {}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 12
+             + [ctypes.c_void_p])
 
 
 def fused_count_plain(indptr, indices, left, right, tables) -> torch.Tensor:
     """The plain version the wrapper takes for a CPU tensor (row-blocked:
     ``M`` never exists as a whole table here either)."""
     return fused_count_ref(indptr, indices, left, right, tables.idx1, tables.idx2)
-
-
-def rows_per_block(width: int, smem_limit: int) -> int:
-    """Rows of ``M`` one CTA holds: ``R * width * 4 <= smem_limit``, capped at 64."""
-    r = min(MAX_ROWS_PER_BLOCK, smem_limit // (4 * max(width, 1)))
-    if r < 1:
-        raise ValueError(
-            f"a right table {width} columns wide does not fit one row in "
-            f"{smem_limit} bytes of shared memory"
-        )
-    return r
-
-
-def _device_smem_limit(device: torch.device) -> int:
-    limit = _smem_limit.get(device.index)
-    if limit is None:
-        fn = _build.kernel_fn("fused_count", "fused_count_smem_limit", [ctypes.c_int])
-        limit = fn(device.index)
-        if limit <= 0:
-            _build.check(-limit, "fused_count_smem_limit")
-        _smem_limit[device.index] = limit
-    return limit
 
 
 def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables) -> torch.Tensor:
@@ -90,8 +79,9 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
         )
     if left.device.type == "cpu":
         return fused_count_plain(indptr, indices, left, right, tables)
-    _check_cuda(left, (indptr, torch.int64), (indices, torch.int32), (tables.pairs, torch.int32))
+    _check_cuda(left, (indptr, torch.int64), (indices, torch.int32))
     _check_cuda(right)
+    check_pairs(tables, left.device)
     rows, b, a = left.shape
     w = right.shape[2]
     if right.shape[1:] != (b, tables.w) or a != tables.a:
@@ -99,14 +89,16 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
             f"left {tuple(left.shape)} and right {tuple(right.shape)} do not fit split "
             f"tables of widths ({tables.a}, {tables.w})"
         )
-    r = rows_per_block(w, _device_smem_limit(left.device))
+    tile = plan_tile(a, w, tables.s, tables.jp, device_smem_limits(left.device), batch=b)
+    vec = (b * w) % 4 == 0 and (tile.colorings * w) % 4 == 0 and right.data_ptr() % 16 == 0
     out = torch.empty((rows, b, tables.s), dtype=torch.float32, device=left.device)
     fn = _build.kernel_fn("fused_count", "fused_count_launch", _ARGTYPES)
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream(left.device).cuda_stream
         err = fn(indptr.data_ptr(), indices.data_ptr(), left.data_ptr(), right.data_ptr(),
                  tables.pairs.data_ptr(), out.data_ptr(), rows, b, a, w, tables.s, tables.j,
-                 tables.ts, r, stream)
+                 tables.jp, tile.vertices, tile.colorings, tile.chunk, tile.columns, tile.per_sm,
+                 int(vec), stream)
     _build.check(err, "fused_count_launch")
     fused_count.launches += 1
     return out

@@ -276,11 +276,11 @@ def spmm(plan: SpmmPlan, table: torch.Tensor) -> torch.Tensor:
 class CombineTables:
     """Split tables for one partition node, in the forms the ops read.
 
-    ``idx1``/``idx2`` int64 ``[S, J]`` feed the plain versions.  ``pairs``
-    is the kernels' packed form: int32 ``[ceil(S / ts), J, ts]`` holding
-    ``idx1 | idx2 << 16`` for output column ``tile * ts + x`` (0 past
-    ``S``), so the ``ts`` columns of one s-tile read one contiguous run per
-    split ``j``.
+    ``idx1``/``idx2`` int32 ``[S, J]`` feed the plain versions.  ``pairs``
+    is the kernels' packed form: int32 ``[S, jp]`` holding ``idx1 | idx2 <<
+    16`` for split ``j < J`` of output column ``s`` and 0 past ``J``, so a
+    column's splits are one contiguous run that the kernels read four at a
+    time (one 16-byte load) and a chunk of columns one contiguous block.
     """
 
     idx1: torch.Tensor
@@ -290,7 +290,7 @@ class CombineTables:
     w: int  # right child's width C(k, t2)
     s: int  # output width C(k, t)
     j: int  # split count C(t, t1)
-    ts: int  # output columns per s-tile: min(32, next power of two >= S)
+    jp: int  # J padded to a multiple of 4: the row pitch of ``pairs``
 
 
 def build_combine_tables(k: int, t1: int, t2: int, *, device: torch.device) -> CombineTables:
@@ -299,18 +299,16 @@ def build_combine_tables(k: int, t1: int, t2: int, *, device: torch.device) -> C
     a, w = math.comb(k, t1), math.comb(k, t2)
     if max(a, w) > 1 << 16:
         raise ValueError(f"k={k} is too wide for 16-bit packed split indices")
-    ts = min(32, 1 << (s - 1).bit_length())
-    n_tiles = -(-s // ts)
-    packed = np.zeros((n_tiles * ts, j), np.int64)
-    packed[:s] = idx1.astype(np.int64) | (idx2.astype(np.int64) << 16)
-    pairs = packed.reshape(n_tiles, ts, j).transpose(0, 2, 1).astype(np.int32)
+    jp = pad_to(j, 4)
+    packed = np.zeros((s, jp), np.int64)
+    packed[:, :j] = idx1.astype(np.int64) | (idx2.astype(np.int64) << 16)
     return CombineTables(
-        idx1=torch.from_numpy(idx1.astype(np.int64)).to(device),
-        idx2=torch.from_numpy(idx2.astype(np.int64)).to(device),
-        pairs=torch.from_numpy(np.ascontiguousarray(pairs)).to(device),
+        idx1=torch.from_numpy(idx1.astype(np.int32)).to(device),
+        idx2=torch.from_numpy(idx2.astype(np.int32)).to(device),
+        pairs=torch.from_numpy(packed.astype(np.int32)).to(device),
         a=a,
         w=w,
         s=s,
         j=j,
-        ts=ts,
+        jp=jp,
     )

@@ -30,7 +30,7 @@ across all the row block's patches, and release the stage on its "empty"
 mbarrier; no CTA-wide barrier runs per patch.  The output is written once,
 with no atomics, and row blocks without a patch come out exactly zero.
 Each row's neighbors are added in ascending source order into one
-accumulator that starts at 0, the order ``csr_row_sum`` and
+accumulator that starts at 0, the order ``csr_chunk_gather`` and
 ``csr_chunk_sum`` (``csrc/common.cuh``) use, so ``spmm_block`` equals
 ``spmm_edge_tile`` bitwise at any size.
 

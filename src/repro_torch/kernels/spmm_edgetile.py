@@ -23,7 +23,7 @@ bytes: 33.5 MB on a 2^16-vertex graph, which stays in L2).  Tables whose
 variant (one float a lane, four columns 32 apart).  Every output element is
 one float32 accumulator that starts at 0 and adds the row's neighbors in
 CSR order (``csr_chunk_sum`` in ``csrc/common.cuh``, term for term the order
-of ``csr_row_sum``, which the fused kernel uses, and of ``spmm_block``), so
+of ``csr_chunk_gather``, which the fused kernel uses, and of ``spmm_block``), so
 edge and block plans, fused and unfused, agree bitwise.  No atomics, so the
 result is deterministic; rows without edges (zero-degree, sentinel and pad
 rows) come out exactly zero.

@@ -24,7 +24,7 @@ from repro_torch.core.count_engine import build_counting_plan, colorful_map_coun
 from repro_torch.core.graphs import edge_list, erdos_renyi, rmat
 from repro_torch.core.templates import template
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.color_combine import color_combine
+from repro_torch.kernels.color_combine import color_combine, device_smem_limits, plan_tile
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_count import fused_count
 from repro_torch.kernels.spmm_block import spmm_block
@@ -64,6 +64,104 @@ def test_cuda_kernels_match_plain(cuda_device, k, t1, t2, batch):
     assert [y - x for x, y in zip(launched, after)] == [1, 1, 1]
 
 
+def _hub_plan(n, device, hub=3, seed=6):
+    """R-MAT edges plus a hub joined to every other vertex (degree n - 1)."""
+    rows, cols = edge_list(rmat(n, 6 * n, skew=3, seed=seed))
+    pairs = set(zip(rows.tolist(), cols.tolist()))
+    pairs |= {(hub, v) for v in range(n) if v != hub} | {(v, hub) for v in range(n) if v != hub}
+    e = np.array(sorted(pairs), dtype=np.int32)
+    return ops.build_spmm_plan(e[:, 0], e[:, 1], n, device=device)
+
+
+#: (k, t1, t2) -> the route of the combine's tile plan on the H100 at B = 1
+#: (rows a tile; >= 32: a warp is 32 rows of one output column, < 32: its
+#: lanes split over output columns)
+ROUTE_NODES = {
+    "u12-2 (12, 792, 495, 8)": (12, 1, 7),  # 32 rows
+    "u12-2 (220, 495, 792, 35)": (12, 3, 4),  # 32 rows
+    "u12-2 root (495, 495, 1, 495)": (12, 4, 8),  # 16 rows
+    "u12-2 (12, 12, 66, 2)": (12, 1, 1),  # 128 rows, four row groups
+    "u14 (364, 3003, 2002, 84)": (14, 3, 6),  # 4 rows
+    "u15-2 (455, 6435, 3003, 120)": (15, 3, 7),  # 4 rows, one CTA an SM
+    "u15-2 root (1365, 1365, 1, 1365)": (15, 4, 11),  # 8 rows
+}
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("node", list(ROUTE_NODES))
+def test_combine_and_fused_tile_routes(cuda_device, node, batch):
+    """Both kernels == their plain versions, and fused == color_combine of
+    spmm_edge_tile bitwise, at u12-2's, u14's and u15-2's widest nodes, on a
+    graph with a hub row: on the padded table, on the CSR of the n vertices
+    alone (a ragged last tile) and on one vertex.  B = 3 and 9 take the
+    fused kernel's scalar walk; at u14's and u15-2's widest nodes B = 9 takes
+    tiles of one vertex and a group of its colorings (grid.y)."""
+    k, t1, t2 = ROUTE_NODES[node]
+    n = 301
+    plan = _hub_plan(n, cuda_device)
+    tbl = ops.build_combine_tables(k, t1, t2, device=cuda_device)
+    limits = device_smem_limits(cuda_device)
+    tile = plan_tile(tbl.a, tbl.w, tbl.s, tbl.jp, limits, batch=batch)
+    if batch == 9 and (k, t1, t2) == (15, 3, 7):  # 9 rows of 6,890 floats do not fit
+        assert tile.vertices == 1 and tile.colorings < batch
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(k * batch + t1)
+    for rows in (plan.n_pad, n, 1):
+        indptr = plan.indptr[: rows + 1].contiguous()
+        indices = plan.indices if rows > 1 else plan.indices[:0]
+        if rows == 1:
+            indptr = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        left = torch.randint(0, 2, (rows, batch, tbl.a), generator=gen, device=cuda_device).float()
+        right = torch.randint(0, 2, (rows, batch, tbl.w), generator=gen,
+                              device=cuda_device).float()
+        launched = (color_combine.launches, fused_count.launches)
+        m = spmm_edge_tile(indptr, indices, right)
+        got = color_combine(left, m, tbl)
+        want = ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
+        assert torch.equal(got, want)
+        fused = fused_count(indptr, indices, left, right, tbl)
+        assert torch.equal(fused, got)
+        assert torch.equal(fused, ref.fused_count_ref(indptr, indices, left, right, tbl.idx1,
+                                                      tbl.idx2))
+        assert (color_combine.launches, fused_count.launches) == tuple(x + 1 for x in launched)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("k,t1,t2", [(12, 1, 2), (12, 3, 4), (12, 1, 7)])
+def test_fused_equals_unfused_where_sums_round(cuda_device, k, t1, t2, batch):
+    """Right tables near 2^22: M's sums pass 2^24 and round (the hub row's
+    degree is 300), so the result shows the order of the adds and FMAs.
+    fused_count == color_combine(left, spmm_edge_tile(right)), bitwise, also
+    for unaligned views of the tables (the 4-byte staging and scalar walk)."""
+    plan = _hub_plan(301, cuda_device)
+    tbl = ops.build_combine_tables(k, t1, t2, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(k + batch)
+    right = _near_2_22(gen, (plan.n_pad, batch, tbl.w), 301, cuda_device)
+    left = torch.randint(0, 4, (plan.n_pad, batch, tbl.a), generator=gen,
+                         device=cuda_device).float()
+    m = spmm_edge_tile(plan.indptr, plan.indices, right)
+    assert m.max() >= 2.0 ** 24
+    unfused = color_combine(left, m, tbl)
+    assert torch.equal(fused_count(plan.indptr, plan.indices, left, right, tbl), unfused)
+    assert torch.equal(fused_count(plan.indptr, plan.indices, _unaligned(left),
+                                   _unaligned(right), tbl), unfused)
+    assert torch.equal(color_combine(_unaligned(left), _unaligned(m), tbl), unfused)
+    torch.cuda.synchronize()
+
+
+def test_combine_library_sass(cuda_device):
+    """Both combine kernels stage with 16-byte loads (the fused kernel's
+    gathers too), read four split entries a broadcast (LDS.128) and prefetch
+    the next chunk's entries with cp.async (LDGSTS)."""
+    for name in ("color_combine", "fused_count"):
+        text = _build.sass(name)
+        if text is None:
+            pytest.skip("the CUDA toolkit here has no cuobjdump")
+        assert "LDG.E.128" in text and "LDS.128" in text and "LDGSTS" in text
+
+
 def test_cuda_kernels_refuse_bad_tensors(cuda_device):
     """A CUDA tensor reaches the kernel or an exception, never the plain version."""
     g = erdos_renyi(50, 3.0, seed=0)
@@ -78,6 +176,18 @@ def test_cuda_kernels_refuse_bad_tensors(cuda_device):
         color_combine(table, table, tbl)
     with pytest.raises(ValueError):
         fused_count(plan.indptr, plan.indices, table, table, tbl)
+    # a split table the kernels cannot read four entries a 16-byte load
+    wide = torch.ones(plan.n_pad, 1, 10, device=cuda_device)
+    buf = torch.zeros(tbl.pairs.numel() + 1, dtype=torch.int32, device=cuda_device)
+    shifted = buf[1:].view(tbl.pairs.shape)
+    shifted.copy_(tbl.pairs)
+    for bad in (shifted, tbl.pairs.long(), tbl.pairs[:, :2].contiguous()):
+        with pytest.raises(ValueError):
+            color_combine(wide, wide, dataclasses.replace(tbl, pairs=bad))
+        with pytest.raises(ValueError):
+            fused_count(plan.indptr, plan.indices, wide, wide, dataclasses.replace(tbl, pairs=bad))
+    assert torch.equal(color_combine(wide, wide, tbl),
+                       ref.color_combine_ref(wide, wide, tbl.idx1, tbl.idx2))
 
 
 def _near_2_22(gen, shape, n_valid, device):

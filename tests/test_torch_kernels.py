@@ -23,11 +23,14 @@ from repro.kernels.color_combine import color_combine_pallas
 from repro.kernels.fused_count import fused_count_pallas
 from repro.kernels.spmm_edgetile import spmm_block_pallas, spmm_edge_tile_pallas
 from repro_torch.api import Counter
+from repro_torch.core.count_engine import build_counting_plan
+from repro_torch.core.templates import TEMPLATES, template
 from repro_torch.core.graphs import erdos_renyi as port_erdos_renyi
 from repro_torch.core.graphs import rmat as port_rmat
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.color_combine import color_combine
-from repro_torch.kernels.fused_count import fused_count, rows_per_block
+from repro_torch.kernels.color_combine import FUSED_STATIC_BYTES, H100_SMEM, plan_tile, tile_bytes
+from repro_torch.kernels.fused_count import fused_count
 from repro_torch.kernels.spmm_block import spmm_block
 from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
@@ -111,21 +114,67 @@ def test_fused_count_matches_pallas(k, t1, t2):
 
 def test_combine_tables_packing():
     tbl = ops.build_combine_tables(12, 3, 4, device=CPU)  # S = 792, J = 35
-    assert (tbl.s, tbl.j, tbl.ts) == (792, 35, 32)
-    assert tuple(tbl.pairs.shape) == (25, 35, 32)
-    s = torch.arange(tbl.s)
-    p = tbl.pairs[s // tbl.ts, :, s % tbl.ts]  # [S, J]
+    assert (tbl.s, tbl.j, tbl.jp) == (792, 35, 36)
+    assert tuple(tbl.pairs.shape) == (792, 36)
+    p = tbl.pairs[:, : tbl.j]  # [S, J]
     assert torch.equal(p & 0xFFFF, tbl.idx1.int()) and torch.equal(p >> 16, tbl.idx2.int())
+    assert not tbl.pairs[:, tbl.j:].any()
     root = ops.build_combine_tables(12, 4, 8, device=CPU)  # the u12-2 root: S = 1
-    assert (root.s, root.j, root.ts) == (1, 495, 1)
+    assert (root.s, root.j, root.jp) == (1, 495, 496)
 
 
-def test_rows_per_block():
-    assert rows_per_block(792, 232448) == 64  # u12-2's widest right child: 73 fit
-    assert rows_per_block(12, 232448) == 64
-    assert rows_per_block(4000, 232448) == 14
+#: node (A, W, S, J), batch (0: the combine) -> tile (rows, colorings, chunk,
+#: CTAs an SM) on the H100
+ROWS_PER_BLOCK = [
+    ((12, 12, 66, 2), 0, (128, 1, 66, 4)),  # a chunk is the whole output row
+    ((12, 66, 220, 3), 0, (64, 1, 110, 4)),
+    ((12, 220, 495, 4), 0, (32, 1, 124, 4)),
+    ((12, 792, 495, 8), 0, (16, 1, 124, 3)),  # u12-2's widest right child
+    ((220, 495, 792, 35), 0, (32, 1, 32, 2)),  # 16 rows fit three CTAs, 32 rows two
+    ((495, 495, 1, 495), 0, (16, 1, 1, 3)),  # the root
+    ((12, 792, 495, 8), 4, (8, 4, 124, 5)),  # 2 whole vertices, four CTAs an SM or more
+    ((495, 495, 1, 495), 3, (12, 3, 1, 4)),
+    ((220, 495, 792, 35), 4, (8, 4, 61, 5)),
+    ((495, 495, 1, 495), 4, (8, 4, 1, 5)),
+    ((364, 3003, 2002, 84), 4, (4, 4, 63, 2)),  # u14's widest: one vertex
+    ((1365, 1365, 1, 1365), 4, (4, 4, 1, 3)),  # u15-2's root
+    ((455, 6435, 3003, 120), 1, (4, 1, 64, 1)),  # u15-2's widest: one CTA an SM
+    ((455, 6435, 3003, 120), 9, (4, 4, 64, 1)),  # one vertex, colorings in groups of 4
+]
+
+
+@pytest.mark.parametrize("node,batch,want", ROWS_PER_BLOCK)
+def test_rows_per_block(node, batch, want):
+    a, w, s, j = node
+    jp = ops.pad_to(j, 4)
+    tile = plan_tile(a, w, s, jp, H100_SMEM, batch=batch)
+    assert (tile.rows, tile.colorings, tile.chunk, tile.per_sm) == want
+    kernel, static = ("fused", FUSED_STATIC_BYTES) if batch else ("combine", 0)
+    assert tile.smem_bytes == tile_bytes(tile.rows, a, w, s, jp, kernel)
+    assert tile.smem_bytes + static <= H100_SMEM.per_block
+    assert tile.per_sm == H100_SMEM.per_sm // (tile.smem_bytes + static + H100_SMEM.reserved)
+
+
+def test_rows_per_block_refuses_what_does_not_fit():
     with pytest.raises(ValueError):
-        rows_per_block(100_000, 232448)
+        plan_tile(30_000, 30_000, 100, 4, H100_SMEM)
+    with pytest.raises(ValueError):
+        plan_tile(12, 100_000, 100, 4, H100_SMEM, batch=4)
+
+
+@pytest.mark.parametrize("name", sorted(TEMPLATES))
+def test_rows_per_block_fits_every_template(name):
+    """Every node of every named template gets a tile of at least one row in
+    the H100's 232,448 bytes, for the combine and for the fused kernel at
+    B = 1, 4 and 16."""
+    g = port_erdos_renyi(40, 4.0, seed=2)
+    plan = build_counting_plan(g, template(name), device=CPU)
+    for i, nd in plan.chain.internal_nodes():
+        tbl = plan.combine[i]
+        for batch in (0, 1, 4, 16):
+            tile = plan_tile(tbl.a, tbl.w, tbl.s, tbl.jp, H100_SMEM, batch=batch)
+            static = FUSED_STATIC_BYTES if batch else 0
+            assert tile.rows >= 1 and tile.smem_bytes + static <= 232_448 and tile.per_sm >= 1
 
 
 @pytest.mark.parametrize("make_graph", [
