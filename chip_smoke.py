@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
-the single-device tree-template estimate and the granite-3-8b serving path
-(prefill, then decode), with every kernel of their paths built from this
-checkout and held against its plain PyTorch version.
+the single-device tree-template estimate, family counting and treewidth-2
+bag programs, and the granite-3-8b serving path (prefill, then decode),
+with every kernel of their paths built from this checkout and held against
+its plain PyTorch version.
 
-    python3 chip_smoke.py            # all phases, one card (about 5 minutes)
+    python3 chip_smoke.py            # all phases, one card (about 8 minutes)
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
@@ -31,7 +32,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              in CSR order, on the main cell fused_count ==
              color_combine(spmm_edgetile), and on the dense cell spmm_block
              == spmm_edgetile, bitwise;
-3. exact   — small graphs, templates u3-1/u5-2/u7-2, a fixed coloring: the
+3. exact   — small graphs, templates u3-1/u5-2/u7-2 and the treewidth-2 rows
+             cycle3-cycle6, diamond, bowtie and house, a fixed coloring: the
              port on the card, edge and block plans, fused and unfused, ==
              the brute-force oracle;
 4. main    — the main path at full width: u12-2 on R-MAT 2^20 vertices / 10M
@@ -47,7 +49,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 6. launch  — the launcher: bench-small with and without --fuse prints
              identical estimates; --checkpoint-dir then --resume prints the
              same estimate; --fuse --spmm-kind auto on a dense --graph file
-             reports kind=edges and fuse=True;
+             reports kind=edges and fuse=True; --config bench-family prints a
+             u5-2 line == --templates u5-2,u7-2's (same key, k = 7) ==
+             Counter.estimate(n_colors=7); --config bench-cycles and
+             bench-tw2-mixed run, fused and unfused printing the same;
 7. flash   — the bf16 flash-attention kernel (wgmma) against its plain
              version at the shape granite-3-8b's prefill launches it (B=4,
              Hq=32, Hkv=8, L=4096, D=128, causal), within one bf16 step of the
@@ -72,7 +77,26 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              same weights within 1e-4 relative.  The launches of the served
              path (the three prefills and the decode steps) and those of the
              float32 checks are counted apart, as paths "lm" and
-             "lm_float32_checks".
+             "lm_float32_checks";
+9. family  — the rmat500-family row's templates u5-2, u7-2, u10-2 at k = 10 on
+             the main cell's graph, B = 8: the kernels against their plain
+             versions at every node shape of the shared DAG (exact), then
+             count_fn_many unfused and fused, 2 calls each: maps bitwise
+             equal, launches as the DAG predicts (a node one SpMM and one
+             combine, or one fused launch), each template's own plan with
+             n_colors = 10 on the same colorings (bitwise logged, held
+             within rtol 1e-5), one coloring through the plain versions
+             within rtol 1e-5, ms per coloring, peak bytes and the family
+             batch beside the three single-template runs (path "family");
+10. tw2    — the bench-tw2-mixed row's family (u3-1, cycle4, u5-2, cycle6,
+             diamond) at k = 6 on R-MAT 2^13 / 64,000, B = 2: as phase 9, with
+             the bag nodes' SpMM on [n_pad, B, x W] tables and combine on
+             [n_pad, B x, W] views (2.73e9 elements at W = 20) held against
+             their plain versions a block of rows at a time; tree nodes fused,
+             bag nodes never (a bag_combine one SpMM and one combine, a
+             collapse none); then Counter.estimate of cycle6 alone on the
+             same graph, whose samples equal the family's cycle6 column
+             (path "tw2").
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -123,6 +147,13 @@ LM_CARD_CPU_LEN = 256  # tokens of the 2-layer float32 card-vs-CPU prefill
 LM_CARD_CPU_RTOL = 1e-4  # float32 on both sides, TF32 off: summation order only
 FLASH_F32_TOL = 1e-5  # float32 kernel vs float32 plain version: summation order
 FLASH_BF16_ATOL = 1e-6  # beyond one bf16 step, for the float32 order near zero
+FAMILY_K = 10  # phase 9: the rmat500-family row's largest template, u10-2
+FAMILY_BATCH = 8  # colorings per call (widest table C(10, 5) = 252 columns, 8.5 GB)
+FAMILY_CALLS = 2  # batches per mode
+TW2_K = 6  # phase 10: the bench-tw2-mixed row's largest template, cycle6
+TW2_GRAPH = (2 ** 13, 64_000)  # the row's 7.8 edges a vertex at the largest apex axis that fits
+TW2_BATCH = 2  # colorings per call (widest bag table 2.73e9 elements, 10.9 GB)
+TW2_CALLS = 2
 
 
 def log(msg: str) -> None:
@@ -202,11 +233,17 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def node_shapes(plan):
-    """Distinct (A, Bw, S, J) of the plan's internal nodes, with multiplicity."""
+def node_shapes(plan, program=None, kinds=("combine",)):
+    """Distinct (A, Bw, S, J) of the program's internal nodes of ``kinds``
+    (default: the plan's own program, its tree nodes), with multiplicity;
+    widths are per coloring and, on bag nodes, per apex vertex ``x``."""
+    program = program if program is not None else plan.chain
     shapes = {}
-    for i, nd in plan.chain.internal_nodes():
-        key = (plan.widths[nd.left], plan.widths[nd.right], plan.combine[i].s, plan.combine[i].j)
+    for i, nd in program.internal_nodes():
+        if nd.kind not in kinds:
+            continue
+        tbl = plan.combine[i]
+        key = (tbl.a, tbl.w, tbl.s, tbl.j)
         if key not in shapes:
             shapes[key] = [0, plan.combine[i]]
         shapes[key][0] += 1
@@ -323,100 +360,123 @@ def hub_cut(sp, count: int = 10):
     return ptr, sp.indices[keep[dst]].contiguous()
 
 
-def phase_kernels(plan, batch: int):
-    """Each kernel against its plain version at every node shape of ``plan``."""
+def csr_tensor(sp):
+    """The plan's CSR as ``torch.sparse_csr_tensor`` (the library yardstick)."""
+    import torch
+
+    e = sp.num_directed
+    return torch.sparse_csr_tensor(sp.indptr, sp.indices.long(),
+                                   torch.ones(e, device=sp.indptr.device), (sp.n_pad, sp.n_pad))
+
+
+def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, tag: str,
+                    hub=None):
+    """One tree-node shape ``(A, W, S, J)``: each of the edge SpMM, combine
+    and fused kernels against its plain version (exact, on integer tables),
+    timed beside the plain version, the library call where one exists and
+    the bound; appended to ``rows``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.color_combine import color_combine
     from repro_torch.kernels.fused_count import fused_count
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
-    dev = plan.device
-    sp = plan.spmm_plan
-    n_pad, e = sp.n_pad, sp.num_directed
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
+    a, bw, s, j = shape_key
+    n_pad, e, dev = sp.n_pad, sp.num_directed, sp.indptr.device
+    csr_bytes = (n_pad + 1) * 8 + e * 4
 
     def table(width, hi):
         return torch.randint(0, hi, (n_pad, batch, width), generator=gen, device=dev).float()
 
-    csr_bytes = (n_pad + 1) * 8 + e * 4
-    csr = torch.sparse_csr_tensor(sp.indptr, sp.indices.long(),
-                                  torch.ones(e, device=dev), (n_pad, n_pad))
-    hub_ptr, hub_idx = hub_cut(sp)
+    shape = f"A={a} B={bw} S={s} J={j} x{mult}"
+    # Each check frees its outputs before the timings, so that at batch 4
+    # and W = 792 (13 GB a table) no more than three tables are live.
+    # The gather bound counts every edge's read of a B*W row segment once:
+    # the bytes this design moves, beside the contract bound (each table
+    # read once).
+    gather_ms = e * batch * bw * 4 / HBM_BYTES_PER_S * 1e3
+    # SpMM: sums of at most max_degree values <= 3 stay far below 2^24
+    right = table(bw, 4)
+    got = spmm_edge_tile(sp.indptr, sp.indices, right)
+    want = ref.spmm_segment_ref(sp.indptr, sp.indices, right)
+    err = max_abs_err(got, want)
+    del want
+    flat = right.reshape(n_pad, -1)
+    lib_equal = torch.equal(torch.sparse.mm(csr, flat).reshape(got.shape), got)
+    del got
+    if err != 0 or not lib_equal:
+        raise AssertionError(f"spmm_edgetile != plain at {shape}: max_abs_err {err}, "
+                             f"library equal {lib_equal}")
+    nb = 2 * n_pad * batch * bw * 4 + csr_bytes
+    row = dict(
+        shape=shape, mult=mult, err=err,
+        ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right)),
+        plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
+        bound=bound_ms(nb, e * batch * bw), gather_ms=gather_ms)
+    if hub is not None:
+        row["hub_cut_ms"] = cuda_ms(lambda: spmm_edge_tile(hub[0], hub[1], right))
+    rows["spmm_edgetile"].append(row)
+    del right, flat
+    # combine: J * 3 * 3 <= 4455 per output
+    left, m = table(a, 4), table(bw, 4)
+    got = color_combine(left, m, tbl)
+    want = ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
+    err = max_abs_err(got, want)
+    del got, want
+    if err != 0:
+        raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
+    nb = n_pad * batch * (a + bw + s) * 4 + tbl.pairs.numel() * 4
+    # the staged floor: the bound, or the FMAs' shared-memory reads if longer
+    smem_ms = n_pad * batch * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
+    bound = bound_ms(nb, 0, n_pad * batch * s * j)
+    rows["color_combine"].append(dict(
+        shape=shape, mult=mult, err=err,
+        ms=cuda_ms(lambda: color_combine(left, m, tbl)),
+        plain_ms=cuda_ms(lambda: ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2), 1),
+        library_ms=None, bound=bound, gather_ms=None, staged_floor_ms=max(bound[0], smem_ms)))
+    del left, m
+    # fused: 0/1 tables, so J * max_degree stays below 2^24
+    left, right = table(a, 2), table(bw, 2)
+    got = fused_count(sp.indptr, sp.indices, left, right, tbl)
+    want = ref.fused_count_ref(sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2)
+    err = max_abs_err(got, want)
+    del got, want
+    if err != 0:
+        raise AssertionError(f"fused_count != plain at {shape}: max_abs_err {err}")
+    nb = n_pad * batch * (a + bw + s) * 4 + csr_bytes + tbl.pairs.numel() * 4
+    rows["fused_count"].append(dict(
+        shape=shape, mult=mult, err=err,
+        ms=cuda_ms(lambda: fused_count(sp.indptr, sp.indices, left, right, tbl)),
+        plain_ms=cuda_ms(lambda: ref.fused_count_ref(
+            sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2), 1),
+        library_ms=None, bound=bound_ms(nb, e * batch * bw, n_pad * batch * s * j),
+        gather_ms=gather_ms, staged_floor_ms=max(gather_ms, smem_ms)))
+    del left, right
+    extra = (f"; ten largest rows cut {rows['spmm_edgetile'][-1]['hub_cut_ms']:.3f}ms"
+             if hub is not None else "")
+    log(f"{tag} {shape}: " + "  ".join(
+        f"{k} {v[-1]['ms']:.3f}ms (plain {v[-1]['plain_ms']:.1f}, bound "
+        f"{v[-1]['bound'][0]:.3f} {v[-1]['bound'][1]})" for k, v in rows.items() if v)
+        + f"; spmm_edgetile library {rows['spmm_edgetile'][-1]['library_ms']:.3f}ms{extra}, "
+        f"gather {gather_ms:.1f}ms")
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(plan, batch: int):
+    """Each kernel against its plain version at every node shape of ``plan``."""
+    import torch
+
+    dev = plan.device
+    sp = plan.spmm_plan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    csr = csr_tensor(sp)
+    hub = hub_cut(sp)
     rows = {"spmm_edgetile": [], "color_combine": [], "fused_count": []}
-    for (a, bw, s, j), (mult, tbl) in sorted(node_shapes(plan).items()):
-        shape = f"A={a} B={bw} S={s} J={j} x{mult}"
-        # Each check frees its outputs before the timings, so that at batch 4
-        # and W = 792 (13 GB a table) no more than three tables are live.
-        # The gather bound counts every edge's read of a B*W row segment once:
-        # the bytes this design moves, beside the contract bound (each table
-        # read once).
-        gather_ms = e * batch * bw * 4 / HBM_BYTES_PER_S * 1e3
-        # SpMM: sums of at most max_degree values <= 3 stay far below 2^24
-        right = table(bw, 4)
-        got = spmm_edge_tile(sp.indptr, sp.indices, right)
-        want = ref.spmm_segment_ref(sp.indptr, sp.indices, right)
-        err = max_abs_err(got, want)
-        del want
-        flat = right.reshape(n_pad, -1)
-        lib_equal = torch.equal(torch.sparse.mm(csr, flat).reshape(got.shape), got)
-        del got
-        if err != 0 or not lib_equal:
-            raise AssertionError(f"spmm_edgetile != plain at {shape}: max_abs_err {err}, "
-                                 f"library equal {lib_equal}")
-        nb = 2 * n_pad * batch * bw * 4 + csr_bytes
-        rows["spmm_edgetile"].append(dict(
-            shape=shape, mult=mult, err=err,
-            ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right)),
-            plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
-            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
-            hub_cut_ms=cuda_ms(lambda: spmm_edge_tile(hub_ptr, hub_idx, right)),
-            bound=bound_ms(nb, e * batch * bw), gather_ms=gather_ms))
-        del right, flat
-        # combine: J * 3 * 3 <= 4455 per output
-        left, m = table(a, 4), table(bw, 4)
-        got = color_combine(left, m, tbl)
-        want = ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
-        err = max_abs_err(got, want)
-        del got, want
-        if err != 0:
-            raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
-        nb = n_pad * batch * (a + bw + s) * 4 + tbl.pairs.numel() * 4
-        # the staged floor: the bound, or the FMAs' shared-memory reads if longer
-        smem_ms = n_pad * batch * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
-        bound = bound_ms(nb, 0, n_pad * batch * s * j)
-        rows["color_combine"].append(dict(
-            shape=shape, mult=mult, err=err,
-            ms=cuda_ms(lambda: color_combine(left, m, tbl)),
-            plain_ms=cuda_ms(lambda: ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2), 1),
-            library_ms=None, bound=bound, gather_ms=None, staged_floor_ms=max(bound[0], smem_ms)))
-        del left, m
-        # fused: 0/1 tables, so J * max_degree stays below 2^24
-        left, right = table(a, 2), table(bw, 2)
-        got = fused_count(sp.indptr, sp.indices, left, right, tbl)
-        want = ref.fused_count_ref(sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2)
-        err = max_abs_err(got, want)
-        del got, want
-        if err != 0:
-            raise AssertionError(f"fused_count != plain at {shape}: max_abs_err {err}")
-        nb = n_pad * batch * (a + bw + s) * 4 + csr_bytes + tbl.pairs.numel() * 4
-        rows["fused_count"].append(dict(
-            shape=shape, mult=mult, err=err,
-            ms=cuda_ms(lambda: fused_count(sp.indptr, sp.indices, left, right, tbl)),
-            plain_ms=cuda_ms(lambda: ref.fused_count_ref(
-                sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2), 1),
-            library_ms=None, bound=bound_ms(nb, e * batch * bw, n_pad * batch * s * j),
-            gather_ms=gather_ms, staged_floor_ms=max(gather_ms, smem_ms)))
-        del left, right
-        log(f"phase 2 {shape}: " + "  ".join(
-            f"{k} {v[-1]['ms']:.3f}ms (plain {v[-1]['plain_ms']:.1f}, bound "
-            f"{v[-1]['bound'][0]:.3f} {v[-1]['bound'][1]})" for k, v in rows.items())
-            + f"; spmm_edgetile library {rows['spmm_edgetile'][-1]['library_ms']:.3f}ms, ten "
-            f"largest rows cut {rows['spmm_edgetile'][-1]['hub_cut_ms']:.3f}ms, gather "
-            f"{gather_ms:.1f}ms")
-        torch.cuda.empty_cache()
-    del hub_ptr, hub_idx
+    for key, (mult, tbl) in sorted(node_shapes(plan).items()):
+        tree_shape_rows(sp, batch, key, mult, tbl, gen, csr, rows, "phase 2", hub=hub)
+    del hub
     order_tbl = next(t for _, t in node_shapes(plan).values() if t.w == ORDER_WIDTH)
     order = order_check(sp, plan.n, batch, ORDER_WIDTH, gen, order_tbl)
     return rows, order
@@ -577,6 +637,10 @@ def phase_kernels_dense(plan, batch: int):
     return rows, order
 
 
+#: the treewidth-2 registry rows phase 3 holds == brute force
+EXACT_NONTREE = ("cycle3", "cycle4", "cycle5", "cycle6", "diamond", "bowtie", "house")
+
+
 def phase_exact(device):
     import numpy as np
     from repro_torch.core.brute_force import count_colorful_maps
@@ -586,7 +650,7 @@ def phase_exact(device):
 
     checked = 0
     for g in (erdos_renyi(40, 4.0, seed=2), rmat(64, 300, skew=3, seed=5)):
-        for name in ("u3-1", "u5-2", "u7-2"):
+        for name in ("u3-1", "u5-2", "u7-2") + EXACT_NONTREE:
             tree = template(name)
             coloring = np.random.default_rng(checked).integers(0, tree.n, g.n).astype(np.int32)
             want = count_colorful_maps(g, tree, coloring)
@@ -602,20 +666,42 @@ def phase_exact(device):
                 f"unfused == brute force")
 
 
-def plain_maps(plan, colorings) -> float:
-    """Colorful maps of one coloring through the plain versions on the card
-    (the edge-list neighbor sum, ``index_add_``, for either plan kind)."""
+def plain_counts(plan, program, colorings) -> tuple:
+    """Colorful maps of ``colorings`` through the plain versions on the card
+    (the edge-list neighbor sum, ``index_add_``, for either plan kind), one
+    ``[B]`` per root of ``program``; bag nodes run the engine's own leaf,
+    collapse and filter with the plain combine on the same views."""
+    from repro_torch.core import count_engine
     from repro_torch.core.table_program import leaf_table, root_count, run_table_program
+    from repro_torch.core.templates import program_has_bags
     from repro_torch.kernels import ref
 
     sp = plan.spmm_plan
 
+    def plain_combine(left, m, tbl):
+        return ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
+
     def plain_node(i, tbl, c_left, c_right):
         m = ref.spmm_segment_ref(sp.indptr, sp.indices, c_right)
-        return ref.color_combine_ref(c_left, m, tbl.idx1, tbl.idx2)
+        if program.nodes[i].kind == "bag_combine":
+            rows, b = c_left.shape[:2]
+            out = plain_combine(c_left.view(rows, b * plan.n, -1), m.view(rows, b * plan.n, -1), tbl)
+            return out.view(rows, b, -1)
+        return plain_combine(c_left, m, tbl)
 
-    (maps,) = run_table_program(plan.chain, plan.combine, leaf_table(colorings, plan.k, plan.n),
-                                plan.n, plain_node, root_fn=root_count)
+    leaf = leaf_table(colorings, plan.k, plan.n)
+    bag = None
+    if program_has_bags(program):
+        bag = count_engine._bag_fns(plan, program, colorings, leaf)._replace(
+            join_fn=lambda i, tbl, left, right: plain_combine(left, right, tbl))
+    return run_table_program(program, plan.combine, leaf, plan.n, plain_node,
+                             root_fn=root_count, bag=bag)
+
+
+def plain_maps(plan, colorings) -> float:
+    """Colorful maps of one coloring of a single-template plan through the
+    plain versions on the card."""
+    (maps,) = plain_counts(plan, plan.chain, colorings)
     return maps.item()
 
 
@@ -794,6 +880,338 @@ def phase_launch():
         raise AssertionError(f"unfused auto on the dense file: {blocks}")
     log("phase 6: --fuse --spmm-kind auto on a dense graph runs fused over edges "
         "(unfused auto picks blocks; same estimates)")
+    phase_launch_families()
+
+
+def _template_lines(lines, name):
+    return [ln for ln in lines if ln.strip().startswith(f"{name}:")]
+
+
+def phase_launch_families():
+    """The launcher's family path: ``--config bench-family`` prints a u5-2
+    line equal to a run of u5-2 with the same key and k (the family u5-2,
+    u7-2, k = 7) and to ``Counter.estimate`` of u5-2 with ``n_colors=7``;
+    the treewidth-2 rows run, fused and unfused alike."""
+    import torch
+    from repro_torch.api import Counter
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core import prng
+
+    base = ["--config", "bench-family", "--iters", "8", "--batch", "4"]
+    full, pair = _launch(base), _launch(base + ["--templates", "u5-2,u7-2"])
+    one = Counter.from_graph(COUNTING_CONFIGS["bench-family"].synthesize(), "u5-2",
+                             n_colors=7, device=torch.device("cuda", 0)).estimate(
+        n_iter=8, batch=4, key=prng.key(0))
+    line = _template_lines(full, "u5-2")
+    if (len(line) != 1 or line != _template_lines(pair, "u5-2")
+            or f"median-of-means {one.estimate:.6g} " not in line[0]):
+        raise AssertionError(f"bench-family's u5-2 line {line} vs the u5-2,u7-2 family "
+                             f"{_template_lines(pair, 'u5-2')} and Counter.estimate "
+                             f"{one.estimate:.6g}")
+    log("phase 6: --config bench-family's u5-2 line == --templates u5-2,u7-2's == "
+        "Counter.estimate(n_colors=7)")
+    for config in ("bench-cycles", "bench-tw2-mixed"):
+        names = COUNTING_CONFIGS[config].templates
+        args = ["--config", config, "--iters", "8", "--batch", "4"]
+        plain, fused = _launch(args), _launch(args + ["--fuse"])
+        got = [ln for ln in plain if "median-of-means" in ln]
+        if len(got) != len(names) or got != [ln for ln in fused if "median-of-means" in ln]:
+            raise AssertionError(f"--config {config}: {plain} vs --fuse {fused}")
+        log(f"phase 6: --config {config} runs its family of {len(names)}; --fuse prints the "
+            f"same estimates")
+
+
+def chunked_err(got, want_fn, rows: int, chunk: int) -> float:
+    """``max |got[r0:r1] - want_fn(r0, r1)|`` over row chunks: the plain
+    version is computed a chunk at a time, so no second full-size table is
+    made."""
+    err = 0.0
+    for r0 in range(0, rows, chunk):
+        r1 = min(r0 + chunk, rows)
+        err = max(err, (got[r0:r1] - want_fn(r0, r1)).abs().max().item())
+    return err
+
+
+def bag_shape_rows(sp, batch: int, x: int, shape_key, mult: int, tbl, gen, csr, rows, tag: str):
+    """One ``bag_combine`` shape ``(A, W, S, J)`` at ``x`` apex vertices: the
+    edge SpMM on the ``[n_pad, B, x W]`` bag table and the combine on the
+    ``[n_pad, B x, W]`` views, each against its plain version (exact, on
+    integer tables; the plain version a block of rows at a time), timed
+    beside the plain version on the whole table, the library call where one
+    exists and the bound; appended to ``rows``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.color_combine import color_combine
+    from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+
+    a, w, s, j = shape_key
+    n_pad, e, dev = sp.n_pad, sp.num_directed, sp.indptr.device
+    csr_bytes = (n_pad + 1) * 8 + e * 4
+
+    def table(width, hi):
+        return torch.randint(0, hi, (n_pad, batch, x * width), generator=gen, device=dev).float()
+
+    shape = f"bag A={a} B={w} S={s} J={j} x={x} x{mult}"
+    right = table(w, 4)
+    got = spmm_edge_tile(sp.indptr, sp.indices, right)
+    err = chunked_err(got, lambda r0, r1: ref.spmm_segment_ref(sp.indptr[r0:r1 + 1], sp.indices,
+                                                                right), n_pad, 512)
+    del got
+    if err != 0:
+        raise AssertionError(f"spmm_edgetile != plain at {shape}: max_abs_err {err}")
+    flat = right.view(n_pad, -1)
+    bw = batch * x * w
+    rows["spmm_edgetile"].append(dict(
+        shape=shape, mult=mult, err=err,
+        ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right), 2),
+        plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat), 2),
+        bound=bound_ms(2 * n_pad * bw * 4 + csr_bytes, e * bw),
+        gather_ms=e * bw * 4 / HBM_BYTES_PER_S * 1e3))
+    del right, flat
+    torch.cuda.empty_cache()
+    left, m = table(a, 4), table(w, 4)
+    lv, mv = left.view(n_pad, batch * x, a), m.view(n_pad, batch * x, w)
+    got = color_combine(lv, mv, tbl)
+    flat_l, flat_m, flat_g = left.view(-1, a), m.view(-1, w), got.view(-1, s)
+    err = chunked_err(flat_g, lambda r0, r1: ref.color_combine_ref(
+        flat_l[r0:r1], flat_m[r0:r1], tbl.idx1, tbl.idx2), flat_g.shape[0], 1 << 22)
+    del got, flat_g
+    if err != 0:
+        raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
+    n_rows = n_pad * batch * x
+    bound = bound_ms(n_rows * (a + w + s) * 4 + tbl.pairs.numel() * 4, 0, n_rows * s * j)
+    smem_ms = n_rows * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
+    rows["color_combine"].append(dict(
+        shape=shape, mult=mult, err=err,
+        ms=cuda_ms(lambda: color_combine(lv, mv, tbl), 2),
+        plain_ms=cuda_ms(lambda: ref.color_combine_ref(lv, mv, tbl.idx1, tbl.idx2), 1),
+        library_ms=None, bound=bound, gather_ms=None, staged_floor_ms=max(bound[0], smem_ms)))
+    del left, m, lv, mv, flat_l, flat_m
+    torch.cuda.empty_cache()
+    log(f"{tag} {shape}: " + "  ".join(
+        f"{k} {v[-1]['ms']:.3f}ms (plain {v[-1]['plain_ms']:.1f}, bound "
+        f"{v[-1]['bound'][0]:.3f} {v[-1]['bound'][1]})"
+        for k, v in rows.items() if k != "fused_count")
+        + f"; spmm_edgetile library {rows['spmm_edgetile'][-1]['library_ms']:.3f}ms")
+
+
+def dag_launches(program, calls: int) -> dict:
+    """Launches the DAG predicts for ``calls`` unfused then ``calls`` fused
+    passes: a combine or bag_combine node one SpMM and one combine, or (a
+    tree node, fused) one fused launch; a bag_join one combine; a
+    bag_collapse none."""
+    kinds = [nd.kind for nd in program.nodes]
+    tree, bag, join = kinds.count("combine"), kinds.count("bag_combine"), kinds.count("bag_join")
+    return {"spmm_edgetile": calls * (tree + 2 * bag), "spmm_block": 0,
+            "color_combine": calls * (tree + 2 * (bag + join)), "fused_count": calls * tree,
+            "flash_attention": 0, "flash_attention_fp32": 0}
+
+
+def dag_kernel_rows(plan, batch: int, tag: str):
+    """Each kernel against its plain version at every node shape of the
+    family plan's DAG: tree nodes as phase 2 holds them, bag_combine nodes on
+    their bag tables and views.  The rows' DAGs have no bag_join (the
+    bowtie's), whose combine tests/test_torch_gpu.py holds on the card."""
+    import torch
+
+    sp, dag, dev = plan.spmm_plan, plan.dag, plan.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    csr = csr_tensor(sp)
+    rows = {"spmm_edgetile": [], "color_combine": [], "fused_count": []}
+    for key, (mult, tbl) in sorted(node_shapes(plan, dag).items()):
+        tree_shape_rows(sp, batch, key, mult, tbl, gen, csr, rows, tag)
+    if node_shapes(plan, dag, ("bag_join",)):
+        raise AssertionError(f"{tag}: a bag_join node, which this phase does not hold")
+    for key, (mult, tbl) in sorted(node_shapes(plan, dag, ("bag_combine",)).items()):
+        bag_shape_rows(sp, batch, plan.n, key, mult, tbl, gen, csr, rows, tag)
+    return rows
+
+
+def pass_totals(rows) -> dict:
+    """A DAG pass's ms per kernel: each shape's time by its multiplicity."""
+    return {name: {k: sum(r[k] * r["mult"] for r in shapes) for k in ("ms", "plain_ms")}
+            | {"bound_ms": sum(r["bound"][0] * r["mult"] for r in shapes),
+               "library_ms": (sum(r["library_ms"] * r["mult"] for r in shapes)
+                              if shapes and shapes[0]["library_ms"] is not None else None),
+               "max_abs_err": max((r["err"] for r in shapes), default=0.0)}
+            for name, shapes in rows.items() if shapes}
+
+
+def phase_dag(tag: str, g, plan, batch: int, calls: int):
+    """A family's path at full width: count_fn_many unfused and fused,
+    ``calls`` batches each from one key; maps of the two bitwise equal,
+    launch counts as the DAG predicts, each template's own plan with
+    ``n_colors=k`` on the same colorings, one coloring through the plain
+    versions on the card within PLAIN_RTOL.  Returns the path's launches and
+    what the kernels line reports."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import (build_counting_plan, colorful_map_count,
+                                               colorful_map_count_many, count_fn, count_fn_many,
+                                               draw_colorings)
+    from repro_torch.core.estimator import call_key
+    from repro_torch.core.templates import template_program
+
+    dev, dag = plan.device, plan.dag
+    key = prng.key(0)
+    names = [t.name for t in plan.templates]
+    results = {}
+    reset_launches()
+    for fuse in (False, True):
+        f = count_fn_many(dataclasses.replace(plan, fuse=fuse), batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        maps = torch.cat([f(call_key(key, c))[0] for c in range(calls)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if maps.shape != (batch * calls, len(names)) or not torch.isfinite(maps).all():
+            raise AssertionError(f"{tag} fuse={fuse}: bad maps {maps}")
+        results[fuse] = (maps, dt, peak)
+        log(f"{tag} fuse={fuse}: {batch * calls} colorings in {dt:.2f}s "
+            f"({dt / (batch * calls) * 1e3:.1f} ms/coloring), peak {peak / 2 ** 30:.2f} GiB "
+            f"({peak} bytes), maps of coloring 0 {dict(zip(names, maps[0].tolist()))}")
+    launches = read_launches()
+    want = dag_launches(dag, calls)
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}, the DAG predicts {want}")
+    if not torch.equal(results[False][0], results[True][0]):
+        raise AssertionError(f"{tag}: fused and unfused maps differ")
+    # the DP alone, on colorings drawn before the timer and with the
+    # allocator warm from the runs above: what the draw and the first
+    # batches' allocations add to the end-to-end time
+    drawn = [draw_colorings(plan, batch, call_key(key, c)) for c in range(calls)]
+    predrawn = {}
+    for fuse in (False, True):
+        p = dataclasses.replace(plan, fuse=fuse)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = torch.cat([colorful_map_count_many(p, cols) for cols in drawn])
+        torch.cuda.synchronize()
+        predrawn[fuse] = (time.perf_counter() - t0) / (batch * calls)
+        if not torch.equal(again, results[False][0]):
+            raise AssertionError(f"{tag} fuse={fuse}: the DP on pre-drawn colorings gave other maps")
+    log(f"{tag}, colorings drawn before the timer: unfused {predrawn[False] * 1e3:.1f}, fused "
+        f"{predrawn[True] * 1e3:.1f} ms/coloring")
+    # each template's own plan, n_colors = k, on call 0's colorings; timed
+    # on its second pass, beside the family's pre-drawn pass
+    fam = results[False][0][:batch]
+    singles, single_s, bitwise, worst = {}, 0.0, True, 0.0
+    for r, t in enumerate(plan.templates):
+        sp = build_counting_plan(g, t, n_colors=plan.k, device=dev)
+        if not torch.equal(count_fn(sp, batch)(call_key(key, 0))[0], colorful_map_count(sp, drawn[0])):
+            raise AssertionError(f"{tag} {t.name}: count_fn and the pre-drawn colorings differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = colorful_map_count(sp, drawn[0])
+        torch.cuda.synchronize()
+        singles[t.name] = time.perf_counter() - t0
+        single_s += singles[t.name]
+        bitwise &= torch.equal(m, fam[:, r])
+        rel = ((m - fam[:, r]).abs() / fam[:, r].abs().clamp(min=1)).max().item()
+        worst = max(worst, rel)
+        if rel > PLAIN_RTOL:
+            raise AssertionError(f"{tag}: {t.name}'s own plan {m.tolist()} vs the family "
+                                 f"{fam[:, r].tolist()} beyond rtol {PLAIN_RTOL}")
+        del sp
+    torch.cuda.empty_cache()
+    fam_s = predrawn[False] * batch
+    log(f"{tag}: each template's own plan (n_colors={plan.k}) == the family's maps: bitwise "
+        f"{bitwise}, largest relative difference {worst:.3e}; one pre-drawn batch of the family "
+        f"{fam_s * 1e3:.1f} ms against the sum of the {len(names)} single-template passes "
+        f"{single_s * 1e3:.1f} ms ({', '.join(f'{k} {v * 1e3:.1f}' for k, v in singles.items())})")
+    # coloring 0 of call 0 through the plain versions on the card
+    plain = plain_counts(plan, dag, draw_colorings(plan, batch, call_key(key, 0))[:1])
+    for r, name in enumerate(names):
+        p, k_ = plain[r].item(), fam[0, r].item()
+        if not math.isclose(p, k_, rel_tol=PLAIN_RTOL):
+            raise AssertionError(f"{tag} {name}: kernels {k_} vs plain versions {p} beyond "
+                                 f"rtol {PLAIN_RTOL}")
+    log(f"{tag}: fused == unfused bitwise over {batch * calls} colorings; launches {launches}; "
+        f"plain versions within rtol {PLAIN_RTOL} on coloring 0: "
+        f"{dict(zip(names, (x.item() for x in plain)))}")
+    per = {("fused" if fu else "unfused"): {"ms_per_coloring": dt / (batch * calls) * 1e3,
+                                             "predrawn_ms_per_coloring": predrawn[fu] * 1e3,
+                                             "peak_bytes": peak}
+           for fu, (_, dt, peak) in results.items()}
+    return launches, {"templates": names, "k": plan.k, "batch": batch, "calls": calls,
+                      "dag_nodes": len(dag.nodes), "internal_nodes": len(dag.internal_nodes()),
+                      "chain_internal_nodes": sum(len(template_program(t).internal_nodes())
+                                                  for t in plan.templates),
+                      "single_plans_bitwise": bitwise, "single_plans_max_rel": worst,
+                      "family_predrawn_batch_ms": fam_s * 1e3,
+                      "single_plans_ms": {k: v * 1e3 for k, v in singles.items()}} | per
+
+
+def phase_family(g, dev):
+    """Phase 9: the rmat500-family row's templates at k = 10 on the main
+    cell's graph."""
+    import torch
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core.count_engine import build_multi_counting_plan
+
+    names = COUNTING_CONFIGS["rmat500-family"].templates
+    t0 = time.perf_counter()
+    plan = build_multi_counting_plan(g, names, n_colors=FAMILY_K, device=dev)
+    log(f"phase 9 family {names} k={plan.k}: {len(plan.dag.nodes)} DAG nodes, "
+        f"{len(plan.dag.internal_nodes())} internal; plan in {time.perf_counter() - t0:.1f}s")
+    rows = dag_kernel_rows(plan, FAMILY_BATCH, "phase 9")
+    launches, path = phase_dag("phase 9", g, plan, FAMILY_BATCH, FAMILY_CALLS)
+    del plan
+    torch.cuda.empty_cache()
+    return launches, rows, path
+
+
+def phase_tw2(dev):
+    """Phase 10: the bench-tw2-mixed row's family at k = 6 on R-MAT
+    2^13 / 64,000, then Counter.estimate of cycle6 alone on that graph."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Counter
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import build_multi_counting_plan, count_fn_many
+    from repro_torch.core.estimator import call_key
+
+    g = rmat_graph(*TW2_GRAPH)
+    names = COUNTING_CONFIGS["bench-tw2-mixed"].templates
+    t0 = time.perf_counter()
+    plan = build_multi_counting_plan(g, names, n_colors=TW2_K, device=dev)
+    kinds = [nd.kind for nd in plan.dag.nodes]
+    log(f"phase 10 family {names} k={plan.k}: {len(kinds)} DAG nodes "
+        f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }, widest bag table "
+        f"{plan.n_pad * TW2_BATCH * max(plan.widths.values())} elements; plan in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rows = dag_kernel_rows(plan, TW2_BATCH, "phase 10")
+    launches, path = phase_dag("phase 10", g, plan, TW2_BATCH, TW2_CALLS)
+    key = prng.key(0)
+    fam_est = count_fn_many(plan, TW2_BATCH)(call_key(key, 0))[1][:, list(names).index("cycle6")]
+    del plan
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counter = Counter.from_graph(g, "cycle6", device=dev)
+    counter.sample_fn(key, TW2_BATCH)  # the plan, outside the timer
+    t0 = time.perf_counter()
+    res = counter.estimate(n_iter=2 * TW2_BATCH, batch=TW2_BATCH, key=key)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if res.samples.shape != (2 * TW2_BATCH,) or not np.isfinite(res.samples).all():
+        raise AssertionError(f"phase 10 cycle6 estimate: bad samples {res.samples}")
+    got = torch.from_numpy(res.samples[:TW2_BATCH]).to(dev)
+    if not torch.allclose(got, fam_est, rtol=PLAIN_RTOL, atol=0):
+        raise AssertionError(f"cycle6 alone {got.tolist()} vs the family {fam_est.tolist()}")
+    log(f"phase 10 Counter.estimate cycle6: {2 * TW2_BATCH} colorings in {dt:.2f}s "
+        f"({dt / (2 * TW2_BATCH) * 1e3:.1f} ms/coloring), peak {peak} bytes, estimate "
+        f"{res.estimate:.6g} RSD {res.relative_sd:.3f}; samples == the family's cycle6 column "
+        f"bitwise {torch.equal(got, fam_est)}")
+    path["cycle6_estimate"] = {"ms_per_coloring": dt / (2 * TW2_BATCH) * 1e3, "peak_bytes": peak,
+                               "estimate": res.estimate}
+    del counter
+    torch.cuda.empty_cache()
+    return launches, rows, path
 
 
 def attention_pairs(l: int, causal: bool, window: int) -> int:
@@ -1133,7 +1551,8 @@ DESIGNS = {
 }
 
 
-def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, card):
+def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
+                 card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -1155,11 +1574,14 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
         b_by = max(shapes, key=lambda r: r["bound"][0] * r["mult"])["bound"][1]
         src, rep = meta[name]
         lib = tot("library_ms") if shapes[0]["library_ms"] is not None else None
+        # every exact check of the kernel, on the main cell and the DAG paths
+        errs = [r["err"] for r in shapes] + [r["err"] for d_rows, _ in dags.values()
+                                              for r in d_rows.get(name, [])]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(p[name] for p in launches.values()),
             "launches_by_path": {path: p[name] for path, p in launches.items()},
-            "max_abs_err": max(r["err"] for r in shapes),
+            "max_abs_err": max(errs),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "check": "exact (==)",
             "cell": "dense" if name == "spmm_block" else "main",
@@ -1188,6 +1610,12 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                                    for n, r in wide.items()}
         if name == "spmm_edgetile":
             entry["hub_cut_ms"] = tot("hub_cut_ms")
+        for path, (d_rows, _) in dags.items():
+            if d_rows.get(name):
+                entry[f"{path}_pass"] = pass_totals({name: d_rows[name]})[name] | {
+                    "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms")}
+                                  | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                                  for r in d_rows[name]]}
         if name in ("color_combine", "fused_count"):
             # bytes, shared-memory reads of the FMAs and, fused, the gathers
             entry["staged_floor_ms"] = tot("staged_floor_ms")
@@ -1218,9 +1646,11 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
     main_path = {("fused" if fuse else "unfused"): {"ms_per_coloring": ms, "peak_bytes": peak}
                  for fuse, (ms, peak) in per.items()}
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
-    return {"kernels": out, "card": card, "batch": {"main": MAIN_BATCH, "dense": DENSE_BATCH},
+    return {"kernels": out, "card": card, "batch": {"main": MAIN_BATCH, "dense": DENSE_BATCH,
+                                                 "family": FAMILY_BATCH, "tw2": TW2_BATCH},
             "time_unit": "ms per u12-2 DP pass over all node shapes", "main_path": main_path,
             "dense_path": dense,
+            "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -1241,7 +1671,10 @@ def run_phases(dev):
     wide = phase_kernels_wide(dev, MAIN_BATCH)
     phase_exact(dev)
     main_launches, per, draw_ms = phase_main(plan, MAIN_BATCH, MAIN_CALLS)
-    del plan, g
+    del plan
+    torch.cuda.empty_cache()
+    family_launches, family_rows, family = phase_family(g, dev)
+    del g
     torch.cuda.empty_cache()
     dense_graph = rmat_graph(2 ** 16, 16_000_000)
     t0 = time.perf_counter()
@@ -1258,16 +1691,19 @@ def run_phases(dev):
     phase_launch()
     flash, flash32 = phase_flash(dev)
     lm = phase_lm(dev, flash["ms"])
+    tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
-                "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"]}
+                "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
+                "family": family_launches, "tw2": tw2_launches}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
+    dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2)}
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide)
+            wide, dags)
 
 
 def main() -> int:

@@ -14,9 +14,11 @@ card raises.  ``backend="auto"`` resolves to ``single``.  The backend is
 adapted to the estimator's protocol, ``sample_fn(key, batch) -> float64
 [batch]``, and every aggregate comes from :mod:`.core.estimator`, so a
 result of the port can be held against the reference's for the same key
-sample for sample.  The distributed backend, family counting
-(``estimate_many``), ``sample_stream`` and ``serve`` wait for their ROADMAP
-items and raise ``NotImplementedError`` naming them.
+sample for sample.  :meth:`Counter.estimate_many` counts a template family
+in one shared-DAG pass per batch of colorings (the family protocol,
+``sample_fn(key, batch) -> float64 [batch, T]``).  The distributed
+backend, compaction, ``sample_stream`` and ``serve`` wait for their
+ROADMAP items and raise ``NotImplementedError`` naming them.
 
 Plan construction is lazy: building a ``Counter`` is cheap; the first
 counting call builds and caches the plan.
@@ -32,29 +34,37 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 
 from .core import prng
-from .core.count_engine import build_counting_plan, colorful_map_count, plan_sample_fn
-from .core.estimator import EstimatorState, estimate_counts, niter_bound
+from .core.count_engine import (
+    build_counting_plan,
+    build_multi_counting_plan,
+    colorful_map_count,
+    colorful_map_count_many,
+    multi_sample_fn,
+    plan_sample_fn,
+)
+from .core.estimator import EstimatorState, estimate_counts, estimate_counts_many, niter_bound
 from .core.graphs import Graph
 from .core.supervisor import RetryPolicy
-from .core.templates import Tree, template as resolve_template
+from .core.templates import Template, Tree, template_program, template as resolve_template
 from .kernels.ops import ROW_BLOCK
 from .train.checkpoint import CheckpointManager
 
-__all__ = ["CountRequest", "CountResult", "Counter"]
+__all__ = ["CountRequest", "CountResult", "MultiCountResult", "Counter"]
 
 _TODO = {
     "distributed": "the distributed backend is ROADMAP queue 1 item 7",
-    "family": "family counting is ROADMAP queue 1 item 3",
     "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
     "serve": "serving is ROADMAP queue 1 item 8",
 }
 
 #: plan_opts the single backend passes to ``build_counting_plan``
-_SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "device"})
+#: (``n_colors`` widens the color budget past the template size: the
+#: shared-k contract of family counting, see ``estimate_many``)
+_SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "n_colors", "device"})
 #: the reference's other plan_opts (its distributed backend's, and the
-#: compaction and color-budget knobs): accepted, so that one config row
-#: feeds either backend, and dropped; ``compact`` and ``n_colors`` must be
-#: off until their ROADMAP items land, and ``block_size`` must be 128
+#: compaction knobs): accepted, so that one config row feeds either
+#: backend, and dropped; ``compact`` must be off until its ROADMAP item
+#: lands, and ``block_size`` must be 128
 _OTHER_OPTS = frozenset(
     {"root", "block_size", "bucket_tile", "num_shards", "mode", "group_factor", "impl",
      "fuse", "mesh", "data_axis", "iter_axis", "n_colors",
@@ -73,7 +83,7 @@ class CountRequest:
     """
 
     graph: Graph
-    template: Union[str, Tree]
+    template: Union[str, Tree, Template]
     backend: str = "auto"
     n_iter: Optional[int] = None
     eps: Optional[float] = None
@@ -120,6 +130,67 @@ class CountResult:
             f"{self.estimate:.6g} via {self.backend}, "
             f"RSD {self.relative_sd:.2f}, {self.niter} colorings, "
             f"{self.elapsed_s:.2f}s{extra})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCountResult:
+    """One family run: per-template estimates from shared colorings.
+
+    Array fields are indexed ``[template]`` (``samples`` is ``[niter,
+    template]``); ``result[i]`` is template ``i``'s view as a
+    :class:`CountResult`.  ``unique_tables``/``chain_tables`` record the
+    reuse the compiled DAG achieved: unique tables computed per coloring
+    against the sum of the per-template programs' nodes.
+    """
+
+    templates: tuple  # template names
+    estimates: np.ndarray  # [T] median-of-means copy estimates
+    means: np.ndarray  # [T]
+    relative_sds: np.ndarray  # [T]
+    samples: np.ndarray  # [niter, T] per-iteration copy estimates
+    niter: int
+    backend: str
+    graph: str
+    k: int  # shared color budget
+    unique_tables: int  # nodes in the deduplicated DAG
+    chain_tables: int  # sum of per-template program nodes
+    delta: float
+    eps: Optional[float]
+    elapsed_s: float
+    quarantined: tuple = ()  # excluded batches (shared by all templates)
+    resumed_from: int = 0  # iterations restored from checkpoint
+
+    def __len__(self) -> int:
+        return len(self.templates)
+
+    def __getitem__(self, i: int) -> CountResult:
+        return CountResult(
+            estimate=float(self.estimates[i]),
+            mean=float(self.means[i]),
+            relative_sd=float(self.relative_sds[i]),
+            niter=self.niter,
+            samples=self.samples[:, i],
+            backend=self.backend,
+            template=self.templates[i],
+            graph=self.graph,
+            delta=self.delta,
+            eps=self.eps,
+            elapsed_s=self.elapsed_s,
+            quarantined=self.quarantined,
+            resumed_from=self.resumed_from,
+        )
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __str__(self) -> str:
+        per = ", ".join(f"{t}={e:.6g}" for t, e in zip(self.templates, self.estimates))
+        return (
+            f"MultiCountResult({per} in {self.graph or 'graph'} via "
+            f"{self.backend}, k={self.k}, {self.unique_tables}/"
+            f"{self.chain_tables} unique tables, {self.niter} colorings, "
+            f"{self.elapsed_s:.2f}s)"
         )
 
 
@@ -173,32 +244,38 @@ class Counter:
     Construct with :meth:`from_graph` (or :meth:`from_request`); then
 
     * :meth:`estimate` — the (eps, delta) estimator (Algorithm 1);
+    * :meth:`estimate_many` — a whole template family in one pass over the
+      shared sub-template DAG per coloring;
     * :meth:`count_one` — one coloring iteration from a key;
     * :meth:`count_coloring` — exact colorful map count for a FIXED
-      coloring (oracle testing);
+      coloring (oracle testing); :meth:`count_coloring_many` its family
+      analogue;
     * :attr:`sample_fn` — the raw backend protocol, for warm-up and for
       composing with other aggregators.
     """
 
-    def __init__(self, graph: Graph, tree: Tree, backend: str, plan_opts: Dict[str, Any]):
+    def __init__(self, graph: Graph, tree: Union[Tree, Template], backend: str,
+                 plan_opts: Dict[str, Any]):
         self.graph = graph
         self.tree = tree
         self.backend = backend
         self.plan_opts = plan_opts
         self._plan = None
         self._sample_fn = None
+        self._families: Dict[tuple, Dict[str, Any]] = {}
 
     # ------------------------------------------------------------- builders
     @classmethod
     def from_graph(
         cls,
         graph: Graph,
-        template: Union[str, Tree],
+        template: Union[str, Tree, Template],
         *,
         backend: str = "auto",
         **plan_opts: Any,
     ) -> "Counter":
-        """Build a counter for ``template`` (name or Tree) over ``graph``.
+        """Build a counter for ``template`` (a registered name, a Tree or a
+        treewidth-2 Template) over ``graph``.
 
         ``plan_opts`` may mix options of both backends; keys the single
         backend does not read are dropped, keys unknown to both raise.
@@ -216,8 +293,6 @@ class Counter:
         if plan_opts.get("block_size", ROW_BLOCK) != ROW_BLOCK:
             raise ValueError(f"block patches are {ROW_BLOCK}x{ROW_BLOCK}; "
                              f"got block_size={plan_opts['block_size']}")
-        if plan_opts.get("n_colors") is not None:
-            raise NotImplementedError(f"n_colors: {_TODO['family']}")
         opts = {k: v for k, v in plan_opts.items() if k in _SINGLE_OPTS}
         return cls(graph, tree, resolved, opts)
 
@@ -254,11 +329,18 @@ class Counter:
         """``k^t (k-t)! / k! / |Aut|``: maps colorful map counts to copy estimates."""
         return self.plan.scale
 
-    def _signature_extra(self) -> str:
+    def _signature_extra(self, *, family=None, k: Optional[int] = None) -> str:
         """Workload identity for checkpoint/resume safety (the reference's
-        string, so the two packages sign the same run alike)."""
-        return (f"{self.graph.name}|V={self.graph.n}|E={self.graph.num_edges}|"
-                f"{self.tree.name}|{self.backend}")
+        string, so the two packages sign the same run alike).  A widened
+        color budget (``n_colors``) changes the coloring stream and is part
+        of the identity."""
+        what = f"family={','.join(family)}|k={k}" if family else self.tree.name
+        extra = (f"{self.graph.name}|V={self.graph.n}|"
+                 f"E={self.graph.num_edges}|{what}|{self.backend}")
+        n_colors = self.plan_opts.get("n_colors")
+        if not family and n_colors is not None:
+            extra += f"|k={n_colors}"
+        return extra
 
     # ------------------------------------------------------------- counting
     def estimate(
@@ -345,10 +427,109 @@ class Counter:
                              f"graph has {self.graph.n} vertices")
         return float(colorful_map_count(self.plan, coloring))
 
-    # ------------------------------------------------------- not yet ported
-    def estimate_many(self, *args, **kwargs):
-        raise NotImplementedError(f"estimate_many: {_TODO['family']}")
+    # ------------------------------------------------------- family counting
+    def _family(self, templates) -> Dict[str, Any]:
+        """Build (and cache) the shared-DAG plan of a template family: one
+        table-program pass per batch of colorings counts every member."""
+        trees = tuple(resolve_template(t) if isinstance(t, str) else t for t in templates)
+        if not trees:
+            raise ValueError("estimate_many needs at least one template")
+        st = self._families.get(trees)
+        if st is None:
+            keep = {k: v for k, v in self.plan_opts.items() if k != "root"}
+            plan = build_multi_counting_plan(self.graph, trees, **keep)
+            st = self._families[trees] = {"plan": plan, "sample_fn": multi_sample_fn(plan)}
+        return st
 
+    def estimate_many(
+        self,
+        templates,
+        n_iter: Optional[int] = None,
+        *,
+        eps: Optional[float] = None,
+        delta: float = 0.1,
+        key: Optional[prng.Key] = None,
+        batch: Optional[int] = None,
+        progress: bool = False,
+        target_rsd: Optional[float] = None,
+        checkpoint=None,
+        checkpoint_every: int = 0,
+        resume: Union[bool, str] = False,
+        retry: Optional[RetryPolicy] = None,
+        max_retries: Optional[int] = None,
+    ) -> MultiCountResult:
+        """(eps, delta)-estimates for a whole template family in one pass.
+
+        Every batch of colorings runs the family's deduplicated DAG once:
+        sub-template tables shared across templates are computed a single
+        time and every template root reads its own entry.  All templates
+        share one coloring of ``k = max template size`` colors (or
+        ``n_colors``), and each gets its own scale ``k^t (k-t)!/k!/|Aut|``.
+        With the same ``key``, :meth:`estimate` on a Counter built with
+        ``n_colors=k`` sees the identical colorings, so the two agree sample
+        for sample.  The robustness keywords behave as on :meth:`estimate`;
+        the checkpoint banks the ``[iter, T]`` sample matrix, and
+        ``target_rsd`` gates on the worst template.
+        """
+        st = self._family(templates)
+        plan = st["plan"]
+        if n_iter is None:
+            if eps is None:
+                raise ValueError("pass n_iter or eps (to derive the bound)")
+            n_iter = niter_bound(plan.k, eps, delta)
+        if key is None:
+            key = prng.key(0)
+        b = batch or min(8, n_iter)
+        chain_tables = sum(len(template_program(t).nodes) for t in plan.templates)
+        names = tuple(t.name or f"tree{i}" for i, t in enumerate(plan.templates))
+        mgr, state = _resolve_checkpointing(checkpoint, resume)
+        t0 = time.perf_counter()
+        est = estimate_counts_many(
+            st["sample_fn"],
+            n_iter,
+            key,
+            delta=delta,
+            batch=b,
+            progress=progress,
+            retry=_retry_policy(retry, max_retries),
+            checkpoint=mgr,
+            checkpoint_every=checkpoint_every,
+            resume=state,
+            target_rsd=target_rsd,
+            signature_extra=self._signature_extra(family=names, k=plan.k),
+        )
+        return MultiCountResult(
+            templates=names,
+            estimates=est.estimates,
+            means=est.means,
+            relative_sds=est.relative_sds,
+            samples=est.samples,
+            niter=est.niter,
+            backend=self.backend,
+            graph=self.graph.name,
+            k=plan.k,
+            unique_tables=len(plan.dag.nodes),
+            chain_tables=chain_tables,
+            delta=delta,
+            eps=eps,
+            elapsed_s=time.perf_counter() - t0,
+            quarantined=est.quarantined,
+            resumed_from=est.resumed_from,
+        )
+
+    def count_coloring_many(self, templates, coloring: np.ndarray) -> np.ndarray:
+        """Exact per-template colorful map counts for a FIXED coloring ``[n]``
+        drawn from the family's shared ``k`` colors: float64
+        ``[num_templates]``; multiply by the family plan's ``scales`` for
+        copy estimates."""
+        plan = self._family(templates)["plan"]
+        coloring = np.asarray(coloring, np.int32).reshape(-1)
+        if coloring.shape[0] != self.graph.n:
+            raise ValueError(f"coloring has {coloring.shape[0]} entries, "
+                             f"graph has {self.graph.n} vertices")
+        return colorful_map_count_many(plan, coloring).cpu().numpy()
+
+    # ------------------------------------------------------- not yet ported
     def sample_stream(self, *args, **kwargs):
         raise NotImplementedError(f"sample_stream: {_TODO['serve']}")
 

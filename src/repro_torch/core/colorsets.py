@@ -13,7 +13,7 @@ matrices of shape ``[C(k,t), C(t,t1)]`` mapping output rank -> (rank of S1 in
 the t1 table, rank of S2 in the t2 table).  These tables are tiny (worst case
 k=15, t=8, t1=4: 6435 x 70 int32) and are built once per plan.
 
-A copy of ``repro.core.colorsets`` without the treewidth-2 helper.
+A copy of ``repro.core.colorsets``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ __all__ = [
     "set_masks",
     "rank_of_mask",
     "split_tables",
+    "excluded_color_mask",
     "full_set_rank",
     "singleton_ranks",
 ]
@@ -95,6 +96,23 @@ def split_tables(k: int, t1: int, t2: int) -> Tuple[np.ndarray, np.ndarray]:
             idx1[s, j] = r1[m1]
             idx2[s, j] = r2[m2]
     return idx1, idx2
+
+
+@lru_cache(maxsize=None)
+def excluded_color_mask(k: int, t: int) -> np.ndarray:
+    """``[k, C(k, t)]`` float32 mask: 1.0 where color ``c`` is NOT in set ``S``.
+
+    The bag-table collapse of the treewidth-2 front end pins the apex
+    vertex's color outside the forest's color set; row ``c`` of this mask
+    filters the size-``t`` table columns down to the sets that exclude ``c``.
+    """
+    masks = set_masks(k, t)
+    out = np.ones((k, len(masks)), np.float32)
+    for s, m in enumerate(masks):
+        for c in range(k):
+            if (m >> c) & 1:
+                out[c, s] = 0.0
+    return out
 
 
 def full_set_rank(k: int) -> int:

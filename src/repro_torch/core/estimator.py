@@ -21,9 +21,9 @@ skips the first ``cursor`` and continues, so every aggregate is
 bit-identical to an uninterrupted run's.  A
 :class:`~.supervisor.Supervisor` (or ``retry=RetryPolicy(...)``) retries
 transient sample faults and quarantines persistently failing batches,
-which are reported on the returned estimate.  The family variant
-(``estimate_counts_many``) waits for family counting (ROADMAP queue 1
-item 3).
+which are reported on the returned estimate.  The family variant,
+:func:`estimate_counts_many`, banks ``[done, T]`` per-template estimates
+from one shared-coloring pass and aggregates them column-wise.
 """
 
 from __future__ import annotations
@@ -48,11 +48,13 @@ __all__ = [
     "relative_se",
     "aggregate_single",
     "CountEstimate",
+    "MultiCountEstimate",
     "EstimatorState",
     "ResumeMismatchError",
     "EstimationAborted",
     "run_signature",
     "estimate_counts",
+    "estimate_counts_many",
 ]
 
 #: The backend protocol: ``sample_fn(key, batch) -> float64 [batch]`` copy
@@ -123,6 +125,19 @@ class CountEstimate:
     resumed_from: int = 0  # iterations restored from checkpoint, if any
 
 
+@dataclasses.dataclass(frozen=True)
+class MultiCountEstimate:
+    """Per-template aggregates of one family run (axis order [iter, T])."""
+
+    estimates: np.ndarray  # [T] median-of-means copy estimates
+    means: np.ndarray  # [T] plain means
+    relative_sds: np.ndarray  # [T] empirical RSDs
+    samples: np.ndarray  # [niter, T] per-iteration estimates
+    niter: int
+    quarantined: tuple = ()
+    resumed_from: int = 0
+
+
 def run_signature(n_iter: int, batch: int, delta: float, key: prng.Key, *, extra: str = "") -> str:
     """The identity of one estimation run, for resume safety.
 
@@ -142,8 +157,8 @@ def run_signature(n_iter: int, batch: int, delta: float, key: prng.Key, *, extra
 class EstimatorState:
     """Everything needed to continue an interrupted estimate bit-exactly.
 
-    ``samples`` banks the raw per-iteration estimates (``[done]``) — one
-    float64 per coloring, so even a 10^6-iteration budget checkpoints in
+    ``samples`` banks the raw per-iteration estimates (``[done]``, or
+    ``[done, T]`` for a family) — one float64 per coloring and template, so even a 10^6-iteration budget checkpoints in
     megabytes.  The raw array is kept because the final grouping depends
     on the total iteration count, and bit-exact resume must reproduce the
     exact ``median(group means)`` an uninterrupted run computes.
@@ -159,7 +174,7 @@ class EstimatorState:
     batch: int  # iterations per backend call
     delta: float
     cursor: int  # backend calls completed (PRNG key cursor)
-    samples: np.ndarray  # [done] banked estimates
+    samples: np.ndarray  # [done] or [done, T] banked estimates
     quarantined: tuple = ()  # QuarantinedBatch records
 
     @property
@@ -262,6 +277,7 @@ def _collect_samples(
     checkpoint=None,
     checkpoint_every: int = 0,
     target_rsd: Optional[float] = None,
+    multi: bool = False,
 ) -> EstimatorState:
     """The shared sampling loop, resumable at any call boundary.
 
@@ -270,7 +286,8 @@ def _collect_samples(
     ``checkpoint_every`` iterations (rounded up to call boundaries) and
     once more on completion, so a finished directory restores to a no-op
     resume.  When ``sample`` is a :class:`Supervisor`, quarantined batches
-    advance the cursor without contributing samples.
+    advance the cursor without contributing samples.  ``multi=True`` banks
+    the family protocol's ``[batch, T]`` estimates as rows.
     """
     b, n_iter, n_calls = state.batch, state.n_iter, state.n_calls
     supervised = isinstance(sample, Supervisor)
@@ -290,7 +307,13 @@ def _collect_samples(
         if isinstance(out, QuarantinedBatch):
             state = dataclasses.replace(state, cursor=i + 1, quarantined=state.quarantined + (out,))
         else:
-            out = out.reshape(-1)
+            if multi:
+                if out.ndim != 2:
+                    raise ValueError(
+                        f"family sample_fn must return [batch, T] estimates; got shape {out.shape}"
+                    )
+            else:
+                out = out.reshape(-1)
             state = dataclasses.replace(state, cursor=i + 1, samples=_append(state.samples, out))
         if progress and (i + 1) % stride == 0:
             cur = state.samples
@@ -403,6 +426,66 @@ def estimate_counts(
         mom,
         mean,
         rsd,
+        ests,
+        used,
+        quarantined=state.quarantined,
+        resumed_from=resumed_from,
+    )
+
+
+def estimate_counts_many(
+    sample_fn: SampleFn,
+    n_iter: int,
+    key: prng.Key,
+    *,
+    delta: float = 0.1,
+    batch: Optional[int] = None,
+    progress: bool = False,
+    retry: Optional[RetryPolicy] = None,
+    checkpoint=None,
+    checkpoint_every: int = 0,
+    resume: Optional[EstimatorState] = None,
+    target_rsd: Optional[float] = None,
+    signature_extra: str = "",
+) -> MultiCountEstimate:
+    """The family variant: one shared-coloring pass, per-template aggregates.
+
+    ``sample_fn(key, batch)`` must return ``[batch, T]`` per-template copy
+    estimates (e.g. :func:`~.count_engine.multi_sample_fn`); the
+    median-of-means and RSD math is the scalar path applied column-wise, so
+    a family run and ``T`` independent runs report identical statistics on
+    identical samples.  The robustness keywords behave exactly as on
+    :func:`estimate_counts`; ``target_rsd`` gates on the worst template.
+    """
+    state = _prepare(n_iter, key, delta, batch, resume, signature_extra)
+    resumed_from = state.done
+    state = _collect_samples(
+        _supervise(sample_fn, retry),
+        key,
+        state,
+        progress=progress,
+        checkpoint=checkpoint,
+        checkpoint_every=checkpoint_every,
+        target_rsd=target_rsd,
+        multi=True,
+    )
+    ests = state.samples[:n_iter]
+    if ests.shape[0] == 0:
+        raise EstimationAborted(
+            f"all {len(state.quarantined)} batches were quarantined: "
+            + "; ".join(str(q) for q in state.quarantined)
+        )
+    if ests.ndim != 2:
+        raise ValueError(f"family sample_fn must return [batch, T] estimates; got shape {ests.shape}")
+    used = int(ests.shape[0])
+    mom = np.atleast_1d(median_of_means(ests, num_groups_for(delta, used)))
+    means = ests.mean(axis=0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rsds = np.where(means != 0, ests.std(axis=0) / np.abs(means), np.inf)
+    return MultiCountEstimate(
+        mom,
+        means,
+        rsds,
         ests,
         used,
         quarantined=state.quarantined,

@@ -1,4 +1,4 @@
-"""The table program: the partition-DP executor (dense, in core, trees).
+"""The table program: the partition-DP executor (dense, in core).
 
 Counterpart of ``repro/core/table_program.py``.  Walk the partition nodes in
 topological order, keep a table ``C_node [n_pad, B, W]`` per live node, and
@@ -8,15 +8,24 @@ the right child.  The neighbor-sum strategy is the ``node_fn`` callback
 holds ``M``); the executor owns leaf construction, pad-row re-masking after
 every combine, reference-counted table lifetimes and the root reduction.
 
+A program is one template's :class:`~.templates.PartitionChain` or
+:class:`~.templates.BagProgram`, or a whole family compiled into a
+:class:`~.templates.TemplateDag`.  Treewidth-2 bag nodes (DESIGN.md §19)
+carry the pinned apex's host vertex ``x`` as one more axis: a bag table is
+``[n_pad, B, x * W]``, ``x`` blocks of width ``W`` per (vertex, coloring)
+row.  A ``bag_combine`` goes through ``node_fn`` like a ``combine``; the
+bag-only kinds (leaf, collapse, join) through :class:`BagFns`.  Collapsed
+and joined tables live on the ``x`` axis, ``[n, B, W]``.
+
 Tables run at true widths, so there are no pad columns to mask; pad rows
 are zeroed in place, which costs no copy of a multi-gigabyte table.  The
-frontier (compaction), bag-template and distributed-exchange arguments of
-the reference wait for their slices (ROADMAP queue 1 items 4, 5 and 7).
+frontier (compaction) and distributed-exchange arguments of the reference
+wait for their slices (ROADMAP queue 1 items 4 and 7).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,6 +37,7 @@ __all__ = [
     "run_table_program",
     "root_count",
     "local_node_fn",
+    "BagFns",
 ]
 
 #: strategy signature: (node_index, combine_tables, c_left, c_right) ->
@@ -35,21 +45,56 @@ __all__ = [
 NodeFn = Callable[[int, ops.CombineTables, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+class BagFns(NamedTuple):
+    """Backend strategy for the three bag-only node kinds (DESIGN.md §19).
+
+    ``bag_combine`` nodes flow through the ordinary ``node_fn``, whose
+    strategy views ``[rows, B, x*W]`` tables as ``[rows, B*x, W]`` around its
+    color convolution, so only the kinds with no tree analogue need
+    callbacks here:
+
+    * ``leaf_fn(i, nd)``: the bag leaf table ``[n_pad, B, x * k]``
+      (``pin=True`` multiplies the one-hot by the apex adjacency);
+    * ``collapse_fn(i, child)``: sum the finished forest-tree table over
+      its vertex rows and apply the apex-color filter; returns ``[x, B, W]``;
+    * ``join_fn(i, tbl, left, right)``: disjoint color-set convolution of
+      two collapsed ``[x, B, W]`` tables on aligned rows.
+    """
+
+    leaf_fn: Callable[[int, object], torch.Tensor]
+    collapse_fn: Callable[[int, torch.Tensor], torch.Tensor]
+    join_fn: Callable[[int, ops.CombineTables, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def build_node_tables(
-    program, k: int, *, device: torch.device
+    program, k: int, *, device: torch.device, x_dim: Optional[int] = None
 ) -> Tuple[Dict[int, ops.CombineTables], Dict[int, int]]:
-    """Per-node split tables and table widths of a tree program."""
+    """Per-node split tables and table widths (per coloring) of a program.
+
+    ``x_dim`` (the host vertex count) is required when the program carries
+    bag nodes: a ``bag_leaf`` is ``k * x`` wide, a ``bag_combine`` ``S * x``
+    (``x`` blocks of the true width), and a ``bag_collapse`` its child's
+    width over ``x``, since its rows are the ``x`` axis itself; a
+    ``bag_join`` is ``S`` wide.
+    """
     combine: Dict[int, ops.CombineTables] = {}
     widths: Dict[int, int] = {}
     for i, nd in enumerate(program.nodes):
-        if nd.kind == "leaf":
+        kind = nd.kind
+        if kind.startswith("bag_") and x_dim is None:
+            raise ValueError("bag-node programs need x_dim (host vertex count)")
+        if kind == "leaf":
             widths[i] = k
-        else:
+        elif kind == "bag_leaf":
+            widths[i] = k * x_dim
+        elif kind == "bag_collapse":
+            widths[i] = widths[nd.left] // x_dim
+        else:  # "combine" / "bag_combine" / "bag_join": a color convolution
             t1 = program.nodes[nd.left].size
             t2 = program.nodes[nd.right].size
             tables = ops.build_combine_tables(k, t1, t2, device=device)
             combine[i] = tables
-            widths[i] = tables.s
+            widths[i] = tables.s * (x_dim if kind == "bag_combine" else 1)
     return combine, widths
 
 
@@ -68,15 +113,19 @@ def run_table_program(
     n: int,
     node_fn: NodeFn,
     root_fn: Callable[[torch.Tensor], torch.Tensor],
+    bag: Optional[BagFns] = None,
 ) -> tuple:
-    """Execute a tree program; returns one value per ``program.roots`` entry.
+    """Execute a program; returns one value per ``program.roots`` entry.
 
-    Every leaf shares the single ``leaf`` table; each internal node's output
-    from ``node_fn`` gets its pad rows (``>= n``) zeroed before anyone reads
-    it.  Table lifetime is reference-counted from ``program.table_reads()``:
-    a table is dropped the moment its last reader has consumed it.
-    ``root_fn`` (e.g. :func:`root_count`) reduces each root table as soon as
-    it is built.
+    Every leaf shares the single ``leaf`` table; each ``combine`` or
+    ``bag_combine`` output from ``node_fn`` gets its pad rows (``>= n``)
+    zeroed before anyone reads it.  Collapse and join outputs have rows on
+    the apex axis ``x``, which holds the ``n`` real vertices only, so they
+    are not masked.  ``bag`` supplies the bag-only kinds (:class:`BagFns`);
+    it is required iff the program carries bag nodes.  Table lifetime is
+    reference-counted from ``program.table_reads()``: a table is dropped the
+    moment its last reader has consumed it.  ``root_fn`` (e.g.
+    :func:`root_count`) reduces each root table as soon as it is built.
     """
     reads = list(program.table_reads())
     want: Dict[int, int] = {}
@@ -85,9 +134,18 @@ def run_table_program(
     live: Dict[int, torch.Tensor] = {}  # node index -> table still to be read
     delivered: Dict[int, torch.Tensor] = {}
     for i, nd in enumerate(program.nodes):
-        if nd.kind == "leaf":
+        kind = nd.kind
+        if kind.startswith("bag_") and bag is None:
+            raise ValueError("program has bag nodes but no BagFns strategy")
+        if kind == "leaf":
             out = leaf  # leaves are dense: every vertex has a color
-        else:
+        elif kind == "bag_leaf":
+            out = bag.leaf_fn(i, nd)
+        elif kind == "bag_collapse":
+            out = bag.collapse_fn(i, live[nd.left])
+        elif kind == "bag_join":
+            out = bag.join_fn(i, combine[i], live[nd.left], live[nd.right])
+        else:  # "combine" / "bag_combine": the neighbor-sum contraction
             out = node_fn(i, combine[i], live[nd.left], live[nd.right])
             out[n:] = 0.0
         # the children just had one read each consumed; free at zero
@@ -106,8 +164,19 @@ def run_table_program(
 
 def root_count(root: torch.Tensor) -> torch.Tensor:
     """Colorful map counts from a root table: ``sum_{v, S} C_root[v, b, S]``
-    per coloring ``b``, accumulated in float64 (pad rows are zero)."""
-    return root.sum(dim=(0, 2), dtype=torch.float64)
+    per coloring ``b``, accumulated in float64 (pad rows are zero).  A bag
+    root's rows are the apex axis: the sum runs over ``(x, S)``.
+
+    The float64 sum casts its input, so it runs over blocks of rows: a
+    family's sub-``k`` roots are wide (``C(10, 5)`` columns at k = 10), and
+    a float64 copy of a whole root table would double its bytes."""
+    rows = max(1, ROOT_BLOCK_ELEMENTS // max(1, root[0].numel()))
+    return torch.stack([blk.sum(dim=(0, 2), dtype=torch.float64)
+                        for blk in root.split(rows)]).sum(dim=0)
+
+
+#: elements of one block of :func:`root_count`'s float64 sum
+ROOT_BLOCK_ELEMENTS = 1 << 26
 
 
 def local_node_fn(spmm_plan: ops.SpmmPlan, *, fuse: bool = False) -> NodeFn:

@@ -1,8 +1,8 @@
-"""Subgraph-counting launcher for the PyTorch port: one tree template, one device.
+"""Subgraph-counting launcher for the PyTorch port: one device.
 
 ``python -m repro_torch.launch.count --config bench-small --mode single
-[--fuse] [--spmm-kind auto|edges|blocks] --iters N --batch B --seed S
-[--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
+[--templates A,B,C] [--fuse] [--spmm-kind auto|edges|blocks] --iters N
+--batch B --seed S [--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
 
 Synthesizes the configured R-MAT graph (or loads ``--graph``), resolves the
 config row into a ``CountRequest`` and runs it through the ``Counter``
@@ -10,9 +10,13 @@ facade as ``repro.launch.count`` does: the plan lives on the device
 (``cuda`` unless ``--device cpu``), the kernels are warmed outside the
 timer, and ``--seed S`` keys the run with ``prng.key(S)``, so the port
 draws the reference launcher's colorings.  ``--checkpoint-dir`` persists
-the estimator state; ``--resume`` continues a killed run bit for bit.  The
-other backends and features of ``repro.launch.count`` exit with an error
-naming the ROADMAP item that ports them.
+the estimator state; ``--resume`` continues a killed run bit for bit.
+``--templates`` (or a config row with a ``templates`` family, such as
+``bench-family``, ``bench-cycles`` or ``bench-tw2-mixed``) counts the whole
+family, trees and treewidth-2 names alike, in one shared-DAG pass per batch
+(``Counter.estimate_many``).  The other backends and features of
+``repro.launch.count`` exit with an error naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -27,10 +31,10 @@ from ..configs.subgraph import COUNTING_CONFIGS
 from ..core import prng
 from ..core.estimator import num_groups_for
 from ..core.graphs import load_edge_file, load_npz
+from ..core.templates import TEMPLATES
 
 _TODO = {
     "mode": "the distributed exchange modes are ROADMAP queue 1 item 7",
-    "templates": "family counting is ROADMAP queue 1 item 3",
     "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
 }
 
@@ -69,7 +73,11 @@ def main(argv=None):
                          "text file); default: synthesize the config's RMAT")
     ap.add_argument("--mode", default="single",
                     choices=["alltoall", "pipeline", "adaptive", "ring", "single"])
-    ap.add_argument("--templates", default=None, metavar="A,B,C")
+    ap.add_argument("--templates", default=None, metavar="A,B,C",
+                    help="comma-separated template family (trees and treewidth-2 names "
+                         "like cycle5,diamond): count them all in one pass over the shared "
+                         "sub-template DAG (Counter.estimate_many); default: the config's "
+                         "family, else its single template")
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--delta", type=float, default=0.1)
     ap.add_argument("--batch", type=int, default=8, help="colorings per backend call")
@@ -97,15 +105,25 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode != "single":
         ap.error(f"--mode {args.mode}: {_TODO['mode']}; this port runs --mode single")
-    if args.templates:
-        ap.error(f"--templates: {_TODO['templates']}")
     if args.compact:
         ap.error(f"--compact: {_TODO['compact']}")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1 (got {args.batch})")
     ccfg = COUNTING_CONFIGS[args.config]
-    if ccfg.templates:
-        ap.error(f"config {args.config} is a template family: {_TODO['templates']}")
+    family = list(ccfg.templates)
+    if args.templates:
+        # fail fast, before any graph is synthesized or plan built: unknown
+        # or duplicate names are a typo, not a workload
+        family = [s.strip() for s in args.templates.split(",") if s.strip()]
+        unknown = [s for s in family if s not in TEMPLATES]
+        if unknown:
+            ap.error(f"unknown template(s) {', '.join(sorted(set(unknown)))}; "
+                     f"registry has: {', '.join(sorted(TEMPLATES))}")
+        dups = sorted({s for s in family if family.count(s) > 1})
+        if dups:
+            ap.error(f"duplicate template(s) in --templates: {', '.join(dups)}")
+        if not family:
+            ap.error("--templates is empty after parsing")
     if ccfg.compact:
         ap.error(f"config {args.config} sets compact: {_TODO['compact']}")
     ckpt_dir = args.resume or args.checkpoint_dir
@@ -131,6 +149,10 @@ def main(argv=None):
                               batch=args.batch, spmm_kind=spmm_kind, fuse=args.fuse,
                               device=args.device)
     counter = Counter.from_request(request)
+    key = prng.key(args.seed)
+    ran = -(-args.iters // args.batch) * args.batch
+    if family:
+        return _run_family(counter, request, family, key, ran, robust_kw, args)
     plan = counter.plan
     _plan_report(plan)
     if plan.device.type == "cuda":
@@ -138,15 +160,34 @@ def main(argv=None):
     # report whether fusion really engaged: it needs the edge layout
     fused = args.fuse and plan.spmm_plan.kind == "edges"
     label = f"single(batch={args.batch},fuse={fused},spmm={plan.spmm_plan.kind})"
-    key = prng.key(args.seed)
     counter.sample_fn(key, args.batch)  # build and load kernels outside the timer
-    ran = -(-args.iters // args.batch) * args.batch
     t0 = time.perf_counter()
     res = counter.estimate(n_iter=request.n_iter, delta=request.delta, key=key,
                            batch=request.batch, **robust_kw)
     dt = time.perf_counter() - t0  # the estimator copied every result to the host
     _robust_report(res)
     _report(label, 1, res, dt, ran)
+    return res
+
+
+def _run_family(counter, request, family, key, ran, robust_kw, args):
+    """One shared-DAG pass per batch counts the whole family; the
+    single-template plan is never built."""
+    # build the plan and load the kernels at the real batch, outside the timer
+    counter.estimate_many(family, n_iter=request.batch, key=key, batch=request.batch)
+    t0 = time.perf_counter()
+    res = counter.estimate_many(family, n_iter=request.n_iter, delta=request.delta, key=key,
+                                batch=request.batch, **robust_kw)
+    dt = time.perf_counter() - t0
+    _robust_report(res)
+    print(f"mode=single(batch={args.batch},fuse={args.fuse}) shards=1: family of {len(res)} "
+          f"templates, k={res.k}, {res.unique_tables} unique tables (vs {res.chain_tables} "
+          f"chain nodes), {ran} colorings in {dt:.2f}s ({dt / max(ran, 1) * 1e3:.1f} "
+          f"ms/coloring)")
+    groups = num_groups_for(res.delta, res.niter)
+    for one in res:
+        print(f"  {one.template:>10}: median-of-means {one.estimate:.6g} ({groups} groups)  "
+              f"mean {one.mean:.6g} RSD {one.relative_sd:.2f}")
     return res
 
 

@@ -187,7 +187,6 @@ def test_launcher_fused_and_unfused_agree():
 
 @pytest.mark.parametrize("flag,item", [
     (["--mode", "ring"], "item 7"),
-    (["--templates", "u3-1,u5-2"], "item 3"),
     (["--compact"], "item 4"),
 ])
 def test_launcher_unported_flags(flag, item, capsys):

@@ -20,7 +20,12 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import prng
 from repro_torch.core.brute_force import count_colorful_maps
-from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
+from repro_torch.core.count_engine import (
+    build_counting_plan,
+    build_multi_counting_plan,
+    colorful_map_count,
+    colorful_map_count_many,
+)
 from repro_torch.core.graphs import edge_list, erdos_renyi, rmat
 from repro_torch.core.templates import template
 from repro_torch.kernels import _build, ops, ref
@@ -351,6 +356,52 @@ def test_engine_on_card_matches_brute_force(cuda_device, name):
             for fuse in (False, True):
                 plan = build_counting_plan(g, tree, spmm_kind=kind, fuse=fuse, device=cuda_device)
                 assert float(colorful_map_count(plan, coloring)) == want
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("k,t1,t2", [(6, 1, 1), (6, 2, 1), (6, 1, 3)])
+def test_bag_combine_view_matches_plain(cuda_device, k, t1, t2, batch):
+    """A bag node's tables: the SpMM on ``[n_pad, B, x W]`` and the combine
+    on the ``[n_pad, B x, W]`` views, == their plain versions."""
+    g = rmat(300, 2000, skew=3, seed=4)
+    x = g.n
+    plan = ops.build_spmm_plan(*edge_list(g), g.n, device=cuda_device)
+    tbl = ops.build_combine_tables(k, t1, t2, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(k + t1 + batch)
+    left = torch.randint(0, 4, (plan.n_pad, batch, x * tbl.a), generator=gen,
+                         device=cuda_device).float()
+    right = torch.randint(0, 4, (plan.n_pad, batch, x * tbl.w), generator=gen,
+                          device=cuda_device).float()
+    m = spmm_edge_tile(plan.indptr, plan.indices, right)
+    assert torch.equal(m, ref.spmm_segment_ref(plan.indptr, plan.indices, right))
+    lv = left.view(plan.n_pad, batch * x, tbl.a)
+    mv = m.view(plan.n_pad, batch * x, tbl.w)
+    out = color_combine(lv, mv, tbl)
+    assert out.shape == (plan.n_pad, batch * x, tbl.s)
+    assert torch.equal(out, ref.color_combine_ref(lv, mv, tbl.idx1, tbl.idx2))
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_mixed_dag_on_card_matches_plain(cuda_device, fuse):
+    """The mixed tree and treewidth-2 DAG on the card == the CPU's plain
+    versions == brute force; tree nodes take the fused kernel when asked,
+    bag nodes never (one SpMM and one combine each, a join one combine)."""
+    names = ("u3-1", "cycle4", "u5-2", "cycle6", "diamond", "bowtie")
+    g = erdos_renyi(30, 5.0, seed=4)
+    plan = build_multi_counting_plan(g, names, fuse=fuse, device=cuda_device)
+    cpu = build_multi_counting_plan(g, names, device="cpu")
+    cols = np.random.default_rng(3).integers(0, plan.k, (2, g.n)).astype(np.int32)
+    kinds = [nd.kind for nd in plan.dag.nodes]
+    tree, bag, join = kinds.count("combine"), kinds.count("bag_combine"), kinds.count("bag_join")
+    before = (spmm_edge_tile.launches, color_combine.launches, fused_count.launches)
+    got = colorful_map_count_many(plan, cols)
+    after = (spmm_edge_tile.launches, color_combine.launches, fused_count.launches)
+    assert [b - a for a, b in zip(before, after)] == (
+        [bag, bag + join, tree] if fuse else [tree + bag, tree + bag + join, 0])
+    assert torch.equal(got.cpu(), colorful_map_count_many(cpu, cols))
+    want = [[count_colorful_maps(g, template(n), c) for n in names] for c in cols]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("seed,k", [(0, 12), (7, 5), (2**31 + 5, 15)])

@@ -85,8 +85,12 @@ class TestTemplates:
 
     @pytest.mark.parametrize("name", ["cycle3", "cycle6", "diamond", "bowtie", "house"])
     def test_nontree_names_raise(self, name):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            templates.template(name)
+        """Non-tree names resolve to the reference's treewidth-2 rows; asking
+        one for its tree raises."""
+        t, rt = templates.template(name), ref_templates.template(name)
+        assert (t.n, t.edges, t.name) == (rt.n, rt.edges, rt.name)
+        with pytest.raises(ValueError, match="is not a tree"):
+            t.as_tree()
 
 
 @pytest.mark.parametrize("k,t1,t2", [(3, 1, 1), (5, 2, 2), (7, 3, 2), (12, 4, 8), (12, 3, 4)])

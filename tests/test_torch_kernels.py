@@ -164,13 +164,15 @@ def test_rows_per_block_refuses_what_does_not_fit():
 
 @pytest.mark.parametrize("name", sorted(TEMPLATES))
 def test_rows_per_block_fits_every_template(name):
-    """Every node of every named template gets a tile of at least one row in
-    the H100's 232,448 bytes, for the combine and for the fused kernel at
-    B = 1, 4 and 16."""
+    """Every node of every named template (trees, and the treewidth-2 rows'
+    bag nodes, whose collapses contract nothing) gets a tile of at least
+    one row in the H100's 232,448 bytes, for the combine and for the fused
+    kernel at B = 1, 4 and 16."""
     g = port_erdos_renyi(40, 4.0, seed=2)
     plan = build_counting_plan(g, template(name), device=CPU)
-    for i, nd in plan.chain.internal_nodes():
-        tbl = plan.combine[i]
+    contracting = [i for i, nd in plan.chain.internal_nodes() if nd.kind != "bag_collapse"]
+    assert sorted(plan.combine) == contracting
+    for tbl in plan.combine.values():
         for batch in (0, 1, 4, 16):
             tile = plan_tile(tbl.a, tbl.w, tbl.s, tbl.jp, H100_SMEM, batch=batch)
             static = FUSED_STATIC_BYTES if batch else 0
