@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
-the single-device tree-template estimate, family counting and treewidth-2
-bag programs, and the granite-3-8b serving path (prefill, then decode),
-with every kernel of their paths built from this checkout and held against
-its plain PyTorch version.
+the single-device tree-template estimate, family counting, treewidth-2 bag
+programs, active-frontier compaction, and the granite-3-8b serving path
+(prefill, then decode), with every kernel of their paths built from this
+checkout and held against its plain PyTorch version.
 
     python3 chip_smoke.py            # all phases, one card (about 8 minutes)
 
@@ -35,7 +35,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 3. exact   — small graphs, templates u3-1/u5-2/u7-2 and the treewidth-2 rows
              cycle3-cycle6, diamond, bowtie and house, a fixed coloring: the
              port on the card, edge and block plans, fused and unfused, ==
-             the brute-force oracle;
+             the brute-force oracle; the trees again on compacted plans
+             (R-MAT 512 / 600, density_threshold 1.0, the profitability
+             floors forced down), whose checked counts == brute force;
 4. main    — the main path at full width: u12-2 on R-MAT 2^20 vertices / 10M
              edges (skew 3, relabeled), count_fn unfused and fused; maps of
              the two bitwise equal, launch counts as the plan predicts, one
@@ -53,6 +55,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              u5-2 line == --templates u5-2,u7-2's (same key, k = 7) ==
              Counter.estimate(n_colors=7); --config bench-cycles and
              bench-tw2-mixed run, fused and unfused printing the same;
+             --config bench-sparse (compacted) reports engaged caps and
+             prints the estimates of --density-threshold -1 (none engaged);
 7. flash   — the bf16 flash-attention kernel (wgmma) against its plain
              version at the shape granite-3-8b's prefill launches it (B=4,
              Hq=32, Hkv=8, L=4096, D=128, causal), within one bf16 step of the
@@ -96,7 +100,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              bag nodes never (a bag_combine one SpMM and one combine, a
              collapse none); then Counter.estimate of cycle6 alone on the
              same graph, whose samples equal the family's cycle6 column
-             (path "tw2").
+             (path "tw2");
+11. sparse — active-frontier compaction on the rows that set it, u10-2 at
+             R-MAT 2^22 vertices, B = 2: rmat-sparse-u10-2 (2,097,152 edges,
+             skew 3, threshold 0.25) and bench-sparse's shape (6,144,000
+             edges, skew 8, threshold 0.5).  The spec (densities, caps) and
+             the probe's seconds; at an engaged node each, on the DP's own
+             active rows, the edge SpMM and the fused kernel on a compact
+             source through remapped columns and the combine on gathered
+             rows == their plain versions (exact) and == their dense runs;
+             count_fn compacted and its dense twin, unfused and fused, 2
+             calls each: maps bitwise equal, the compact routes and the
+             launches as the spec predicts, the per-coloring flags and
+             fallbacks, ms per coloring and peak bytes side by side; one
+             call under the compaction.overflow fault runs the dense twin
+             on the card and == it (path "sparse").
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -154,6 +172,15 @@ TW2_K = 6  # phase 10: the bench-tw2-mixed row's largest template, cycle6
 TW2_GRAPH = (2 ** 13, 64_000)  # the row's 7.8 edges a vertex at the largest apex axis that fits
 TW2_BATCH = 2  # colorings per call (widest bag table 2.73e9 elements, 10.9 GB)
 TW2_CALLS = 2
+#: phase 11: the compacted rows, each at 2^22 vertices (widest table C(10, 5)
+#: = 252 columns, 8.46 GB at B = 2): rmat-sparse-u10-2 at its degree of 1,
+#: bench-sparse at its 1.465 edges a vertex
+SPARSE_GRAPHS = {"rmat-sparse-u10-2": (2 ** 22, 2_097_152), "bench-sparse": (2 ** 22, 6_144_000)}
+SPARSE_BATCH = 2  # colorings per call
+SPARSE_CALLS = 2  # batches per mode and program
+#: phase 3's compacted plans: big enough that a capacity (a multiple of 128)
+#: is below n_pad, small enough for brute force
+EXACT_COMPACT_GRAPH = (512, 600)
 
 
 def log(msg: str) -> None:
@@ -197,12 +224,12 @@ def bound_ms(nbytes: float, adds: float, fmas: float = 0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rmat_graph(n: int, m: int):
-    """``relabel_random(rmat(n, m, skew=3, seed=0), seed=1)``, timed."""
+def rmat_graph(n: int, m: int, skew: int = 3):
+    """``relabel_random(rmat(n, m, skew, seed=0), seed=1)``, timed."""
     from repro_torch.core.graphs import relabel_random, rmat
 
     t0 = time.perf_counter()
-    g = relabel_random(rmat(n, m, skew=3, seed=0), seed=1)
+    g = relabel_random(rmat(n, m, skew=skew, seed=0), seed=1)
     log(f"graph: R-MAT V={g.n} E_dir={g.num_directed} max_degree={g.max_degree} "
         f"avg_degree={g.avg_degree:.1f} synthesized in {time.perf_counter() - t0:.1f}s")
     return g
@@ -664,6 +691,57 @@ def phase_exact(device):
             checked += 1
             log(f"phase 3 {g.name} {name}: {want} colorful maps; edges and blocks, fused and "
                 f"unfused == brute force")
+    phase_exact_compact(device)
+
+
+@contextlib.contextmanager
+def floors_forced_down():
+    """The compaction profitability floors at 1 (as the reference's tests
+    force them), so that every sparse enough node of a small template
+    engages; restored after."""
+    from repro_torch.core import frontier
+
+    saved = frontier.MIN_COMBINE_ELEMENTS, frontier.MIN_TABLE_WIDTH
+    frontier.MIN_COMBINE_ELEMENTS = frontier.MIN_TABLE_WIDTH = 1
+    try:
+        yield
+    finally:
+        frontier.MIN_COMBINE_ELEMENTS, frontier.MIN_TABLE_WIDTH = saved
+
+
+def phase_exact_compact(device):
+    """Phase 3 on compacted plans (density_threshold 1.0, floors forced
+    down): edge and block plans, fused and unfused, through the checked
+    program and count_fn's fallback wrapper == brute force."""
+    import numpy as np
+    from repro_torch.core.brute_force import count_colorful_maps
+    from repro_torch.core.count_engine import build_counting_plan, colorful_map_count_checked
+    from repro_torch.core.graphs import rmat
+    from repro_torch.core.templates import template
+
+    g = rmat(*EXACT_COMPACT_GRAPH, skew=3, seed=5)
+    for name in ("u3-1", "u5-2", "u7-2"):
+        tree = template(name)
+        coloring = np.random.default_rng(11).integers(0, tree.n, g.n).astype(np.int32)
+        want = count_colorful_maps(g, tree, coloring)
+        caps = {}
+        for kind in ("edges", "blocks"):
+            for fuse in (False, True):
+                with floors_forced_down():
+                    plan = build_counting_plan(g, tree, spmm_kind=kind, fuse=fuse, device=device,
+                                               compact=True, density_threshold=1.0)
+                spec = plan.compaction
+                # u7-2 is the one whose right children are internal (table caps)
+                if (not spec.combine_caps or (kind == "blocks" and spec.table_caps)
+                        or (name == "u7-2" and kind == "edges" and not spec.table_caps)):
+                    raise AssertionError(f"compact {name} {kind}: caps {spec}")
+                maps, ok = colorful_map_count_checked(plan, coloring)
+                if not bool(ok) or float(maps) != want:
+                    raise AssertionError(f"compact {name} {kind} fuse={fuse}: {float(maps)} "
+                                         f"(ok {bool(ok)}) != brute force {want}")
+                caps[kind] = (dict(spec.table_caps), dict(spec.combine_caps))
+        log(f"phase 3 compact {g.name} {name}: {want} colorful maps; caps (table, combine) "
+            f"{caps}; edges and blocks, fused and unfused == brute force")
 
 
 def plain_counts(plan, program, colorings) -> tuple:
@@ -681,7 +759,7 @@ def plain_counts(plan, program, colorings) -> tuple:
     def plain_combine(left, m, tbl):
         return ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2)
 
-    def plain_node(i, tbl, c_left, c_right):
+    def plain_node(i, tbl, c_left, c_right, f_left, f_right):
         m = ref.spmm_segment_ref(sp.indptr, sp.indices, c_right)
         if program.nodes[i].kind == "bag_combine":
             rows, b = c_left.shape[:2]
@@ -880,6 +958,14 @@ def phase_launch():
         raise AssertionError(f"unfused auto on the dense file: {blocks}")
     log("phase 6: --fuse --spmm-kind auto on a dense graph runs fused over edges "
         "(unfused auto picks blocks; same estimates)")
+    base = ["--config", "bench-sparse", "--iters", "8", "--batch", "4"]
+    comp, dense = _launch(base), _launch(base + ["--density-threshold", "-1"])
+    if (not _estimates(comp) or _estimates(comp) != _estimates(dense)
+            or not any(ln.startswith("compaction caps: {'combine[") for ln in comp)
+            or "compaction caps: none engaged" not in dense):
+        raise AssertionError(f"bench-sparse: {comp} vs --density-threshold -1 {dense}")
+    log("phase 6: --config bench-sparse reports engaged caps and prints the estimates of "
+        "--density-threshold -1")
     phase_launch_families()
 
 
@@ -1212,6 +1298,426 @@ def phase_tw2(dev):
     del counter
     torch.cuda.empty_cache()
     return launches, rows, path
+
+
+# ---------------------------------------------------------------------------
+# phase 11: active-frontier compaction
+
+
+#: the compact routes, each one kernel launch a call: the edge SpMM on a
+#: compact source, the fused kernel on one, the combine on gathered rows
+ROUTES = ("spmm_compact", "fused_count_compact", "compact_combine")
+
+
+@contextlib.contextmanager
+def route_counts():
+    """Calls of the three compact routes while the block runs (each call
+    launches its kernel once), counted by wrapping the names the executor
+    calls them by; restored after."""
+    from repro_torch.core import table_program
+    from repro_torch.kernels import ops
+
+    counts = dict.fromkeys(ROUTES, 0)
+    saved = [(ops, "spmm_compact"), (ops, "fused_count_compact"),
+             (table_program, "compact_combine")]
+    originals = [getattr(mod, name) for mod, name in saved]
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name), fn in zip(saved, originals):
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+
+
+def compact_prediction(plan, batch: int, fuse: bool):
+    """What one call of the compact program launches, from the spec: the
+    routes, the kernels, and the kernels of its dense twin.  A node with a
+    combine cap takes SpMM then the combine on gathered rows; else fused
+    or SpMM then combine; its SpMM or fused kernel reads a compact source
+    where the right child has a table cap whose union table, ``B (cap - 1)
+    + 1`` rows, is shorter than ``n_pad``."""
+    spec = plan.compaction
+    routes = dict.fromkeys(ROUTES, 0)
+    kernels = dict.fromkeys(("spmm_edgetile", "color_combine", "fused_count"), 0)
+    dense = dict(kernels)
+    for i, nd in plan.chain.internal_nodes():
+        cap = spec.table_caps.get(nd.right)
+        src = int(cap is not None and batch * (cap - 1) + 1 < plan.n_pad)
+        two_step = ("spmm_edgetile", "color_combine")
+        for k in (("fused_count",) if fuse else two_step):
+            dense[k] += 1
+        if i in spec.combine_caps:
+            routes["compact_combine"] += 1
+            routes["spmm_compact"] += src
+        elif fuse:
+            routes["fused_count_compact"] += src
+        else:
+            routes["spmm_compact"] += src
+        for k in (("fused_count",) if fuse and i not in spec.combine_caps else two_step):
+            kernels[k] += 1
+    return routes, kernels, dense
+
+
+def capture_activity(plan, colorings, nodes):
+    """The active (vertex, coloring) rows of the left and right tables that
+    ``nodes`` read in one pass of the compact program over ``colorings``,
+    and the pass's flags ``ok [B]``."""
+    import torch
+    from repro_torch.core.frontier import make_frontier_fn
+    from repro_torch.core.table_program import (leaf_table, local_node_fn, root_count,
+                                                run_table_program)
+
+    spec, flags, seen = plan.compaction, [], {}
+    base = local_node_fn(plan.spmm_plan, compaction=spec, sentinel_row=plan.n, flags=flags)
+
+    def node_fn(i, tbl, c_left, c_right, f_left, f_right):
+        if i in nodes:
+            seen[i] = (c_left.amax(-1) > 0, c_right.amax(-1) > 0)
+        return base(i, tbl, c_left, c_right, f_left, f_right)
+
+    run_table_program(plan.chain, plan.combine, leaf_table(colorings, plan.k, plan.n), plan.n,
+                      node_fn, root_fn=root_count,
+                      frontier_fn=make_frontier_fn(spec.table_caps, plan.n, flags))
+    ok = torch.stack(flags).all(dim=0) if flags else torch.ones(colorings.shape[0], dtype=bool)
+    return seen, ok
+
+
+def sparse_source_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
+    """Node ``i`` reads a compact source: the edge and fused kernels on the
+    ``[B (cap - 1) + 1, B, W]`` union table through remapped columns, each
+    == its plain version on the same compact source (exact: 0/1 tables on
+    the DP's own active rows keep every sum below 2^24) and == its dense
+    run bitwise; timed beside the plain version, the library call where one
+    exists and the bound.  The compact ops' pieces (frontier, gather,
+    remap) and the dense ops are timed into ``ops_ms``."""
+    import torch
+    from repro_torch.core.frontier import make_frontier_fn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_count import fused_count
+    from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
+
+    sp, tbl, nd = plan.spmm_plan, plan.combine[i], plan.chain.nodes[i]
+    cap = plan.compaction.table_caps[nd.right]
+    l_act, r_act = masks[i]
+    n_pad, batch = r_act.shape
+    dev = r_act.device
+
+    def table(act, width):
+        return torch.randint(0, 2, (n_pad, batch, width), generator=gen, device=dev).float() \
+            * act[..., None]
+
+    right = table(r_act, tbl.w)
+    flags = []
+    frontier_fn = make_frontier_fn({nd.right: cap}, plan.n, flags)
+    fr = frontier_fn(nd.right, right)
+    if fr.idx is None or not bool(flags[0].all()):
+        raise AssertionError(f"{tag} node {i}: no compact source (flags {flags[0].tolist()})")
+    rows_c = fr.idx.numel()
+    right_c = right.index_select(0, fr.idx)
+    cols = torch.index_select(fr.inv, 0, sp.indices)
+    e, width = sp.num_directed, batch * tbl.w
+    csr_bytes = (n_pad + 1) * 8 + e * 4
+    shape = f"node {i} A={tbl.a} B={tbl.w} S={tbl.s} J={tbl.j} source {rows_c}/{n_pad} rows"
+    got = spmm_edge_tile(sp.indptr, cols, right_c)
+    err = max_abs_err(got, ref.spmm_segment_ref(sp.indptr, cols, right_c))
+    dense_equal = torch.equal(got, spmm_edge_tile(sp.indptr, sp.indices, right))
+    ops_equal = torch.equal(got, ops.spmm_compact(sp, right_c, fr.inv))
+    del got
+    if err != 0 or not dense_equal or not ops_equal:
+        raise AssertionError(f"{tag} spmm_edgetile on a compact source at {shape}: err {err}, "
+                             f"== dense {dense_equal}, == spmm_compact {ops_equal}")
+    csr = torch.sparse_csr_tensor(sp.indptr, cols.long(), torch.ones(e, device=dev),
+                                  (n_pad, rows_c))
+    flat = right_c.view(rows_c, -1)
+    rows["spmm_edgetile"].append(dict(
+        shape=shape, mult=1, err=err,
+        ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, cols, right_c)),
+        plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, cols, right_c), 1),
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
+        bound=bound_ms(rows_c * width * 4 + n_pad * width * 4 + csr_bytes, e * width),
+        gather_ms=e * width * 4 / HBM_BYTES_PER_S * 1e3))
+    del csr, flat
+    ops_ms.update({
+        "frontier_ms": cuda_ms(lambda: frontier_fn(nd.right, right)),
+        "source_gather_ms": cuda_ms(lambda: right.index_select(0, fr.idx)),
+        "remap_ms": cuda_ms(lambda: torch.index_select(fr.inv, 0, sp.indices)),
+        "spmm_compact_ms": cuda_ms(lambda: ops.spmm_compact(sp, right_c, fr.inv)),
+        "spmm_dense_ms": cuda_ms(lambda: ops.spmm(sp, right))})
+    left = table(l_act, tbl.a)
+    got = fused_count(sp.indptr, cols, left, right_c, tbl)
+    err = max_abs_err(got, ref.fused_count_ref(sp.indptr, cols, left, right_c, tbl.idx1,
+                                               tbl.idx2))
+    dense_equal = torch.equal(got, fused_count(sp.indptr, sp.indices, left, right, tbl))
+    ops_equal = torch.equal(got, ops.fused_count_compact(sp, left, right_c, fr.inv, tbl))
+    del got
+    if err != 0 or not dense_equal or not ops_equal:
+        raise AssertionError(f"{tag} fused_count on a compact source at {shape}: err {err}, "
+                             f"== dense {dense_equal}, == fused_count_compact {ops_equal}")
+    nbytes = (n_pad * batch * (tbl.a + tbl.s) + rows_c * width) * 4 + csr_bytes \
+        + tbl.pairs.numel() * 4
+    rows["fused_count"].append(dict(
+        shape=shape, mult=1, err=err,
+        ms=cuda_ms(lambda: fused_count(sp.indptr, cols, left, right_c, tbl)),
+        plain_ms=cuda_ms(lambda: ref.fused_count_ref(sp.indptr, cols, left, right_c, tbl.idx1,
+                                                     tbl.idx2), 1),
+        library_ms=None,
+        bound=bound_ms(nbytes, e * width, n_pad * batch * tbl.s * tbl.j),
+        gather_ms=e * width * 4 / HBM_BYTES_PER_S * 1e3))
+    ops_ms.update({
+        "fused_count_compact_ms": cuda_ms(lambda: ops.fused_count_compact(sp, left, right_c,
+                                                                          fr.inv, tbl)),
+        "fused_count_dense_ms": cuda_ms(lambda: ops.fused_count(sp.indptr, sp.indices, left,
+                                                                right, tbl))})
+    log(f"{tag} {shape}: spmm_edgetile {rows['spmm_edgetile'][-1]['ms']:.3f}ms, fused_count "
+        f"{rows['fused_count'][-1]['ms']:.3f}ms on the compact source == plain and == dense; "
+        f"ops {ops_ms}")
+    del left, right, right_c, cols, fr
+    torch.cuda.empty_cache()
+
+
+def sparse_combine_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
+    """Node ``i`` has a combine cap: the combine kernel on the gathered
+    ``[B (cap - 1) + 1, 1, A]`` rows == its plain version on them (exact,
+    0/1 tables on the DP's own active rows), and ``compact_combine`` == the
+    dense combine bitwise; timed beside the plain version and the bound,
+    and the compact op's pieces (masks, row slots, gather, the output laid
+    back out) into ``ops_ms``."""
+    import torch
+    from repro_torch.core.frontier import combine_rows, compact_combine, inverse_map
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.color_combine import color_combine
+
+    sp, tbl = plan.spmm_plan, plan.combine[i]
+    cap = plan.compaction.combine_caps[i]
+    l_act, r_act = masks[i]
+    n_pad, batch = r_act.shape
+    dev = r_act.device
+
+    def table(act, width):
+        return torch.randint(0, 2, (n_pad, batch, width), generator=gen, device=dev).float() \
+            * act[..., None]
+
+    left = table(l_act, tbl.a)
+    m = ops.spmm(sp, table(r_act, tbl.w))
+    act = (left.amax(-1) > 0) & (m.amax(-1) > 0)
+    if not bool((act.sum(0) <= cap - 1).all()):
+        raise AssertionError(f"{tag} node {i}: {act.sum(0).tolist()} active rows, cap {cap}")
+    idx = combine_rows(act, cap, plan.n)
+    r = idx.numel()
+    lc = left.view(-1, tbl.a).index_select(0, idx).view(r, 1, tbl.a)
+    mc = m.view(-1, tbl.w).index_select(0, idx).view(r, 1, tbl.w)
+    got = color_combine(lc, mc, tbl)
+    err = max_abs_err(got, ref.color_combine_ref(lc, mc, tbl.idx1, tbl.idx2))
+    flags = []
+    whole = compact_combine(left, m, tbl, cap, plan.n, flags)
+    dense_equal = torch.equal(whole, color_combine(left, m, tbl)) and bool(flags[0].all())
+    del got, whole
+    shape = (f"node {i} A={tbl.a} B={tbl.w} S={tbl.s} J={tbl.j} rows {r}/{n_pad * batch} "
+             f"({int(act.sum())} active)")
+    if err != 0 or not dense_equal:
+        raise AssertionError(f"{tag} color_combine on gathered rows at {shape}: err {err}, "
+                             f"compact_combine == dense {dense_equal}")
+    rows["color_combine"].append(dict(
+        shape=shape, mult=1, err=err,
+        ms=cuda_ms(lambda: color_combine(lc, mc, tbl)),
+        plain_ms=cuda_ms(lambda: ref.color_combine_ref(lc, mc, tbl.idx1, tbl.idx2), 1),
+        library_ms=None,
+        bound=bound_ms(r * (tbl.a + tbl.w + tbl.s) * 4 + tbl.pairs.numel() * 4, 0,
+                       r * tbl.s * tbl.j),
+        gather_ms=None))
+
+    outc = lc.new_zeros((r, tbl.s))
+    inv = inverse_map(act.reshape(-1), r - 1)  # no coloring overflows here: keep == act
+
+    ops_ms.update({
+        "masks_ms": cuda_ms(lambda: (left.amax(-1) > 0) & (m.amax(-1) > 0)),
+        "row_slots_ms": cuda_ms(lambda: combine_rows(act, cap, plan.n)),
+        "row_gather_ms": cuda_ms(lambda: (left.view(-1, tbl.a).index_select(0, idx),
+                                          m.view(-1, tbl.w).index_select(0, idx))),
+        "output_ms": cuda_ms(lambda: outc.index_select(0, inv)),
+        "compact_combine_ms": cuda_ms(lambda: compact_combine(left, m, tbl, cap, plan.n, [])),
+        "combine_dense_ms": cuda_ms(lambda: color_combine(left, m, tbl))})
+    log(f"{tag} {shape}: color_combine {rows['color_combine'][-1]['ms']:.3f}ms on the gathered "
+        f"rows == plain; compact_combine == dense; ops {ops_ms}")
+    del left, m, lc, mc, act, idx, outc, inv
+    torch.cuda.empty_cache()
+
+
+def sparse_cell(name: str, dev):
+    """One compacted row at 2^22 vertices: its compact and dense plans, the
+    spec and the probe's seconds; the compact routes' kernels against their
+    plain versions at an engaged node each; count_fn compact and dense,
+    unfused and fused, SPARSE_CALLS calls each from one key after one call
+    outside the timer, the maps bitwise equal, the routes and launches as the spec predicts; the flags
+    of every call; one call under the compaction.overflow fault."""
+    import torch
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import (build_counting_plan, colorful_map_count_checked,
+                                               count_fn, draw_colorings)
+    from repro_torch.core.estimator import call_key
+    from repro_torch.core.frontier import single_device_compaction
+    from repro_torch.core.templates import template
+    from repro_torch.testing import faults
+
+    tag = f"phase 11 {name}"
+    row = COUNTING_CONFIGS[name]
+    g = rmat_graph(*SPARSE_GRAPHS[name], skew=row.skew)
+    tree = template(row.template)
+    times = {}
+
+    def timed_plan(mode, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = build_counting_plan(g, tree, device=dev, **kw)
+        torch.cuda.synchronize()
+        times[mode] = time.perf_counter() - t0
+        return p
+
+    dense = timed_plan("dense")
+    plan = timed_plan("compact", compact=True, density_threshold=row.density_threshold,
+                      capacity_factor=row.capacity_factor)
+    spec = plan.compaction
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = single_device_compaction(g, plan.chain, plan.combine, plan.k, n_pad=plan.n_pad,
+                                     threshold=row.density_threshold,
+                                     capacity_factor=row.capacity_factor)
+    probe_s = time.perf_counter() - t0  # the spec's host copy ends the probe
+    if again != spec or not spec.enabled:
+        raise AssertionError(f"{tag}: spec {spec}, probed again {again}")
+    log(f"{tag}: plans dense {times['dense']:.2f}s, compact {times['compact']:.2f}s; the probe "
+        f"(2 colorings, one batched DP pass) {probe_s:.3f}s; densities "
+        f"{ {i: round(d, 4) for i, d in spec.density.items()} }, gather densities "
+        f"{ {i: round(d, 4) for i, d in spec.gather_density.items()} }, table caps "
+        f"{dict(spec.table_caps)}, combine caps {dict(spec.combine_caps)}")
+    key = prng.key(0)
+    batch, calls = SPARSE_BATCH, SPARSE_CALLS
+    # the compact routes' kernels at one engaged node each, on the DP's own
+    # active rows of call 0
+    # a node reading a compact source (one without a combine cap first: the
+    # fused kernel reads its source under fuse) and a node with a combine cap
+    src_nodes = sorted((i in spec.combine_caps, i) for i, nd in plan.chain.internal_nodes()
+                       if nd.right in spec.table_caps
+                       and batch * (spec.table_caps[nd.right] - 1) + 1 < plan.n_pad)
+    src_nodes = [i for _, i in src_nodes]
+    comb_nodes = sorted(spec.combine_caps)
+    nodes = src_nodes[:1] + comb_nodes[:1]
+    masks, ok0 = capture_activity(plan, draw_colorings(plan, batch, call_key(key, 0)), set(nodes))
+    if not bool(ok0.all()):
+        raise AssertionError(f"{tag}: call 0 overflowed ({ok0.tolist()}); no node to check")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rows = {"spmm_edgetile": [], "color_combine": [], "fused_count": []}
+    ops_ms = {}
+    if src_nodes:
+        sparse_source_rows(plan, src_nodes[0], masks, gen, rows, ops_ms, tag)
+    if comb_nodes:
+        sparse_combine_rows(plan, comb_nodes[0], masks, gen, rows, ops_ms, tag)
+    del masks
+    torch.cuda.empty_cache()
+    # count_fn, compact then dense, unfused then fused
+    launches = {k: 0 for k in read_launches()}
+    routes_seen = dict.fromkeys(ROUTES, 0)
+    runs, maps_of = {}, {}
+    for fuse in (False, True):
+        for mode, base in (("compact", plan), ("dense", dense)):
+            p = dataclasses.replace(base, fuse=fuse)
+            f = count_fn(p, batch)
+            # one call outside the timer, so that neither mode pays for the
+            # allocator's first allocations of these shapes
+            f(call_key(key, 0))
+            warm_fallbacks = getattr(f, "fallbacks", 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            with route_counts() as routes:
+                t0 = time.perf_counter()
+                maps = torch.cat([f(call_key(key, c))[0] for c in range(calls)])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launched = read_launches()
+            peak = torch.cuda.max_memory_allocated(dev)
+            if maps.shape != (batch * calls,) or not torch.isfinite(maps).all():
+                raise AssertionError(f"{tag} {mode} fuse={fuse}: bad maps {maps}")
+            fallbacks = getattr(f, "fallbacks", 0) - warm_fallbacks
+            if mode == "compact":
+                want_routes, kernels, dense_kernels = compact_prediction(plan, batch, fuse)
+                want_routes = {k: v * calls for k, v in want_routes.items()}
+                want = {k: 0 for k in launched}
+                for k in kernels:
+                    want[k] = calls * kernels[k] + fallbacks * dense_kernels[k]
+                if routes != want_routes or launched != want:
+                    raise AssertionError(f"{tag} fuse={fuse}: routes {routes} launches "
+                                         f"{launched}; the spec predicts {want_routes} "
+                                         f"{want} ({fallbacks} fallbacks)")
+                for k in launches:
+                    launches[k] += launched[k]
+                for k in ROUTES:
+                    routes_seen[k] += routes[k]
+            elif any(routes.values()):
+                raise AssertionError(f"{tag}: the dense twin took a compact route {routes}")
+            key_ = f"{mode}_{'fused' if fuse else 'unfused'}"
+            runs[key_] = {"ms_per_coloring": dt / (batch * calls) * 1e3, "peak_bytes": peak,
+                          "fallbacks": fallbacks, "routes": dict(routes), "launches": launched}
+            maps_of[key_] = maps
+            log(f"{tag} {mode} fuse={fuse}: {batch * calls} colorings in {dt:.3f}s "
+                f"({dt / (batch * calls) * 1e3:.2f} ms/coloring), peak {peak} bytes, "
+                f"{fallbacks} fallbacks, routes {dict(routes)}, launches {launched}")
+    for fuse in ("unfused", "fused"):
+        if not torch.equal(maps_of[f"compact_{fuse}"], maps_of[f"dense_{fuse}"]):
+            raise AssertionError(f"{tag} {fuse}: compact {maps_of[f'compact_{fuse}'].tolist()} "
+                                 f"!= dense {maps_of[f'dense_{fuse}'].tolist()}")
+    if not torch.equal(maps_of["compact_unfused"], maps_of["compact_fused"]):
+        raise AssertionError(f"{tag}: fused and unfused maps differ")
+    flags = [colorful_map_count_checked(plan, draw_colorings(plan, batch, call_key(key, c)))[1]
+             .tolist() for c in range(calls)]
+    # one call under the fault site: the dense twin runs on the card, == dense
+    f = count_fn(plan, batch)
+    with faults.active(faults.inject("compaction.overflow", at=None)) as fired:
+        forced = f(call_key(key, 0))[0]
+    if (not fired.fired or f.fallbacks != 1 or forced.device.type != dev.type
+            or not torch.equal(forced, maps_of["dense_unfused"][:batch])):
+        raise AssertionError(f"{tag}: the overflow fault gave {forced} ({f.fallbacks} fallbacks)")
+    log(f"{tag}: compact == dense bitwise, unfused and fused, over {batch * calls} colorings "
+        f"(maps {maps_of['compact_unfused'].tolist()}); flags per call {flags}; under "
+        f"compaction.overflow one call ran the dense twin on the card and == dense")
+    summary = {"graph": {"n": g.n, "e_directed": g.num_directed, "max_degree": g.max_degree,
+                         "skew": row.skew},
+               "template": row.template, "batch": batch, "calls": calls, "n_pad": plan.n_pad,
+               "plan_s": times, "probe_s": probe_s,
+               "spec": {"threshold": spec.threshold, "capacity_factor": spec.capacity_factor,
+                        "density": dict(spec.density),
+                        "gather_density": dict(spec.gather_density),
+                        "table_caps": dict(spec.table_caps),
+                        "combine_caps": dict(spec.combine_caps)},
+               "flags": flags, "runs": runs, "ops_ms": ops_ms,
+               "checked_nodes": nodes}
+    del plan, dense, g
+    torch.cuda.empty_cache()
+    return launches, routes_seen, rows, summary
+
+
+def phase_sparse(dev):
+    """Phase 11: both compacted rows; every compact route must have run."""
+    launches, routes, rows, cells = None, dict.fromkeys(ROUTES, 0), None, {}
+    for name in SPARSE_GRAPHS:
+        l, r, cell_rows, cells[name] = sparse_cell(name, dev)
+        launches = l if launches is None else {k: launches[k] + l[k] for k in l}
+        routes = {k: routes[k] + r[k] for k in ROUTES}
+        rows = cell_rows if rows is None else {k: rows[k] + cell_rows[k] for k in rows}
+    if not all(routes.values()) or not all(rows.values()):
+        raise AssertionError(f"phase 11: a compact route never ran ({routes}) or was never "
+                             f"checked ({ {k: len(v) for k, v in rows.items()} })")
+    return launches, rows, {"cells": cells, "routes": routes}
 
 
 def attention_pairs(l: int, causal: bool, window: int) -> int:
@@ -1552,7 +2058,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 card):
+                 sparse, card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -1575,8 +2081,10 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
         src, rep = meta[name]
         lib = tot("library_ms") if shapes[0]["library_ms"] is not None else None
         # every exact check of the kernel, on the main cell and the DAG paths
+        sparse_rows, sparse_path = sparse
         errs = [r["err"] for r in shapes] + [r["err"] for d_rows, _ in dags.values()
                                               for r in d_rows.get(name, [])]
+        errs += [r["err"] for r in sparse_rows.get(name, [])]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(p[name] for p in launches.values()),
@@ -1616,6 +2124,13 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                     "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms")}
                                   | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
                                   for r in d_rows[name]]}
+        if sparse_rows.get(name):
+            # phase 11: the kernel on a compact source or gathered rows, at
+            # one engaged node of each compacted row (ms per launch)
+            entry["sparse_checks"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "err")}
+                | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                for r in sparse_rows[name]]
         if name in ("color_combine", "fused_count"):
             # bytes, shared-memory reads of the FMAs and, fused, the gathers
             entry["staged_floor_ms"] = tot("staged_floor_ms")
@@ -1651,6 +2166,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "time_unit": "ms per u12-2 DP pass over all node shapes", "main_path": main_path,
             "dense_path": dense,
             "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
+            "sparse_path": sparse[1],
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -1692,18 +2208,19 @@ def run_phases(dev):
     flash, flash32 = phase_flash(dev)
     lm = phase_lm(dev, flash["ms"])
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
+    sparse_launches, sparse_rows, sparse = phase_sparse(dev)
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
-                "family": family_launches, "tw2": tw2_launches}
+                "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
     dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2)}
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide, dags)
+            wide, dags, (sparse_rows, sparse))
 
 
 def main() -> int:

@@ -16,9 +16,11 @@ adapted to the estimator's protocol, ``sample_fn(key, batch) -> float64
 result of the port can be held against the reference's for the same key
 sample for sample.  :meth:`Counter.estimate_many` counts a template family
 in one shared-DAG pass per batch of colorings (the family protocol,
-``sample_fn(key, batch) -> float64 [batch, T]``).  The distributed
-backend, compaction, ``sample_stream`` and ``serve`` wait for their
-ROADMAP items and raise ``NotImplementedError`` naming them.
+``sample_fn(key, batch) -> float64 [batch, T]``).  ``compact=True`` runs
+the active-frontier compacted plan (DESIGN.md §15), which re-runs a batch
+on its dense twin when a capacity overflows.  The distributed backend,
+``sample_stream`` and ``serve`` wait for their ROADMAP items and raise
+``NotImplementedError`` naming them.
 
 Plan construction is lazy: building a ``Counter`` is cheap; the first
 counting call builds and caches the plan.
@@ -38,7 +40,9 @@ from .core.count_engine import (
     build_counting_plan,
     build_multi_counting_plan,
     colorful_map_count,
+    colorful_map_count_checked,
     colorful_map_count_many,
+    colorful_map_count_many_checked,
     multi_sample_fn,
     plan_sample_fn,
 )
@@ -53,23 +57,22 @@ __all__ = ["CountRequest", "CountResult", "MultiCountResult", "Counter"]
 
 _TODO = {
     "distributed": "the distributed backend is ROADMAP queue 1 item 7",
-    "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
     "serve": "serving is ROADMAP queue 1 item 8",
 }
 
 #: plan_opts the single backend passes to ``build_counting_plan``
 #: (``n_colors`` widens the color budget past the template size: the
-#: shared-k contract of family counting, see ``estimate_many``)
-_SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "n_colors", "device"})
-#: the reference's other plan_opts (its distributed backend's, and the
-#: compaction knobs): accepted, so that one config row feeds either
-#: backend, and dropped; ``compact`` must be off until its ROADMAP item
-#: lands, and ``block_size`` must be 128
+#: shared-k contract of family counting, see ``estimate_many``;
+#: ``compact``/``density_threshold``/``capacity_factor``/``probes`` drive
+#: active-frontier compaction, DESIGN.md §15)
+_SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "n_colors", "device", "compact",
+                          "density_threshold", "capacity_factor", "probes"})
+#: the reference's other plan_opts (its distributed backend's): accepted,
+#: so that one config row feeds either backend, and dropped;
+#: ``block_size`` must be 128
 _OTHER_OPTS = frozenset(
     {"root", "block_size", "bucket_tile", "num_shards", "mode", "group_factor", "impl",
-     "fuse", "mesh", "data_axis", "iter_axis", "n_colors",
-     "compact", "density_threshold", "capacity_factor", "probes",
-     "wire_dtype", "adaptive"}
+     "fuse", "mesh", "data_axis", "iter_axis", "n_colors", "wire_dtype", "adaptive"}
 )
 
 
@@ -288,8 +291,6 @@ class Counter:
             raise TypeError(f"unknown plan_opts: {sorted(unknown)}")
         tree = resolve_template(template) if isinstance(template, str) else template
         resolved = _resolve_backend(backend)
-        if plan_opts.get("compact"):
-            raise NotImplementedError(f"compact=True: {_TODO['compact']}")
         if plan_opts.get("block_size", ROW_BLOCK) != ROW_BLOCK:
             raise ValueError(f"block patches are {ROW_BLOCK}x{ROW_BLOCK}; "
                              f"got block_size={plan_opts['block_size']}")
@@ -420,12 +421,16 @@ class Counter:
 
     def count_coloring(self, coloring: np.ndarray) -> float:
         """Exact colorful map count for a FIXED coloring ``[n]``; multiply
-        by :attr:`scale` for the per-iteration copy estimate."""
+        by :attr:`scale` for the per-iteration copy estimate.  A compacted
+        plan runs its compact program and, on overflow, the dense one."""
         coloring = np.asarray(coloring, np.int32).reshape(-1)
         if coloring.shape[0] != self.graph.n:
             raise ValueError(f"coloring has {coloring.shape[0]} entries, "
                              f"graph has {self.graph.n} vertices")
-        return float(colorful_map_count(self.plan, coloring))
+        maps, ok = colorful_map_count_checked(self.plan, coloring)
+        if not bool(ok):  # a capacity overflowed: the dense program
+            maps = colorful_map_count(self.plan, coloring)
+        return float(maps)
 
     # ------------------------------------------------------- family counting
     def _family(self, templates) -> Dict[str, Any]:
@@ -527,7 +532,10 @@ class Counter:
         if coloring.shape[0] != self.graph.n:
             raise ValueError(f"coloring has {coloring.shape[0]} entries, "
                              f"graph has {self.graph.n} vertices")
-        return colorful_map_count_many(plan, coloring).cpu().numpy()
+        maps, ok = colorful_map_count_many_checked(plan, coloring)
+        if not bool(ok):  # a capacity overflowed: the dense program
+            maps = colorful_map_count_many(plan, coloring)
+        return maps.cpu().numpy()
 
     # ------------------------------------------------------- not yet ported
     def sample_stream(self, *args, **kwargs):

@@ -29,6 +29,14 @@ as one more axis; they run through the same SpMM and combine kernels (bag
 nodes never take the fused kernel), with the pinned leaves, the collapse
 and the apex-color filter in plain tensor ops (:func:`_bag_fns`).
 
+Active-frontier compaction (DESIGN.md §15): ``compact=True`` probes each
+node's density at plan build (:mod:`.frontier`) and compacts the sparse
+ones.  The compact program is speculative: it returns per-coloring
+no-overflow flags beside the counts, and :func:`count_fn` re-runs the
+whole batch on the plan's dense twin, on the same device, when a flag is
+false.  Where the flags hold, the compact counts equal the dense ones bit
+for bit.
+
 The DP uses ``d = 1`` in the recurrence and divides the final count by
 ``|Aut(T)|`` once (DESIGN.md §1), so a fixed coloring's count is exactly
 testable against the brute-force oracle.
@@ -45,8 +53,16 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..testing import faults
 from . import prng
 from .colorsets import excluded_color_mask
+from .frontier import (
+    DEFAULT_CAPACITY_FACTOR,
+    DEFAULT_DENSITY_THRESHOLD,
+    CompactionSpec,
+    make_frontier_fn,
+    single_device_compaction,
+)
 from .graphs import Graph, edge_list
 from .table_program import (
     BagFns,
@@ -72,7 +88,9 @@ __all__ = [
     "build_counting_plan",
     "build_multi_counting_plan",
     "colorful_map_count",
+    "colorful_map_count_checked",
     "colorful_map_count_many",
+    "colorful_map_count_many_checked",
     "draw_colorings",
     "count_fn",
     "count_fn_many",
@@ -108,6 +126,8 @@ class CountingPlan:
     #: dense host adjacency ``[n_pad, n]`` float32 for pinned bag leaves
     #: (treewidth-2 templates only; None for tree programs)
     pin_adj: Optional[torch.Tensor] = None
+    #: active-frontier compaction spec (None = dense; DESIGN.md §15)
+    compaction: Optional[CompactionSpec] = None
 
     @property
     def scale(self) -> float:
@@ -132,6 +152,7 @@ class MultiCountingPlan:
     device: torch.device
     fuse: bool = False
     pin_adj: Optional[torch.Tensor] = None
+    compaction: Optional[CompactionSpec] = None
 
     @property
     def num_templates(self) -> int:
@@ -155,16 +176,35 @@ def _build_pin_adj(g: Graph, n_pad: int, device: torch.device) -> torch.Tensor:
     return a
 
 
-def _graph_plan(g: Graph, program, spmm_kind: str, k: int, dev: torch.device):
-    """The SpMM plan, split tables, widths and (for bag programs) pinned
-    adjacency of ``program`` on ``g``."""
+def _graph_plan(g: Graph, program, spmm_kind: str, k: int, dev: torch.device, compact: dict):
+    """The SpMM plan, split tables, widths, (for bag programs) pinned
+    adjacency and compaction spec of ``program`` on ``g``."""
     has_bags = program_has_bags(program)
     rows, cols = edge_list(g)
     spmm_plan = ops.build_spmm_plan(rows, cols, g.n, kind=spmm_kind, device=dev)
     combine, widths = build_node_tables(program, k, device=dev,
                                         x_dim=g.n if has_bags else None)
     pin_adj = _build_pin_adj(g, spmm_plan.n_pad, dev) if has_bags else None
-    return spmm_plan, combine, widths, pin_adj
+    compaction = _maybe_compaction(g, program, combine, k, spmm_plan, **compact)
+    return spmm_plan, combine, widths, pin_adj, compaction
+
+
+def _maybe_compaction(g, program, combine, k, spmm_plan, compact, density_threshold,
+                      capacity_factor, probes):
+    """The probed spec of a compacted plan (the reference's
+    ``count_engine.py:192``).  A bag program runs dense: the probe models
+    tree combines only (DESIGN.md §19).  A block plan gets no table caps:
+    the compact-source indirection needs the CSR walk."""
+    if not compact or program_has_bags(program):
+        return None
+    return single_device_compaction(
+        g, program, combine, k,
+        n_pad=spmm_plan.n_pad,
+        threshold=density_threshold,
+        capacity_factor=capacity_factor,
+        probes=probes,
+        has_edge_slabs=spmm_plan.kind == "edges",
+    )
 
 
 def build_counting_plan(
@@ -176,6 +216,10 @@ def build_counting_plan(
     fuse: bool = False,
     n_colors: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    compact: bool = False,
+    density_threshold: float = DEFAULT_DENSITY_THRESHOLD,
+    capacity_factor: float = DEFAULT_CAPACITY_FACTOR,
+    probes: int = 2,
 ) -> CountingPlan:
     """Plan a template on graph ``g``: the adjacency and split tables go to
     ``device`` (default ``cuda``; pass ``device="cpu"`` for the plain
@@ -183,6 +227,11 @@ def build_counting_plan(
     (``ops.build_spmm_plan``); ``fuse`` takes effect on the tree nodes of
     edge plans.  ``n_colors`` widens the color budget past the template
     size (a single template counted as a family member with shared ``k``).
+
+    ``compact=True`` probes each node's density on ``probes`` colorings at
+    build time, on the plan's device, and compacts every node at or below
+    ``density_threshold`` with ``capacity_factor`` headroom (DESIGN.md
+    §15; :func:`count_fn` falls back to the dense twin on overflow).
 
     ``tree`` may be a :class:`Tree` or a :class:`Template`: tree-shaped
     templates take the :func:`partition_tree` path bit-identically,
@@ -195,7 +244,9 @@ def build_counting_plan(
     k = n_colors if n_colors is not None else tree.n
     if k < tree.n:
         raise ValueError(f"n_colors={k} is smaller than the template ({tree.n})")
-    spmm_plan, combine, widths, pin_adj = _graph_plan(g, chain, spmm_kind, k, dev)
+    spmm_plan, combine, widths, pin_adj, compaction = _graph_plan(
+        g, chain, spmm_kind, k, dev, dict(compact=compact, density_threshold=density_threshold,
+                                          capacity_factor=capacity_factor, probes=probes))
     return CountingPlan(
         tree=tree,
         chain=chain,
@@ -209,6 +260,7 @@ def build_counting_plan(
         device=dev,
         fuse=fuse,
         pin_adj=pin_adj,
+        compaction=compaction,
     )
 
 
@@ -221,13 +273,19 @@ def build_multi_counting_plan(
     fuse: bool = False,
     n_colors: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    compact: bool = False,
+    density_threshold: float = DEFAULT_DENSITY_THRESHOLD,
+    capacity_factor: float = DEFAULT_CAPACITY_FACTOR,
+    probes: int = 2,
 ) -> MultiCountingPlan:
     """One plan for a whole template family: compile the set into a shared
     :class:`~.templates.TemplateDag` and build each unique node's split
     tables once (options as :func:`build_counting_plan`)."""
     dev = resolve_device(device)
     dag = compile_templates(templates, n_colors=n_colors, roots=roots)
-    spmm_plan, combine, widths, pin_adj = _graph_plan(g, dag, spmm_kind, dag.k, dev)
+    spmm_plan, combine, widths, pin_adj, compaction = _graph_plan(
+        g, dag, spmm_kind, dag.k, dev, dict(compact=compact, density_threshold=density_threshold,
+                                            capacity_factor=capacity_factor, probes=probes))
     return MultiCountingPlan(
         templates=dag.templates,
         dag=dag,
@@ -241,6 +299,7 @@ def build_multi_counting_plan(
         device=dev,
         fuse=fuse,
         pin_adj=pin_adj,
+        compaction=compaction,
     )
 
 
@@ -257,9 +316,9 @@ def _bag_node_fn(plan, program, base_fn):
     """
     x_dim = plan.n
 
-    def node_fn(i, tbl, c_left, c_right):
+    def node_fn(i, tbl, c_left, c_right, f_left, f_right):
         if program.nodes[i].kind != "bag_combine":
-            return base_fn(i, tbl, c_left, c_right)
+            return base_fn(i, tbl, c_left, c_right, f_left, f_right)
         rows, b = c_left.shape[:2]
         m = ops.spmm(plan.spmm_plan, c_right)
         out = ops.color_combine(c_left.view(rows, b * x_dim, -1), m.view(rows, b * x_dim, -1),
@@ -297,17 +356,38 @@ def _bag_fns(plan, program, colorings: torch.Tensor, leaf: torch.Tensor) -> BagF
     return BagFns(leaf_fn, collapse_fn, join_fn)
 
 
-def _program_counts(plan, program, colorings: torch.Tensor) -> tuple:
+def _program_counts(plan, program, colorings: torch.Tensor, *, checked: bool = False):
     """Run ``program`` on ``[B, n_pad]`` colorings; one float64 ``[B]`` of
-    colorful map counts per program root."""
+    colorful map counts per program root.
+
+    ``checked=True`` runs the plan's compaction spec and also returns
+    ``ok [B]``, the AND of every no-overflow flag per coloring: where it is
+    false a static capacity overflowed and the batch must be recomputed on
+    the dense program (see :func:`count_fn`).
+    """
     leaf = leaf_table(colorings, plan.k, plan.n)
+    spec = plan.compaction if checked else None
+    if spec is not None and spec.enabled:
+        flags: list = []
+        node_fn = local_node_fn(plan.spmm_plan, fuse=plan.fuse, compaction=spec,
+                                sentinel_row=plan.n, flags=flags)
+        roots = run_table_program(program, plan.combine, leaf, plan.n, node_fn,
+                                  root_fn=root_count,
+                                  frontier_fn=make_frontier_fn(spec.table_caps, plan.n, flags))
+        ok = torch.ones(colorings.shape[0], dtype=torch.bool, device=colorings.device)
+        for f in flags:
+            ok &= f
+        return roots, ok
     node_fn = local_node_fn(plan.spmm_plan, fuse=plan.fuse)
     bag = None
     if program_has_bags(program):
         bag = _bag_fns(plan, program, colorings, leaf)
         node_fn = _bag_node_fn(plan, program, node_fn)
-    return run_table_program(program, plan.combine, leaf, plan.n, node_fn,
-                             root_fn=root_count, bag=bag)
+    roots = run_table_program(program, plan.combine, leaf, plan.n, node_fn,
+                              root_fn=root_count, bag=bag)
+    if not checked:
+        return roots
+    return roots, torch.ones(colorings.shape[0], dtype=torch.bool, device=colorings.device)
 
 
 def _as_colorings(plan, coloring) -> torch.Tensor:
@@ -326,12 +406,25 @@ def colorful_map_count(plan: CountingPlan, coloring) -> torch.Tensor:
     ``coloring``: int ``[n]`` or ``[n_pad]`` (numpy or tensor) for one
     coloring, returning a float64 scalar tensor; ``[B, n]`` or
     ``[B, n_pad]`` for a batch, returning ``[B]``.  Entries past ``plan.n``
-    are ignored.  Runs on the plan's device.
+    are ignored.  Runs on the plan's device, always the dense program (a
+    compacted plan's is :func:`colorful_map_count_checked`).
     """
     c = _as_colorings(plan, coloring)
     single = c.dim() == 1
     (maps,) = _program_counts(plan, plan.chain, c[None] if single else c)
     return maps[0] if single else maps
+
+
+def colorful_map_count_checked(plan: CountingPlan, coloring) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The compact program's counts and no-overflow flags ``(maps, ok)``,
+    shaped as :func:`colorful_map_count`'s result (a bool scalar or ``[B]``).
+    Where ``ok`` holds, ``maps`` equals the dense program's bit for bit;
+    elsewhere it is not to be trusted.  A plan without an enabled spec runs
+    dense and reports ``ok``."""
+    c = _as_colorings(plan, coloring)
+    single = c.dim() == 1
+    (maps,), ok = _program_counts(plan, plan.chain, c[None] if single else c, checked=True)
+    return (maps[0], ok[0]) if single else (maps, ok)
 
 
 def colorful_map_count_many(plan: MultiCountingPlan, coloring) -> torch.Tensor:
@@ -344,6 +437,17 @@ def colorful_map_count_many(plan: MultiCountingPlan, coloring) -> torch.Tensor:
     return maps[0] if single else maps
 
 
+def colorful_map_count_many_checked(plan: MultiCountingPlan,
+                                    coloring) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Family analogue of :func:`colorful_map_count_checked`: ``maps``
+    ``[num_templates]`` or ``[B, num_templates]`` and ``ok`` per coloring."""
+    c = _as_colorings(plan, coloring)
+    single = c.dim() == 1
+    roots, ok = _program_counts(plan, plan.dag, c[None] if single else c, checked=True)
+    maps = torch.stack(roots, dim=1)
+    return (maps[0], ok[0]) if single else (maps, ok)
+
+
 def draw_colorings(plan, batch: int, key: prng.Key) -> torch.Tensor:
     """``[batch, n_pad]`` int32 colorings uniform in ``{0..k-1}`` on the plan's
     device: the reference's ``jax.random.randint(key, (batch, n_pad), 0, k,
@@ -351,6 +455,39 @@ def draw_colorings(plan, batch: int, key: prng.Key) -> torch.Tensor:
     draws with its shared ``k``, so a family run and a per-template run
     with ``n_colors=k`` see identical colorings for one key."""
     return prng.randint(key, (batch, plan.n_pad), 0, plan.k, device=plan.device)
+
+
+def _compacted(plan) -> bool:
+    return plan.compaction is not None and plan.compaction.enabled
+
+
+def _checked_fallback(compact_fn, make_dense):
+    """The host-side overflow fallback around a compact counter (the
+    reference's ``count_engine.py:492``).
+
+    ``compact_fn(key)`` returns ``(maps, estimates, ok)``; the host reads
+    ``ok`` once per call, and where any coloring overflowed the whole batch
+    runs again on the lazily built dense twin, on the same device (the
+    same key draws the same colorings).  The returned counter's
+    ``fallbacks`` counts those re-runs.
+    """
+    state: Dict[str, Callable] = {}
+
+    def f(key: prng.Key):
+        maps, est, ok = compact_fn(key)
+        # the fault site forces an overflow storm, so tests drive the dense
+        # twin (and its interplay with resume) without a lucky coloring
+        forced = faults.fire("compaction.overflow") is not None
+        if not forced and bool(ok.all()):
+            return maps, est
+        f.fallbacks += 1
+        dense = state.get("dense")
+        if dense is None:
+            dense = state["dense"] = make_dense()
+        return dense(key)
+
+    f.fallbacks = 0
+    return f
 
 
 def count_fn(
@@ -361,16 +498,26 @@ def count_fn(
 
     Each call draws ``batch`` independent colorings from ``key`` and runs
     the DP once over all of them: every internal node is one launch with
-    the batch as a table dimension.
+    the batch as a table dimension.  A compacted plan runs the compact
+    program and re-runs the batch on its dense twin when a capacity
+    overflows (DESIGN.md §15), with the same contract.
     """
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
 
-    def f(key: prng.Key):
-        maps = colorful_map_count(plan, draw_colorings(plan, batch, key))
-        return maps, maps * plan.scale
+    if not _compacted(plan):
+        def f(key: prng.Key):
+            maps = colorful_map_count(plan, draw_colorings(plan, batch, key))
+            return maps, maps * plan.scale
 
-    return f
+        return f
+
+    def fc(key: prng.Key):
+        maps, ok = colorful_map_count_checked(plan, draw_colorings(plan, batch, key))
+        return maps, maps * plan.scale, ok
+
+    dense = dataclasses.replace(plan, compaction=None)
+    return _checked_fallback(fc, lambda: count_fn(dense, batch))
 
 
 def count_fn_many(
@@ -378,16 +525,26 @@ def count_fn_many(
 ) -> Callable[[prng.Key], Tuple[torch.Tensor, torch.Tensor]]:
     """Family counter ``f(key) -> (maps[B, R], estimates[B, R])``, float64 on
     the plan's device: the colorings :func:`count_fn` draws from ``key``
-    with ``n_colors=plan.k``, one DAG pass over all ``B`` of them."""
+    with ``n_colors=plan.k``, one DAG pass over all ``B`` of them.  A
+    compacted plan falls back to its dense twin on overflow, as
+    :func:`count_fn`'s does."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     scales = torch.tensor(plan.scales, dtype=torch.float64, device=plan.device)
 
-    def f(key: prng.Key):
-        maps = colorful_map_count_many(plan, draw_colorings(plan, batch, key))
-        return maps, maps * scales
+    if not _compacted(plan):
+        def f(key: prng.Key):
+            maps = colorful_map_count_many(plan, draw_colorings(plan, batch, key))
+            return maps, maps * scales
 
-    return f
+        return f
+
+    def fc(key: prng.Key):
+        maps, ok = colorful_map_count_many_checked(plan, draw_colorings(plan, batch, key))
+        return maps, maps * scales, ok
+
+    dense = dataclasses.replace(plan, compaction=None)
+    return _checked_fallback(fc, lambda: count_fn_many(dense, batch))
 
 
 def _cached_sampler(make_fn):

@@ -18,18 +18,22 @@ bag-only kinds (leaf, collapse, join) through :class:`BagFns`.  Collapsed
 and joined tables live on the ``x`` axis, ``[n, B, W]``.
 
 Tables run at true widths, so there are no pad columns to mask; pad rows
-are zeroed in place, which costs no copy of a multi-gigabyte table.  The
-frontier (compaction) and distributed-exchange arguments of the reference
-wait for their slices (ROADMAP queue 1 items 4 and 7).
+are zeroed in place, which costs no copy of a multi-gigabyte table.  A
+compacted plan threads active-row frontiers (:mod:`.frontier`) through
+the program: each ``combine`` table's frontier is computed once, freed with
+the table and handed to every reader as ``f_left``/``f_right``.  The
+distributed-exchange strategy of the reference waits for its slice
+(ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..kernels import ops
+from .frontier import CompactionSpec, Frontier, compact_combine
 
 __all__ = [
     "build_node_tables",
@@ -40,9 +44,15 @@ __all__ = [
     "BagFns",
 ]
 
-#: strategy signature: (node_index, combine_tables, c_left, c_right) ->
-#: output table [n_pad, B, S] of that internal node (pad rows unspecified)
-NodeFn = Callable[[int, ops.CombineTables, torch.Tensor, torch.Tensor], torch.Tensor]
+#: strategy signature: (node_index, combine_tables, c_left, c_right, f_left,
+#: f_right) -> output table [n_pad, B, S] of that internal node (pad rows
+#: unspecified); ``f_left``/``f_right`` are the children's frontiers (None
+#: where dense)
+NodeFn = Callable[[int, ops.CombineTables, torch.Tensor, torch.Tensor, Optional[Frontier],
+                   Optional[Frontier]], torch.Tensor]
+
+#: frontier hook: (node_index, masked table) -> Frontier or None
+FrontierFn = Callable[[int, torch.Tensor], Optional[Frontier]]
 
 
 class BagFns(NamedTuple):
@@ -114,6 +124,7 @@ def run_table_program(
     node_fn: NodeFn,
     root_fn: Callable[[torch.Tensor], torch.Tensor],
     bag: Optional[BagFns] = None,
+    frontier_fn: Optional[FrontierFn] = None,
 ) -> tuple:
     """Execute a program; returns one value per ``program.roots`` entry.
 
@@ -126,12 +137,17 @@ def run_table_program(
     reference-counted from ``program.table_reads()``: a table is dropped the
     moment its last reader has consumed it.  ``root_fn`` (e.g.
     :func:`root_count`) reduces each root table as soon as it is built.
+    ``frontier_fn`` (a compacted plan's, :func:`.frontier.make_frontier_fn`)
+    gives each ``combine`` table that has readers its frontier once, which
+    lives as long as the table and reaches ``node_fn`` as ``f_left`` or
+    ``f_right``.
     """
     reads = list(program.table_reads())
     want: Dict[int, int] = {}
     for r in program.roots:
         want[r] = want.get(r, 0) + 1
     live: Dict[int, torch.Tensor] = {}  # node index -> table still to be read
+    frontiers: Dict[int, Frontier] = {}
     delivered: Dict[int, torch.Tensor] = {}
     for i, nd in enumerate(program.nodes):
         kind = nd.kind
@@ -146,18 +162,24 @@ def run_table_program(
         elif kind == "bag_join":
             out = bag.join_fn(i, combine[i], live[nd.left], live[nd.right])
         else:  # "combine" / "bag_combine": the neighbor-sum contraction
-            out = node_fn(i, combine[i], live[nd.left], live[nd.right])
+            out = node_fn(i, combine[i], live[nd.left], live[nd.right],
+                          frontiers.get(nd.left), frontiers.get(nd.right))
             out[n:] = 0.0
         # the children just had one read each consumed; free at zero
         for c in nd.children[::-1]:
             reads[c] -= 1
             if reads[c] == 0:
                 live.pop(c, None)
+                frontiers.pop(c, None)
         if i in want:
             delivered[i] = root_fn(out)
             reads[i] -= want[i]
         if reads[i] > 0:
             live[i] = out
+            if frontier_fn is not None and kind == "combine":
+                fr = frontier_fn(i, out)
+                if fr is not None:
+                    frontiers[i] = fr
         del out
     return tuple(delivered[r] for r in program.roots)
 
@@ -179,7 +201,14 @@ def root_count(root: torch.Tensor) -> torch.Tensor:
 ROOT_BLOCK_ELEMENTS = 1 << 26
 
 
-def local_node_fn(spmm_plan: ops.SpmmPlan, *, fuse: bool = False) -> NodeFn:
+def local_node_fn(
+    spmm_plan: ops.SpmmPlan,
+    *,
+    fuse: bool = False,
+    compaction: Optional[CompactionSpec] = None,
+    sentinel_row: Optional[int] = None,
+    flags: Optional[List[torch.Tensor]] = None,
+) -> NodeFn:
     """The in-core neighbor-sum strategy: SpMM over the whole graph.
 
     The SpMM goes through the plan's format (``ops.spmm``: the edge kernel
@@ -191,11 +220,40 @@ def local_node_fn(spmm_plan: ops.SpmmPlan, *, fuse: bool = False) -> NodeFn:
     ``ops.fused_count`` does on a plan without edge slabs.  ``M`` needs no
     pad-row mask: pad rows have no edges, so every SpMM writes them as
     exact zeros.
+
+    With ``compaction`` (DESIGN.md §15): a right child carrying a compact
+    frontier feeds the SpMM or the fused kernel as its compact table
+    through the row-index indirection (``ops.spmm_compact``,
+    ``ops.fused_count_compact``), and a node with a ``combine_caps`` entry
+    contracts only the rows where the left table and the neighbor sum are
+    both active (:func:`~.frontier.compact_combine`), appending its flags
+    to ``flags``.  Such a node takes SpMM then combine even under ``fuse``:
+    skipping inactive rows beats skipping ``M`` once the table is sparse.
     """
 
-    def node_fn(i, tbl, c_left, c_right):
+    def compact_right(c_right, f_right):
+        """(compact table, inverse map), or (None, None) where dense."""
+        if f_right is None or f_right.idx is None:
+            return None, None
+        return c_right.index_select(0, f_right.idx), f_right.inv
+
+    def neighbor_sum(c_right, f_right):
+        right_c, inv = compact_right(c_right, f_right)
+        if right_c is not None:
+            return ops.spmm_compact(spmm_plan, right_c, inv)
+        return ops.spmm(spmm_plan, c_right)
+
+    def node_fn(i, tbl, c_left, c_right, f_left, f_right):
+        cap = compaction.combine_caps.get(i) if compaction is not None else None
+        if cap is not None:
+            return compact_combine(c_left, neighbor_sum(c_right, f_right), tbl, cap,
+                                   sentinel_row, flags,
+                                   left_mask=f_left.mask if f_left is not None else None)
         if fuse and spmm_plan.kind == "edges":
+            right_c, inv = compact_right(c_right, f_right)
+            if right_c is not None:
+                return ops.fused_count_compact(spmm_plan, c_left, right_c, inv, tbl)
             return ops.fused_count(spmm_plan.indptr, spmm_plan.indices, c_left, c_right, tbl)
-        return ops.color_combine(c_left, ops.spmm(spmm_plan, c_right), tbl)
+        return ops.color_combine(c_left, neighbor_sum(c_right, f_right), tbl)
 
     return node_fn

@@ -66,16 +66,19 @@ def fused_count_plain(indptr, indices, left, right, tables) -> torch.Tensor:
 
 
 def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables) -> torch.Tensor:
-    """``left`` ``[rows, B, A]``, ``right`` ``[rows, B, W]`` -> ``[rows, B, S]``.
+    """``left`` ``[rows, B, A]``, ``right`` ``[C, B, W]`` -> ``[rows, B, S]``.
 
     ``indptr`` int64 ``[rows + 1]`` and ``indices`` int32 are the CSR of the
-    destination rows; ``tables`` is an ``ops.CombineTables``.  A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises.
+    destination rows; ``indices`` must lie below ``C``: the kernel reads
+    ``right`` only through them, so a compact source works
+    (``ops.fused_count_compact``).  ``tables`` is an ``ops.CombineTables``.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
     """
-    if not left.shape[0] == right.shape[0] == indptr.numel() - 1:
+    if left.shape[0] != indptr.numel() - 1 or right.dim() != 3 or right.shape[0] < 1:
         raise ValueError(
-            f"left has {left.shape[0]} rows and right {right.shape[0]}; the CSR has "
-            f"{indptr.numel() - 1}"
+            f"left has {left.shape[0]} rows and right is {tuple(right.shape)}; the CSR has "
+            f"{indptr.numel() - 1} rows"
         )
     if left.device.type == "cpu":
         return fused_count_plain(indptr, indices, left, right, tables)

@@ -43,12 +43,14 @@ __all__ = [
     "expected_patch_density",
     "patch_density",
     "spmm",
+    "spmm_compact",
     "spmm_edge_tile",
     "spmm_block",
     "CombineTables",
     "build_combine_tables",
     "color_combine",
     "fused_count",
+    "fused_count_compact",
     "flash_attention",
 ]
 
@@ -270,6 +272,37 @@ def spmm(plan: SpmmPlan, table: torch.Tensor) -> torch.Tensor:
     if plan.kind == "blocks":
         return spmm_block(plan, table)
     return spmm_edge_tile(plan.indptr, plan.indices, table)
+
+
+def _remap(plan: SpmmPlan, inv: torch.Tensor) -> torch.Tensor:
+    """The CSR's source columns through the row-index indirection ``inv``
+    (vertex row -> compact slot), int32 in CSR order: the compact ops'
+    ``indices``, made once per call."""
+    if plan.kind != "edges":
+        raise ValueError("the compact ops walk the CSR: they need an edge plan")
+    if inv.dtype != torch.int32 or inv.shape != (plan.n_pad,):
+        raise ValueError(f"inv must be int32 [{plan.n_pad}]; got {inv.dtype} {tuple(inv.shape)}")
+    return torch.index_select(inv, 0, plan.indices)
+
+
+def spmm_compact(plan: SpmmPlan, table_c: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """The neighbor sum of :func:`spmm` from a compact source (the reference's
+    ``ops.py:386``): ``table_c`` ``[rows_c, B, W]`` holds the source's active
+    rows and ``inv`` int32 ``[n_pad]`` maps each vertex row to its slot,
+    inactive rows to a slot that holds zeros.  The edge kernel walks the
+    same CSR with the remapped columns, so every output element adds the
+    same terms in the same order (``x + 0.0 == x`` for the inactive ones):
+    bitwise the dense SpMM.  Returns ``[n_pad, B, W]``."""
+    return spmm_edge_tile(plan.indptr, _remap(plan, inv), table_c)
+
+
+def fused_count_compact(plan: SpmmPlan, left: torch.Tensor, right_c: torch.Tensor,
+                        inv: torch.Tensor, tables: "CombineTables") -> torch.Tensor:
+    """:func:`fused_count` with its right operand in compact form, through the
+    indirection of :func:`spmm_compact` (the reference's ``ops.py:622``):
+    bitwise the dense fused count.  ``left`` is ``[n_pad, B, A]``; returns
+    ``[n_pad, B, S]``."""
+    return fused_count(plan.indptr, _remap(plan, inv), left, right_c, tables)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -158,7 +158,8 @@ def fused_count_ref(
     The neighbor sum exists only as one ``[row_block, ...]`` block at a time
     and never as a whole ``[rows, B, W]`` table: the plain counterpart of
     the fused kernel's shared-memory block.  ``left`` is ``[rows, ..., A]``
-    with ``rows = indptr.numel() - 1``.
+    with ``rows = indptr.numel() - 1``; ``right`` is ``[C, ..., W]`` with
+    ``indices`` below ``C`` (a compact source need not have ``rows`` rows).
     """
     rows = indptr.numel() - 1
     out = torch.empty(tuple(left.shape[:-1]) + (idx1.shape[0],), dtype=left.dtype,

@@ -59,13 +59,14 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong, ctype
 def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``out[v, b, :] = sum_{e in row v} table[indices[e], b, :]``.
 
-    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32 below ``rows``,
-    ``table`` float32 ``[rows, B, W]`` (the adjacency is square); returns
-    ``[rows, B, W]``.  A CPU table runs the plain version; a CUDA table
-    launches the kernel or raises.
+    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32, ``table`` float32
+    ``[C, B, W]``; returns ``[rows, B, W]``.  The source need not be square:
+    the kernel addresses it only through ``indices``, which must lie below
+    ``C`` (a compact source, ``ops.spmm_compact``).  A CPU table runs the
+    plain version; a CUDA table launches the kernel or raises.
     """
-    if table.shape[0] != indptr.numel() - 1:
-        raise ValueError(f"table has {table.shape[0]} rows, the CSR has {indptr.numel() - 1}")
+    if table.dim() != 3 or table.shape[0] < 1:
+        raise ValueError(f"the source table must be [C >= 1, B, W]; got {tuple(table.shape)}")
     if table.device.type == "cpu":
         return spmm_edge_tile_plain(indptr, indices, table)
     _check_cuda(table, (indptr, torch.int64), (indices, torch.int32))

@@ -1,8 +1,9 @@
 """Subgraph-counting launcher for the PyTorch port: one device.
 
 ``python -m repro_torch.launch.count --config bench-small --mode single
-[--templates A,B,C] [--fuse] [--spmm-kind auto|edges|blocks] --iters N
---batch B --seed S [--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
+[--templates A,B,C] [--fuse] [--spmm-kind auto|edges|blocks] [--compact
+--density-threshold T --capacity-factor F --probes P] --iters N --batch B
+--seed S [--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
 
 Synthesizes the configured R-MAT graph (or loads ``--graph``), resolves the
 config row into a ``CountRequest`` and runs it through the ``Counter``
@@ -14,9 +15,12 @@ the estimator state; ``--resume`` continues a killed run bit for bit.
 ``--templates`` (or a config row with a ``templates`` family, such as
 ``bench-family``, ``bench-cycles`` or ``bench-tw2-mixed``) counts the whole
 family, trees and treewidth-2 names alike, in one shared-DAG pass per batch
-(``Counter.estimate_many``).  The other backends and features of
-``repro.launch.count`` exit with an error naming the ROADMAP item that
-ports them.
+(``Counter.estimate_many``).  ``--compact`` (or a config row that sets
+``compact``, such as ``bench-sparse``) runs the active-frontier compacted
+plan and prints the probed node densities and engaged capacities; its
+estimates equal the dense run's (``--density-threshold -1`` engages no
+node).  The distributed exchange modes of ``repro.launch.count`` exit with
+an error naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -35,15 +39,27 @@ from ..core.templates import TEMPLATES
 
 _TODO = {
     "mode": "the distributed exchange modes are ROADMAP queue 1 item 7",
-    "compact": "active-frontier compaction is ROADMAP queue 1 item 4",
 }
 
 
 def _plan_report(plan):
-    """The density signal the plan's format choice used."""
+    """The density signals the plan's choices used: the spmm auto patch
+    density, and the per-node table densities and engaged capacities of
+    active-frontier compaction (the reference's report, without its
+    exchange and ring capacities, which come with the distributed engine)."""
     spmm = plan.spmm_plan
     if spmm.patch_density is not None:
         print(f"spmm auto: {spmm.patch_density:.1f} edges/patch -> kind={spmm.kind}")
+    spec = plan.compaction
+    if spec is None:
+        return
+    dens = " ".join(f"n{i}={spec.density[i]:.3f}" for i in sorted(spec.density))
+    caps = {}
+    for tag, m in (("combine", spec.combine_caps), ("table", spec.table_caps)):
+        for i, c in sorted(m.items()):
+            caps[f"{tag}[{i}]"] = c
+    print(f"compaction: threshold {spec.threshold} node densities: {dens}")
+    print(f"compaction caps: {caps if caps else 'none engaged'}")
 
 
 def _robust_report(res):
@@ -84,7 +100,17 @@ def main(argv=None):
     ap.add_argument("--fuse", action="store_true",
                     help="fused SpMM->combine kernel: never holds the neighbor sum M")
     ap.add_argument("--spmm-kind", default="auto", choices=["auto", "edges", "blocks"])
-    ap.add_argument("--compact", action="store_true")
+    ap.add_argument("--compact", action="store_true", default=None,
+                    help="active-frontier compaction: probe per-node table densities and "
+                         "compact the nodes at or below --density-threshold")
+    ap.add_argument("--density-threshold", type=float, default=None,
+                    help="compact a node once its active-row fraction is at or below this "
+                         "(default: the config row's)")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="capacity headroom over the probed active maximum before the dense "
+                         "overflow fallback (default: the config row's)")
+    ap.add_argument("--probes", type=int, default=None,
+                    help="probe colorings the densities are measured on (default 2)")
     ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                     help="persist estimator state (atomic, checksummed) under DIR "
                          "every --checkpoint-every colorings")
@@ -105,8 +131,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode != "single":
         ap.error(f"--mode {args.mode}: {_TODO['mode']}; this port runs --mode single")
-    if args.compact:
-        ap.error(f"--compact: {_TODO['compact']}")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1 (got {args.batch})")
     ccfg = COUNTING_CONFIGS[args.config]
@@ -124,8 +148,6 @@ def main(argv=None):
             ap.error(f"duplicate template(s) in --templates: {', '.join(dups)}")
         if not family:
             ap.error("--templates is empty after parsing")
-    if ccfg.compact:
-        ap.error(f"config {args.config} sets compact: {_TODO['compact']}")
     ckpt_dir = args.resume or args.checkpoint_dir
     robust_kw = dict(
         checkpoint=ckpt_dir,
@@ -145,9 +167,13 @@ def main(argv=None):
     # the fused kernel walks the CSR and a block plan has no edge layout to
     # fuse over: when fusing, steer 'auto' to 'edges' (as the reference does)
     spmm_kind = "edges" if args.fuse and args.spmm_kind == "auto" else args.spmm_kind
+    overrides = {name: val for name, val in (("compact", args.compact),
+                                             ("density_threshold", args.density_threshold),
+                                             ("capacity_factor", args.capacity_factor),
+                                             ("probes", args.probes)) if val is not None}
     request = ccfg.to_request(g, backend="single", n_iter=args.iters, delta=args.delta,
                               batch=args.batch, spmm_kind=spmm_kind, fuse=args.fuse,
-                              device=args.device)
+                              device=args.device, **overrides)
     counter = Counter.from_request(request)
     key = prng.key(args.seed)
     ran = -(-args.iters // args.batch) * args.batch

@@ -2,7 +2,7 @@
 
 The port's own copy of ``repro/testing/faults.py`` (the port imports
 nothing of the reference package).  The port instruments the sample,
-checkpoint and estimator sites; the reference's compaction, compression
+checkpoint, estimator and compaction sites; the reference's compression
 and service sites come with the slices that port those paths.
 
 Recovery paths are only trustworthy if they are *exercised*: this module
@@ -25,6 +25,8 @@ Instrumented sites (grep ``faults.fire`` for the authoritative list):
 ``estimator.kill``         the estimation loop raises :class:`InjectedCrash`
                            immediately after a checkpoint save (kill between
                            checkpoints)
+``compaction.overflow``    the §15 speculate-check wrapper treats the batch as
+                           overflowed and re-runs it on the dense twin
 =========================  ====================================================
 
 Usage::

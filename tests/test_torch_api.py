@@ -108,8 +108,9 @@ def test_backends_and_unported_surfaces():
         Counter.from_graph(g, "u5-2", backend="tpu", device="cpu")
     with pytest.raises(TypeError, match="unknown plan_opts"):
         Counter.from_graph(g, "u5-2", device="cpu", lanes=4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Counter.from_graph(g, "u5-2", device="cpu", compact=True)
+    compact = Counter.from_graph(g, "u5-2", device="cpu", compact=True)
+    assert compact.plan_opts == {"device": "cpu", "compact": True}
+    assert compact.plan.compaction is not None and compact.plan.compaction.probes == 2
     assert Counter.from_graph(g, "u5-2", device="cpu", n_colors=7).plan.k == 7
     assert c.estimate_many(["u3-1"], n_iter=2).samples.shape == (2, 1)
     for call, item in ((lambda: c.sample_stream(), "item 8"),
@@ -139,4 +140,7 @@ def test_config_to_request_matches_reference():
         assert mine.pop("plan_opts") == dict(theirs.pop("plan_opts"), device="cpu")
         assert mine == theirs
         c = Counter.from_request(req)
-        assert isinstance(req, CountRequest) and c.plan_opts == {"fuse": True, "device": "cpu"}
+        # the single backend keeps the row's compaction knobs (it reads them now)
+        assert isinstance(req, CountRequest) and c.plan_opts == {
+            "fuse": True, "device": "cpu", "compact": False, "density_threshold": 0.25,
+            "capacity_factor": 1.5}

@@ -163,10 +163,12 @@ def test_unported_options_raise(capsys):
     g = erdos_renyi(20, 3.0, seed=0)
     plan = build_counting_plan(g, templates.path_tree(3), spmm_kind="blocks", device="cpu")
     assert plan.spmm_plan.kind == "blocks" and plan.spmm_plan.num_patches == 1
-    # compaction is refused where it is asked for: by a flag or by the config
-    with pytest.raises(SystemExit):
-        launch_count.main(["--config", "bench-sparse", "--device", "cpu"])
-    assert "item 4" in capsys.readouterr().err
+    # compaction runs where the config asks for it: bench-sparse reports its spec
+    launch_count.main(["--config", "bench-sparse", "--iters", "2", "--batch", "2",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "compaction: threshold 0.5 node densities: n" in out
+    assert "compaction caps: {'combine[" in out
 
 
 def _launch(argv):
@@ -187,7 +189,6 @@ def test_launcher_fused_and_unfused_agree():
 
 @pytest.mark.parametrize("flag,item", [
     (["--mode", "ring"], "item 7"),
-    (["--compact"], "item 4"),
 ])
 def test_launcher_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit):

@@ -404,6 +404,81 @@ def test_mixed_dag_on_card_matches_plain(cuda_device, fuse):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
+def _sparse_table(gen, n_pad, n, batch, width, active, device):
+    """Integer table rows ``[n_pad, B, W]`` (0-3) on a random ``active``
+    fraction of (vertex, coloring) rows, zero elsewhere and past ``n``."""
+    t = torch.randint(0, 4, (n_pad, batch, width), generator=gen, device=device).float()
+    keep = torch.rand((n_pad, batch, 1), generator=gen, device=device) < active
+    t *= keep
+    t[n:] = 0
+    return t
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("k,t1,t2", [(10, 5, 5), (12, 3, 4), (10, 2, 3)])
+def test_rectangular_sources_match_plain(cuda_device, k, t1, t2, batch):
+    """The edge and fused kernels read a compact ``[B (cap - 1) + 1, B, W]``
+    source through remapped columns: == their plain versions on the same
+    compact source, and == the dense kernels bitwise (the compact ops);
+    the combine on gathered rows (``compact_combine``) == the dense combine."""
+    from repro_torch.core.frontier import compact_combine, make_frontier_fn
+
+    g = rmat(1 << 12, 20_000, skew=8, seed=3)
+    plan = ops.build_spmm_plan(*edge_list(g), g.n, device=cuda_device)
+    tbl = ops.build_combine_tables(k, t1, t2, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(k * 7 + t1 + batch)
+    left = _sparse_table(gen, plan.n_pad, g.n, batch, tbl.a, 0.6, cuda_device)
+    right = _sparse_table(gen, plan.n_pad, g.n, batch, tbl.w, 0.2, cuda_device)
+    flags = []
+    fr = make_frontier_fn({0: 1024}, g.n, flags)(0, right)
+    assert fr.idx is not None and bool(flags[0].all())
+    right_c = right.index_select(0, fr.idx)
+    cols = torch.index_select(fr.inv, 0, plan.indices)
+    m = ops.spmm_compact(plan, right_c, fr.inv)
+    assert torch.equal(m, ref.spmm_segment_ref(plan.indptr, cols, right_c))
+    assert torch.equal(m, spmm_edge_tile(plan.indptr, plan.indices, right))
+    fused = ops.fused_count_compact(plan, left, right_c, fr.inv, tbl)
+    assert torch.equal(fused, ref.fused_count_ref(plan.indptr, cols, left, right_c, tbl.idx1,
+                                                  tbl.idx2))
+    assert torch.equal(fused, fused_count(plan.indptr, plan.indices, left, right, tbl))
+    out = compact_combine(left, m, tbl, g.n + 1, g.n, flags)
+    assert bool(flags[1].all())
+    assert torch.equal(out, color_combine(left, m, tbl))
+    assert torch.equal(out, ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2))
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_compacted_engine_on_card_matches_dense(cuda_device, fuse, monkeypatch):
+    """A compacted u7-2 plan on the card (floors forced down so every route
+    engages) == its dense twin bitwise, through count_fn; with every
+    capacity overflowing, count_fn re-runs the dense twin on the card.  The
+    graph keeps every map below 2^24, so the CPU's plain versions give the
+    same counts."""
+    from repro_torch.core import frontier
+    from repro_torch.core.count_engine import count_fn
+
+    monkeypatch.setattr(frontier, "MIN_COMBINE_ELEMENTS", 1)
+    monkeypatch.setattr(frontier, "MIN_TABLE_WIDTH", 1)
+    g = rmat(1024, 1000, skew=3, seed=2)
+    tree = template("u7-2")
+    dense = build_counting_plan(g, tree, fuse=fuse, device=cuda_device)
+    comp = build_counting_plan(g, tree, fuse=fuse, device=cuda_device, compact=True,
+                               density_threshold=0.7)
+    tiny = build_counting_plan(g, tree, fuse=fuse, device=cuda_device, compact=True,
+                               density_threshold=1.0, capacity_factor=1e-6)
+    assert comp.compaction.table_caps and comp.compaction.combine_caps
+    key = prng.key(4)
+    want = count_fn(dense, 3)(key)[0]
+    for plan, fallbacks in ((comp, 0), (tiny, 1)):
+        f = count_fn(plan, 3)
+        got = f(key)[0]
+        assert got.device.type == "cuda" and torch.equal(got, want)
+        assert f.fallbacks == fallbacks
+    cpu = build_counting_plan(g, tree, device="cpu", compact=True, density_threshold=0.7)
+    assert torch.equal(count_fn(cpu, 3)(key)[0], want.cpu())
+
+
 @pytest.mark.parametrize("seed,k", [(0, 12), (7, 5), (2**31 + 5, 15)])
 def test_colorings_on_card_equal_cpu(cuda_device, seed, k):
     """Threefry on the card draws what it draws on the CPU (which the CPU

@@ -59,6 +59,15 @@ def test_slice_three_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_EIGHT_MODULES = ["core/frontier.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_EIGHT_MODULES)
+def test_slice_eight_modules_are_checked(module):
+    """The compaction slice's module is among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -68,7 +77,7 @@ def test_engine_import_loads_no_jax():
         "repro_torch.configs.base, repro_torch.kernels.flash_attention, repro_torch.models, "
         "repro_torch.models.layers, repro_torch.models.attention, "
         "repro_torch.models.transformer, repro_torch.models.factory, "
-        "repro_torch.models.convert, repro_torch.testing.numerics; "
+        "repro_torch.models.convert, repro_torch.testing.numerics, repro_torch.core.frontier; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -7,8 +7,9 @@ every checkpoint boundary and when the kill lands inside a checkpoint
 write; around it, the supervisor's retry/validate/quarantine taxonomy and
 the checkpoint manager's corrupt-skip and crash-residue handling.  Every
 failure is injected deterministically through the port's own
-``repro_torch.testing.faults``.  The distributed, compaction and family
-variants wait for those slices.
+``repro_torch.testing.faults``.  The compaction variant (resume under an
+overflow storm) is in ``test_torch_compaction.py``, the family one in
+``test_torch_family.py``; the distributed one waits for its slice.
 """
 
 import os
