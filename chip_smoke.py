@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
 the single-device tree-template estimate, family counting, treewidth-2 bag
-programs, active-frontier compaction, and the granite-3-8b serving path
-(prefill, then decode), with every kernel of their paths built from this
-checkout and held against its plain PyTorch version.
+programs, active-frontier compaction, the distributed exchange engine on
+thread ranks sharing the card, and the granite-3-8b serving path (prefill,
+then decode), with every kernel of their paths built from this checkout
+and held against its plain PyTorch version.
 
-    python3 chip_smoke.py            # all phases, one card (about 8 minutes)
+    python3 chip_smoke.py            # all phases, one card (about 8-10 minutes)
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
@@ -114,7 +115,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              launches as the spec predicts, the per-coloring flags and
              fallbacks, ms per coloring and peak bytes side by side; one
              call under the compaction.overflow fault runs the dense twin
-             on the card and == it (path "sparse").
+             on the card and == it (path "sparse");
+12. distributed — the exchange engine (repro_torch.core.distributed) on
+             LocalMesh thread ranks sharing the card.  (a) exact: the
+             reference worker's ER(97, 5) and a skew-8 R-MAT (4096 / 1200),
+             p4, sp21 and u5-2, LocalMesh P in {4, 8} x I in {1, 2}, every
+             mode (alltoall, pipeline g 1 and 3, adaptive, ring) x fuse ==
+             brute force; the families u3-1/u5-2/u7-2, cycle4, diamond and a
+             mixed one == the single-device port; keyed samples P = 1 ==
+             P = 8.  (b) full width: u12-2 on the main cell's graph,
+             LocalMesh P = 4, B = 1, every mode x fuse, a warm then a timed
+             call: counts within rtol 1e-5 of the single-device port on the
+             same coloring (bitwise logged), ms per coloring and peak bytes
+             per mode, launches as the routes predict (path
+             "distributed"); at u12-2's (12, 220, 495, 4) node the edge and
+             fused kernels on shard 0's rectangular alltoall CSR and on a
+             bucket CSR, and the combine on the shard's rows, == their plain
+             versions, timed.  (c) an NCCL group of world size 1 (TCPStore
+             on localhost): every mode == LocalMesh P = 1; calibrate on
+             LocalMesh P = 4 (alpha, beta beside the card's name).  (d) the
+             launcher: --config bench-small --mode adaptive at --shards 2
+             and 4 print identical estimates, within the RSD of --mode
+             single.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -1720,6 +1742,403 @@ def phase_sparse(dev):
     return launches, rows, {"cells": cells, "routes": routes}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the distributed exchange engine
+# ---------------------------------------------------------------------------
+
+#: every exchange mode, the pipeline at group factors 1 and 3
+DIST_MODES = (("alltoall", 1), ("pipeline", 1), ("pipeline", 3), ("adaptive", 1), ("ring", 1))
+#: (a): LocalMesh shapes (data ranks, iteration ranks) on the card
+DIST_EXACT_MESHES = ((4, 1), (4, 2), (8, 1), (8, 2))
+#: (a): the reference worker's graph, and a skew-8 R-MAT whose u5-2 count
+#: (1,942,968 on the coloring) stays below 2^24 and whose brute force takes
+#: seconds
+DIST_EXACT_RMAT = (4096, 1200)
+DIST_FAMILIES = (("u3-1", "u5-2", "u7-2"), ("cycle4",), ("diamond",),
+                 ("u3-1", "cycle4", "u5-2", "diamond"))
+#: (b): u12-2 on the main cell's graph over 4 thread ranks of the card.  A
+#: shard's received alltoall buffer is P r_pad B W 4 bytes (r_pad = 174,976
+#: there: 2.2 GB at W = 792 and B = 1) and its send buffer as much, for all
+#: four ranks on the one card; the alltoall peak was 21.4 GB at B = 1, so
+#: B = 2 (about 43 GB) fits
+DIST_SHARDS = 4
+DIST_BATCH = 2
+DIST_RTOL = 1e-5
+#: (b): the modes also run once under torch.profiler
+DIST_PROFILED = ("alltoall", "pipeline-g1", "pipeline-g1 fused")
+#: (b): the node shape whose kernels are held on the shard's rectangular
+#: alltoall CSR and a bucket CSR
+DIST_CHECK_NODE = (12, 220, 495, 4)
+
+
+def _dist_label(mode: str, gf: int) -> str:
+    return f"pipeline-g{gf}" if mode == "pipeline" else mode
+
+
+def dist_exact(dev):
+    """(a): every mode x fuse on LocalMesh P in {4, 8}, I in {1, 2} == brute
+    force; families and treewidth-2 rows == the single-device port; keyed
+    samples of P = 1 == P = 8."""
+    import numpy as np
+    from repro_torch.comm import LocalMesh
+    from repro_torch.core import prng
+    from repro_torch.core.brute_force import count_colorful_maps
+    from repro_torch.core.count_engine import build_multi_counting_plan, colorful_map_count_many
+    from repro_torch.core.distributed import (build_distributed_plan, keyed_sample_fn,
+                                              make_count_fn, shard_coloring)
+    from repro_torch.core.graphs import erdos_renyi, rmat
+    from repro_torch.core.templates import path_tree, spider_tree, template
+
+    er = erdos_renyi(97, 5.0, seed=7)
+    skew = rmat(*DIST_EXACT_RMAT, skew=8, seed=2)
+    calls = 0
+    t0 = time.perf_counter()
+    for g in (er, skew):
+        for name, tree in (("p4", path_tree(4)), ("sp21", spider_tree([2, 1])),
+                           ("u5-2", template("u5-2"))):
+            col = np.random.default_rng(3).integers(0, tree.n, g.n).astype(np.int32)
+            want = count_colorful_maps(g, tree, col)
+            for P, I in DIST_EXACT_MESHES:
+                plan = build_distributed_plan(g, tree, P, device=dev)
+                mesh = LocalMesh(P, I, device=dev)
+                cols = np.broadcast_to(shard_coloring(plan, col)[None], (I, P, plan.n_loc_pad))
+                for mode, gf in DIST_MODES:
+                    for fuse in (False, True):
+                        got = make_count_fn(plan, mesh, mode=mode, group_factor=gf,
+                                            fuse=fuse)(cols).tolist()
+                        calls += 1
+                        if got != [want] * I:
+                            raise AssertionError(f"phase 12 {g.name} {name} P={P} I={I} "
+                                                 f"{_dist_label(mode, gf)} fuse={fuse}: {got} "
+                                                 f"!= brute force {want}")
+            log(f"phase 12 (a) {g.name} {name}: {want} colorful maps; every mode x fuse on "
+                f"LocalMesh {DIST_EXACT_MESHES} == brute force")
+    for fam in DIST_FAMILIES:
+        temps = [template(t) for t in fam]
+        single = build_multi_counting_plan(er, temps, device=dev)
+        col = np.random.default_rng(5).integers(0, single.k, er.n).astype(np.int32)
+        want = colorful_map_count_many(single, col).tolist()
+        for P, I in ((4, 1), (8, 2)):
+            plan = build_distributed_plan(er, temps, P, device=dev)
+            mesh = LocalMesh(P, I, device=dev)
+            cols = np.broadcast_to(shard_coloring(plan, col)[None], (I, P, plan.n_loc_pad))
+            for mode, gf in DIST_MODES:
+                for fuse in (False, True):
+                    got = make_count_fn(plan, mesh, mode=mode, group_factor=gf,
+                                        fuse=fuse)(cols).tolist()
+                    calls += 1
+                    if got != [want] * I:
+                        raise AssertionError(f"phase 12 family {fam} P={P} I={I} "
+                                             f"{_dist_label(mode, gf)} fuse={fuse}: {got} != "
+                                             f"the single-device port's {want}")
+        log(f"phase 12 (a) family {fam} (k={single.k}): {want}; every mode x fuse on P=4 and "
+            f"8x2 == the single-device port")
+    samples = []
+    for P in (1, 8):
+        plan = build_distributed_plan(skew, template("u5-2"), P, device=dev)
+        samples.append(keyed_sample_fn(plan, LocalMesh(P, device=dev), mode="adaptive")(
+            prng.key(7), 4))
+    if not np.array_equal(samples[0], samples[1]):
+        raise AssertionError(f"phase 12 keyed samples P=1 {samples[0]} != P=8 {samples[1]}")
+    log(f"phase 12 (a): {calls} count calls exact in {time.perf_counter() - t0:.1f}s; keyed "
+        f"samples P=1 == P=8 ({samples[0].tolist()})")
+    return {"count_calls": calls, "seconds": time.perf_counter() - t0}
+
+
+def _rect_tensor(csr, cols: int):
+    """A rectangular CSR as ``torch.sparse_csr_tensor`` (the library
+    yardstick); a bucket's offsets are rebased to its own edges."""
+    import torch
+
+    start, end = int(csr.indptr[0]), int(csr.indptr[-1])
+    return torch.sparse_csr_tensor(csr.indptr - start, csr.indices[start:end].long(),
+                                   torch.ones(end - start, device=csr.indptr.device),
+                                   (csr.rows, cols))
+
+
+def dist_kernel_rows(plan, dev):
+    """(b): at the node of DIST_CHECK_NODE, the edge and fused kernels on
+    shard 0's rectangular alltoall CSR and on its bucket CSR from shard 1,
+    and the combine on the shard's rows, == their plain versions on integer
+    tables (sums below 2^24), timed beside them, the library call and the
+    bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    i = next(i for i, t in plan.combine.items() if (t.a, t.w, t.s, t.j) == DIST_CHECK_NODE)
+    tbl = plan.combine[i]
+    arrays = plan.shard_arrays(0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    b, rows_n = DIST_BATCH, plan.n_loc_pad
+    rows = {"spmm_edgetile": [], "color_combine": [], "fused_count": []}
+
+    def table(n, width, hi):
+        return torch.randint(0, hi, (n, b, width), generator=gen, device=dev).float()
+
+    for tag, csr, src_rows in (("alltoall CSR", arrays.a2a, plan.num_shards * plan.r_pad),
+                               ("bucket CSR (1 -> 0)", arrays.buckets.csr(1, 0), plan.r_pad)):
+        e = int(csr.indptr[-1] - csr.indptr[0])
+        csr_bytes = (rows_n + 1) * 8 + e * 4
+        shape = f"{tag} rows={rows_n} source={src_rows} A={tbl.a} W={tbl.w} S={tbl.s} J={tbl.j}"
+        src = table(src_rows, tbl.w, 4)
+        got = ops.spmm_rect(csr, src)
+        want = ref.spmm_segment_ref(csr.indptr, csr.indices, src)
+        err = max_abs_err(got, want)
+        lib = _rect_tensor(csr, src_rows)
+        flat = src.reshape(src_rows, -1)
+        lib_equal = torch.equal(torch.sparse.mm(lib, flat).reshape(got.shape), got)
+        del got, want
+        if err != 0 or not lib_equal:
+            raise AssertionError(f"phase 12 spmm_edgetile != plain on the {shape}: {err}, "
+                                 f"library equal {lib_equal}")
+        rows["spmm_edgetile"].append(dict(
+            shape=shape, err=err, ms=cuda_ms(lambda: ops.spmm_rect(csr, src)),
+            plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(csr.indptr, csr.indices, src), 1),
+            library_ms=cuda_ms(lambda: torch.sparse.mm(lib, flat)),
+            bound=bound_ms((src_rows + rows_n) * b * tbl.w * 4 + csr_bytes, e * b * tbl.w)))
+        del src, flat
+        left, src = table(rows_n, tbl.a, 2), table(src_rows, tbl.w, 2)
+        got = ops.fused_count_rect(csr, left, src, tbl)
+        want = ref.fused_count_ref(csr.indptr, csr.indices, left, src, tbl.idx1, tbl.idx2)
+        err = max_abs_err(got, want)
+        del got, want
+        if err != 0:
+            raise AssertionError(f"phase 12 fused_count != plain on the {shape}: {err}")
+        nb = (rows_n * (tbl.a + tbl.s) + src_rows * tbl.w) * b * 4 + csr_bytes
+        rows["fused_count"].append(dict(
+            shape=shape, err=err, ms=cuda_ms(lambda: ops.fused_count_rect(csr, left, src, tbl)),
+            plain_ms=cuda_ms(lambda: ref.fused_count_ref(csr.indptr, csr.indices, left, src,
+                                                         tbl.idx1, tbl.idx2), 1),
+            library_ms=None,
+            bound=bound_ms(nb, e * b * tbl.w, rows_n * b * tbl.s * tbl.j)))
+        del left, src
+    left, m = table(rows_n, tbl.a, 4), table(rows_n, tbl.w, 4)
+    got = ops.color_combine(left, m, tbl)
+    err = max_abs_err(got, ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2))
+    del got
+    if err != 0:
+        raise AssertionError(f"phase 12 color_combine != plain on the shard's rows: {err}")
+    shape = f"shard rows={rows_n} A={tbl.a} W={tbl.w} S={tbl.s} J={tbl.j}"
+    rows["color_combine"].append(dict(
+        shape=shape, err=err, ms=cuda_ms(lambda: ops.color_combine(left, m, tbl)),
+        plain_ms=cuda_ms(lambda: ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2), 1),
+        library_ms=None,
+        bound=bound_ms(rows_n * b * (tbl.a + tbl.w + tbl.s) * 4, 0,
+                       rows_n * b * tbl.s * tbl.j)))
+    del left, m
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"phase 12 (b) {name} on the {r['shape']}: {r['ms']:.3f}ms (plain "
+                f"{r['plain_ms']:.1f}, library {r['library_ms']}, bound {r['bound'][0]:.3f} "
+                f"{r['bound'][1]}) == plain")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _predicted_launches(plan, node_modes, fuse: bool, calls: int) -> dict:
+    """Kernel launches of ``calls`` count calls: on every rank, a node is one
+    launch over the alltoall buffer or one a received chunk (P), plus one
+    combine unfused."""
+    P = plan.num_shards
+    want = {"spmm_edgetile": 0, "color_combine": 0, "fused_count": 0}
+    for i, mode in node_modes.items():
+        per_rank = 1 if mode == "alltoall" else P
+        if fuse:
+            want["fused_count"] += P * per_rank
+        else:
+            want["spmm_edgetile"] += P * per_rank
+            want["color_combine"] += P
+    return {k: v * calls for k, v in want.items()}
+
+
+def dist_full(g, dev):
+    """(b): u12-2 at full width on LocalMesh P = 4, every mode x fuse, a warm
+    then a timed call, against the single-device port on the same coloring."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import LocalMesh
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
+    from repro_torch.core.distributed import (build_distributed_plan, global_coloring,
+                                              make_count_fn, shard_coloring)
+    from repro_torch.core.templates import template
+
+    tree = template("u12-2")
+    t0 = time.perf_counter()
+    plan = build_distributed_plan(g, tree, DIST_SHARDS, device=dev)
+    plan_s = time.perf_counter() - t0
+    counts = plan.bucket_counts
+    log(f"phase 12 (b) u12-2 plan P={DIST_SHARDS}: shard_size={plan.shard_size} "
+        f"n_loc_pad={plan.n_loc_pad} r_pad={plan.r_pad} in {plan_s:.1f}s; bucket edges "
+        f"{counts.min()}..{counts.max()} (diagonal {np.diag(counts).tolist()})")
+    rows = dist_kernel_rows(plan, dev)
+    mesh = LocalMesh(DIST_SHARDS, device=dev)
+    single = build_counting_plan(g, tree, device=dev)
+    key = prng.key(12)
+    keys = prng.split(key, DIST_BATCH)
+    col = torch.stack([global_coloring(k, g.n, plan.k, device=dev) for k in keys])  # [B, n]
+    host = col.cpu().numpy()
+    cols = np.stack([shard_coloring(plan, c) for c in host])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = colorful_map_count(single, col)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / DIST_BATCH
+    want = want.cpu()
+    del single
+    torch.cuda.empty_cache()
+    results, launches_want = {}, {"spmm_edgetile": 0, "color_combine": 0, "fused_count": 0}
+    reset_launches()
+    for mode, gf in DIST_MODES:
+        for fuse in (False, True):
+            label = f"{_dist_label(mode, gf)}{' fused' if fuse else ''}"
+            f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse)
+            f(cols)  # warm: the kernels' first launches and the allocator's blocks
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            got = f(cols)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            if not torch.isfinite(got).all() or got.shape != (DIST_BATCH,):
+                raise AssertionError(f"phase 12 (b) {label}: bad counts {got}")
+            rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+            if rel > DIST_RTOL:
+                raise AssertionError(f"phase 12 (b) {label}: {got.tolist()} vs single-device "
+                                     f"{want.tolist()} beyond rtol {DIST_RTOL}")
+            calls = 2
+            split = None
+            if label in DIST_PROFILED:
+                # one more call under the profiler: the device's busy share
+                # says how far the ranks' host work holds the card back
+                split = device_split(lambda: f(cols))
+                calls += 1
+                log(f"phase 12 (b) {label} under the profiler: busy "
+                    f"{split['device_busy_ms']:.1f} of {split['wall_ms']:.1f} ms "
+                    f"({split['busy_share']:.1%}); top {split['top_kernels'][:4]}")
+            for k, v in _predicted_launches(plan, f.node_modes, fuse, calls).items():
+                launches_want[k] += v
+            results[label] = {"ms_per_coloring": dt * 1e3 / DIST_BATCH, "peak_bytes": peak,
+                              "allocated_before_bytes": base,
+                              "bitwise_equal_single": bool(torch.equal(got, want)),
+                              "max_rel_err": rel,
+                              "node_modes": {str(i): m for i, m in f.node_modes.items()},
+                              "device_split": split}
+            log(f"phase 12 (b) {label}: {dt * 1e3 / DIST_BATCH:.1f} ms/coloring, peak "
+                f"{peak} bytes ({base} before the call), counts {got.tolist()} vs single "
+                f"{want.tolist()} (rel {rel:.2e}, bitwise {torch.equal(got, want)})")
+    launches = read_launches()
+    got_launches = {k: launches[k] for k in launches_want}
+    if got_launches != launches_want or launches["spmm_block"] or launches["flash_attention"]:
+        raise AssertionError(f"phase 12 (b) launches {launches}, the plan predicts "
+                             f"{launches_want}")
+    log(f"phase 12 (b): launches {got_launches} as the plan predicts (warm, timed and profiled "
+        f"calls); "
+        f"single-device u12-2 {single_ms:.1f} ms/coloring")
+    del plan, mesh
+    torch.cuda.empty_cache()
+    return launches, rows, {"modes": results, "single_device_ms_per_coloring": single_ms,
+                            "plan_seconds": plan_s, "shards": DIST_SHARDS,
+                            "batch": DIST_BATCH}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_nccl(dev):
+    """(c): an NCCL group of world size 1 on the card (a TCPStore on
+    localhost): every mode on (a)'s graphs == LocalMesh P = 1; then
+    calibrate on LocalMesh P = 4."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.comm import LocalMesh, ProcessGroupComm, ProcessMesh, SoloGroup, calibrate
+    from repro_torch.core import prng
+    from repro_torch.core.distributed import (build_distributed_plan, keyed_sample_fn,
+                                              make_count_fn, shard_coloring)
+    from repro_torch.core.graphs import erdos_renyi, rmat
+    from repro_torch.core.templates import path_tree, template
+
+    store = dist.TCPStore("localhost", _free_port(), 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    checked = 0
+    try:
+        mesh = ProcessMesh(ProcessGroupComm(), SoloGroup(), dev)
+        local = LocalMesh(1, device=dev)
+        for g in (erdos_renyi(97, 5.0, seed=7), rmat(*DIST_EXACT_RMAT, skew=8, seed=2)):
+            for tree in (path_tree(4), template("u5-2"), template("cycle4")):
+                plan = build_distributed_plan(g, tree, 1, device=dev)
+                col = np.random.default_rng(3).integers(0, plan.k, g.n).astype(np.int32)
+                cols = np.broadcast_to(shard_coloring(plan, col)[None], (2, 1, plan.n_loc_pad))
+                for mode, gf in DIST_MODES:
+                    for fuse in (False, True):
+                        kw = dict(mode=mode, group_factor=gf, fuse=fuse)
+                        got = make_count_fn(plan, mesh, **kw)(cols)
+                        want = make_count_fn(plan, local, **kw)(cols)
+                        checked += 1
+                        if got.tolist() != want.tolist():
+                            raise AssertionError(f"phase 12 (c) NCCL {g.name} {tree.name} "
+                                                 f"{kw}: {got} != LocalMesh {want}")
+                a = keyed_sample_fn(plan, mesh)(prng.key(3), 2)
+                if not np.array_equal(a, keyed_sample_fn(plan, local)(prng.key(3), 2)):
+                    raise AssertionError("phase 12 (c) NCCL keyed samples != LocalMesh")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 12 (c): NCCL at world size 1, {checked} count calls == LocalMesh P=1")
+    t0 = time.perf_counter()
+    model = calibrate(LocalMesh(4, device=dev))
+    cal = {"alpha_s": model.alpha, "beta_s_per_byte": model.beta,
+           "flops_per_s": model.flops_per_s, "seconds": time.perf_counter() - t0,
+           "card": card_line()}
+    log(f"phase 12 (c) calibrate on LocalMesh P=4 ({cal['card']}): alpha {model.alpha:.3e} s, "
+        f"beta {model.beta:.3e} s/B ({1 / model.beta / 1e9:.1f} GB/s), matmul "
+        f"{model.flops_per_s:.3e} flop/s, in {cal['seconds']:.1f}s")
+    return {"nccl_count_calls": checked, "calibrate": cal}
+
+
+def dist_launch():
+    """(d): --mode adaptive at --shards 2 and 4 print identical estimates,
+    within the RSD of --mode single."""
+    base = ["--config", "bench-small", "--iters", "64", "--batch", "16"]
+    two = _launch(base + ["--mode", "adaptive", "--shards", "2"])
+    four = _launch(base + ["--mode", "adaptive", "--shards", "4"])
+    single = _launch(base + ["--mode", "single"])
+    if not _estimates(two) or _estimates(two) != _estimates(four):
+        raise AssertionError(f"phase 12 (d): --shards 2 {two} vs --shards 4 {four}")
+
+    def est(lines):
+        mean_line = next(ln for ln in lines if ln.startswith("estimate (mean)"))
+        mean = float(mean_line.split(":")[1].split()[0])
+        return mean, float(mean_line.rsplit("RSD", 1)[1])
+
+    (m_d, rsd_d), (m_s, rsd_s) = est(two), est(single)
+    if abs(m_d - m_s) > max(rsd_d, rsd_s) * m_s:
+        raise AssertionError(f"phase 12 (d): distributed mean {m_d} vs single {m_s} beyond "
+                             f"the RSD ({rsd_d}, {rsd_s})")
+    log(f"phase 12 (d): --shards 2 and 4 print identical estimates; mean {m_d:.6g} vs single "
+        f"{m_s:.6g} (RSD {rsd_d}, {rsd_s})")
+    return {"mean_distributed": m_d, "mean_single": m_s, "rsd": [rsd_d, rsd_s]}
+
+
+def phase_distributed(g, dev):
+    """Phase 12: (a)-(d); returns the path's launches, the kernel rows and a
+    summary."""
+    t0 = time.perf_counter()
+    exact = dist_exact(dev)
+    launches, rows, full = dist_full(g, dev)
+    nccl = dist_nccl(dev)
+    launch = dist_launch()
+    log(f"phase 12 passed in {time.perf_counter() - t0:.1f}s")
+    return launches, rows, {"exact": exact, "full": full, "nccl": nccl, "launcher": launch}
+
+
 def attention_pairs(l: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask allows in self-attention over ``l`` tokens."""
     import torch
@@ -2058,7 +2477,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, card):
+                 sparse, dist, card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -2085,6 +2504,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
         errs = [r["err"] for r in shapes] + [r["err"] for d_rows, _ in dags.values()
                                               for r in d_rows.get(name, [])]
         errs += [r["err"] for r in sparse_rows.get(name, [])]
+        errs += [r["err"] for r in dist[0].get(name, [])]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(p[name] for p in launches.values()),
@@ -2131,6 +2551,14 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                 {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "err")}
                 | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
                 for r in sparse_rows[name]]
+        if dist[0].get(name):
+            # phase 12: the kernel on the distributed path's rectangular
+            # alltoall CSR and a bucket CSR (the combine on a shard's rows),
+            # ms per launch at u12-2's DIST_CHECK_NODE
+            entry["distributed_checks"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "err")}
+                | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                for r in dist[0][name]]
         if name in ("color_combine", "fused_count"):
             # bytes, shared-memory reads of the FMAs and, fused, the gathers
             entry["staged_floor_ms"] = tot("staged_floor_ms")
@@ -2162,11 +2590,12 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                  for fuse, (ms, peak) in per.items()}
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
     return {"kernels": out, "card": card, "batch": {"main": MAIN_BATCH, "dense": DENSE_BATCH,
-                                                 "family": FAMILY_BATCH, "tw2": TW2_BATCH},
+                                                 "family": FAMILY_BATCH, "tw2": TW2_BATCH,
+                                                 "distributed": DIST_BATCH},
             "time_unit": "ms per u12-2 DP pass over all node shapes", "main_path": main_path,
             "dense_path": dense,
             "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
-            "sparse_path": sparse[1],
+            "sparse_path": sparse[1], "distributed_path": dist[1],
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -2190,6 +2619,8 @@ def run_phases(dev):
     del plan
     torch.cuda.empty_cache()
     family_launches, family_rows, family = phase_family(g, dev)
+    torch.cuda.empty_cache()
+    dist_launches, dist_rows, dist = phase_distributed(g, dev)
     del g
     torch.cuda.empty_cache()
     dense_graph = rmat_graph(2 ** 16, 16_000_000)
@@ -2213,14 +2644,15 @@ def run_phases(dev):
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
-                "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches}
+                "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
+                "distributed": dist_launches}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
     dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2)}
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide, dags, (sparse_rows, sparse))
+            wide, dags, (sparse_rows, sparse), (dist_rows, dist))
 
 
 def main() -> int:

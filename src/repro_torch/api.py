@@ -1,4 +1,4 @@
-"""Counting API of the port: one ``Counter`` facade over the single backend.
+"""Counting API of the port: one ``Counter`` facade over two backends.
 
 Counterpart of ``repro/api.py``:
 
@@ -8,19 +8,35 @@ Counterpart of ``repro/api.py``:
 >>> result = counter.estimate(n_iter=500, delta=0.1, key=prng.key(0))
 >>> result.estimate, result.relative_sd
 
-The single backend is the in-core engine (:mod:`.core.count_engine`) on one
-device: ``cuda`` unless the plan options say ``device="cpu"``; a missing
-card raises.  ``backend="auto"`` resolves to ``single``.  The backend is
-adapted to the estimator's protocol, ``sample_fn(key, batch) -> float64
-[batch]``, and every aggregate comes from :mod:`.core.estimator`, so a
-result of the port can be held against the reference's for the same key
-sample for sample.  :meth:`Counter.estimate_many` counts a template family
-in one shared-DAG pass per batch of colorings (the family protocol,
+Backends:
+
+``single``
+    The in-core engine (:mod:`.core.count_engine`) on one device: ``cuda``
+    unless the plan options say ``device="cpu"``; a missing card raises.
+``distributed``
+    The exchange engine (:mod:`.core.distributed`): vertex-sharded tables
+    on a mesh (``mesh=``: a ``comm.LocalMesh`` of ``num_shards`` thread
+    ranks on the device by default, or ``launch.mesh.process_mesh()``
+    under an initialized ``torch.distributed`` world), the four exchange
+    modes (``mode``, ``group_factor``, ``adaptive``), colorings drawn
+    from the iteration keys whatever the shard count.
+``auto``
+    ``distributed`` when ``mesh=`` has more than one data rank, else
+    ``single``.
+
+Both are adapted to the estimator's protocol, ``sample_fn(key, batch) ->
+float64 [batch]``, and every aggregate comes from :mod:`.core.estimator`,
+so a result of the port can be held against the reference's for the same
+key sample for sample.  :meth:`Counter.estimate_many` counts a template
+family in one shared-DAG pass per batch of colorings (the family protocol,
 ``sample_fn(key, batch) -> float64 [batch, T]``).  ``compact=True`` runs
-the active-frontier compacted plan (DESIGN.md §15), which re-runs a batch
-on its dense twin when a capacity overflows.  The distributed backend,
-``sample_stream`` and ``serve`` wait for their ROADMAP items and raise
-``NotImplementedError`` naming them.
+the single backend's active-frontier compacted plan (DESIGN.md §15),
+which re-runs a batch on its dense twin when a capacity overflows; on the
+distributed backend it, and a narrow ``wire_dtype``, are ROADMAP queue 1
+item 7.  Under a ``torch.distributed`` world every rank runs the same
+estimator loop on replicated counts, and only rank 0 writes checkpoints.
+``sample_stream`` and ``serve`` wait for their ROADMAP item and raise
+``NotImplementedError`` naming it.
 
 Plan construction is lazy: building a ``Counter`` is cheap; the first
 counting call builds and caches the plan.
@@ -56,7 +72,6 @@ from .train.checkpoint import CheckpointManager
 __all__ = ["CountRequest", "CountResult", "MultiCountResult", "Counter"]
 
 _TODO = {
-    "distributed": "the distributed backend is ROADMAP queue 1 item 7",
     "serve": "serving is ROADMAP queue 1 item 8",
 }
 
@@ -67,13 +82,26 @@ _TODO = {
 #: active-frontier compaction, DESIGN.md §15)
 _SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "n_colors", "device", "compact",
                           "density_threshold", "capacity_factor", "probes"})
-#: the reference's other plan_opts (its distributed backend's): accepted,
-#: so that one config row feeds either backend, and dropped;
-#: ``block_size`` must be 128
+#: plan_opts the distributed backend reads: the plan's (``root``,
+#: ``n_colors``, ``compact``), the mesh's (``mesh``, ``num_shards``,
+#: ``device``) and the count function's (:data:`_DIST_FN_OPTS`)
+_DIST_OPTS = frozenset({"root", "n_colors", "compact", "mesh", "num_shards", "device", "mode",
+                        "group_factor", "fuse", "wire_dtype", "adaptive"})
+_DIST_PLAN_OPTS = frozenset({"root", "n_colors", "compact"})
+_DIST_FN_OPTS = frozenset({"mode", "group_factor", "fuse", "wire_dtype", "adaptive"})
+#: the reference's options that have no effect on the port: accepted, so
+#: that one config row feeds either backend, and dropped (``impl``: there is
+#: one route a device; ``bucket_tile``: the port keeps bucket CSRs, not
+#: tiles; ``data_axis``/``iter_axis``: a mesh's axes are fixed; the
+#: compaction knobs on the distributed backend, where compaction is not
+#: ported); ``block_size`` must be 128
 _OTHER_OPTS = frozenset(
-    {"root", "block_size", "bucket_tile", "num_shards", "mode", "group_factor", "impl",
-     "fuse", "mesh", "data_axis", "iter_axis", "n_colors", "wire_dtype", "adaptive"}
+    {"block_size", "bucket_tile", "impl", "data_axis", "iter_axis", "density_threshold",
+     "capacity_factor", "probes"}
 )
+#: what :meth:`Counter.with_options` may swap (the reference's set)
+_WITH_OPTS = frozenset({"mode", "group_factor", "impl", "fuse", "iter_axis", "bucket_tile",
+                        "wire_dtype", "adaptive"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,12 +261,34 @@ def _resolve_checkpointing(checkpoint, resume):
     return mgr, state
 
 
-def _resolve_backend(backend: str) -> str:
-    if backend == "distributed":
-        raise NotImplementedError(f"backend='distributed': {_TODO['distributed']}")
-    if backend not in ("auto", "single"):
+def _resolve_backend(backend: str, plan_opts: Mapping[str, Any]) -> str:
+    if backend == "auto":
+        mesh = plan_opts.get("mesh")
+        return "distributed" if mesh is not None and mesh.data_size > 1 else "single"
+    if backend not in ("single", "distributed"):
         raise ValueError(f"unknown backend {backend!r}")
-    return "single"
+    return backend
+
+
+class _ReadOnlyCheckpoint:
+    """A checkpoint manager that restores but never writes: every rank of a
+    ``torch.distributed`` world resumes from the same directory, and rank
+    0 alone writes it."""
+
+    def __init__(self, mgr: CheckpointManager):
+        self._mgr = mgr
+
+    def load_latest(self, *args, **kwargs):
+        return self._mgr.load_latest(*args, **kwargs)
+
+    def save(self, *args, **kwargs):
+        return None
+
+
+def _writes_checkpoints() -> bool:
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class Counter:
@@ -265,6 +315,10 @@ class Counter:
         self.plan_opts = plan_opts
         self._plan = None
         self._sample_fn = None
+        self._coloring_state: Dict[str, Any] = {}  # distributed: fixed-coloring count fn
+        self._mesh = None
+        self._plan_kw: Dict[str, Any] = {}
+        self._fn_kw: Dict[str, Any] = {}
         self._families: Dict[tuple, Dict[str, Any]] = {}
 
     # ------------------------------------------------------------- builders
@@ -280,21 +334,22 @@ class Counter:
         """Build a counter for ``template`` (a registered name, a Tree or a
         treewidth-2 Template) over ``graph``.
 
-        ``plan_opts`` may mix options of both backends; keys the single
+        ``plan_opts`` may mix options of both backends; keys the resolved
         backend does not read are dropped, keys unknown to both raise.
-        ``device`` (default ``cuda``) picks where the plan lives.  Block
-        patches are the kernel's 128x128 tile, so the reference's
-        ``block_size`` takes no other value.
+        ``device`` (default ``cuda``) picks where the plan (and a default
+        mesh) lives.  Block patches are the kernel's 128x128 tile, so the
+        reference's ``block_size`` takes no other value.
         """
-        unknown = set(plan_opts) - (_SINGLE_OPTS | _OTHER_OPTS)
+        unknown = set(plan_opts) - (_SINGLE_OPTS | _DIST_OPTS | _OTHER_OPTS)
         if unknown:
             raise TypeError(f"unknown plan_opts: {sorted(unknown)}")
         tree = resolve_template(template) if isinstance(template, str) else template
-        resolved = _resolve_backend(backend)
+        resolved = _resolve_backend(backend, plan_opts)
         if plan_opts.get("block_size", ROW_BLOCK) != ROW_BLOCK:
             raise ValueError(f"block patches are {ROW_BLOCK}x{ROW_BLOCK}; "
                              f"got block_size={plan_opts['block_size']}")
-        opts = {k: v for k, v in plan_opts.items() if k in _SINGLE_OPTS}
+        keep = _SINGLE_OPTS if resolved == "single" else _DIST_OPTS
+        opts = {k: v for k, v in plan_opts.items() if k in keep}
         return cls(graph, tree, resolved, opts)
 
     @classmethod
@@ -302,16 +357,78 @@ class Counter:
         return cls.from_graph(request.graph, request.template, backend=request.backend,
                               **dict(request.plan_opts))
 
+    def with_options(self, **overrides: Any) -> "Counter":
+        """A new Counter sharing this one's plan and mesh, with other
+        execution options (distributed backend only): ``mode``,
+        ``group_factor``, ``fuse``, ``adaptive``, ``wire_dtype``, so that
+        comparing the four exchange modes costs one plan build.  The
+        reference's ``impl``, ``iter_axis`` and ``bucket_tile`` are taken
+        and have no effect (the port has one route a device, a mesh's own
+        axes and bucket CSRs, not tiles)."""
+        if self.backend != "distributed":
+            raise ValueError(f"with_options is for the distributed backend; this Counter uses "
+                             f"the {self.backend!r} backend")
+        bad = set(overrides) - _WITH_OPTS
+        if bad:
+            raise TypeError(f"with_options on the distributed backend only swaps "
+                            f"{sorted(_WITH_OPTS)}; got {sorted(bad)}")
+        plan = self.plan  # built here once, shared
+        fn_over = {k: v for k, v in overrides.items() if k in _DIST_FN_OPTS}
+        clone = Counter(self.graph, self.tree, self.backend, {**self.plan_opts, **fn_over})
+        clone._plan, clone._mesh, clone._plan_kw = plan, self._mesh, self._plan_kw
+        clone._fn_kw = {**self._fn_kw, **fn_over}
+        return clone
+
     # ------------------------------------------------------------- plumbing
     @property
     def k(self) -> int:
         return self.tree.n
 
+    def _dist_ctx(self) -> None:
+        """Resolve the mesh and split the options, once: shared by the
+        single-template plan and the family plans."""
+        if self._mesh is not None:
+            return
+        from .comm import LocalMesh
+        from .launch.mesh import process_mesh
+
+        opts = dict(self.plan_opts)
+        mesh = opts.pop("mesh", None)
+        num_shards = opts.pop("num_shards", None)
+        device = opts.pop("device", None)
+        if mesh is None:
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+                mesh = process_mesh(device=device)
+            else:
+                mesh = LocalMesh(num_shards or 1, device=device)
+        elif num_shards and mesh.data_size != num_shards:
+            raise ValueError(f"num_shards={num_shards} does not match the mesh's "
+                             f"{mesh.data_size} data ranks")
+        self._plan_kw = {k: v for k, v in opts.items() if k in _DIST_PLAN_OPTS}
+        self._fn_kw = {k: v for k, v in opts.items() if k in _DIST_FN_OPTS}
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        """The distributed backend's mesh (resolved on first use)."""
+        self._dist_ctx()
+        return self._mesh
+
     @property
     def plan(self):
-        """The lazily built :class:`~.core.count_engine.CountingPlan`."""
+        """The lazily built plan: a :class:`~.core.count_engine.CountingPlan`
+        or, distributed, a :class:`~.core.distributed.DistributedPlan`."""
         if self._plan is None:
-            self._plan = build_counting_plan(self.graph, self.tree, **self.plan_opts)
+            if self.backend == "single":
+                self._plan = build_counting_plan(self.graph, self.tree, **self.plan_opts)
+            else:
+                from .core.distributed import build_distributed_plan
+
+                self._dist_ctx()
+                self._plan = build_distributed_plan(self.graph, self.tree, self._mesh.data_size,
+                                                    device=self._mesh.device, **self._plan_kw)
         return self._plan
 
     @property
@@ -322,8 +439,30 @@ class Counter:
         outside the measurement.
         """
         if self._sample_fn is None:
-            self._sample_fn = plan_sample_fn(self.plan)
+            if self.backend == "single":
+                self._sample_fn = plan_sample_fn(self.plan)
+            else:
+                from .core.distributed import keyed_sample_fn
+
+                self._sample_fn = keyed_sample_fn(self.plan, self._mesh, **self._fn_kw)
         return self._sample_fn
+
+    def _checkpoint(self, checkpoint, resume):
+        mgr, state = _resolve_checkpointing(checkpoint, resume)
+        if mgr is not None and not _writes_checkpoints():
+            mgr = _ReadOnlyCheckpoint(mgr)
+        return mgr, state
+
+    def _distributed_coloring(self, st: Dict[str, Any], plan, coloring: np.ndarray):
+        """A fixed coloring through the distributed count function, laid out
+        by shard and repeated over the mesh's iteration ranks."""
+        from .core.distributed import make_count_fn, shard_coloring
+
+        if st.get("coloring_fn") is None:
+            st["coloring_fn"] = make_count_fn(plan, self._mesh, **self._fn_kw)
+        cols = np.broadcast_to(shard_coloring(plan, coloring)[None],
+                               (self._mesh.iter_size, plan.num_shards, plan.n_loc_pad))
+        return st["coloring_fn"](cols)[0]
 
     @property
     def scale(self) -> float:
@@ -383,7 +522,7 @@ class Counter:
             key = prng.key(0)
         b = batch or min(8, n_iter)
         sample = self.sample_fn  # builds the plan
-        mgr, state = _resolve_checkpointing(checkpoint, resume)
+        mgr, state = self._checkpoint(checkpoint, resume)
         t0 = time.perf_counter()
         est = estimate_counts(
             sample,
@@ -427,6 +566,8 @@ class Counter:
         if coloring.shape[0] != self.graph.n:
             raise ValueError(f"coloring has {coloring.shape[0]} entries, "
                              f"graph has {self.graph.n} vertices")
+        if self.backend == "distributed":
+            return float(self._distributed_coloring(self._coloring_state, self.plan, coloring))
         maps, ok = colorful_map_count_checked(self.plan, coloring)
         if not bool(ok):  # a capacity overflowed: the dense program
             maps = colorful_map_count(self.plan, coloring)
@@ -441,9 +582,19 @@ class Counter:
             raise ValueError("estimate_many needs at least one template")
         st = self._families.get(trees)
         if st is None:
-            keep = {k: v for k, v in self.plan_opts.items() if k != "root"}
-            plan = build_multi_counting_plan(self.graph, trees, **keep)
-            st = self._families[trees] = {"plan": plan, "sample_fn": multi_sample_fn(plan)}
+            if self.backend == "single":
+                keep = {k: v for k, v in self.plan_opts.items() if k != "root"}
+                plan = build_multi_counting_plan(self.graph, trees, **keep)
+                sample_fn = multi_sample_fn(plan)
+            else:
+                from .core.distributed import build_distributed_plan, keyed_sample_fn
+
+                self._dist_ctx()
+                keep = {k: v for k, v in self._plan_kw.items() if k != "root"}
+                plan = build_distributed_plan(self.graph, trees, self._mesh.data_size,
+                                              device=self._mesh.device, **keep)
+                sample_fn = keyed_sample_fn(plan, self._mesh, **self._fn_kw)
+            st = self._families[trees] = {"plan": plan, "sample_fn": sample_fn}
         return st
 
     def estimate_many(
@@ -487,7 +638,8 @@ class Counter:
         b = batch or min(8, n_iter)
         chain_tables = sum(len(template_program(t).nodes) for t in plan.templates)
         names = tuple(t.name or f"tree{i}" for i, t in enumerate(plan.templates))
-        mgr, state = _resolve_checkpointing(checkpoint, resume)
+        dag = plan.dag if self.backend == "single" else plan.program
+        mgr, state = self._checkpoint(checkpoint, resume)
         t0 = time.perf_counter()
         est = estimate_counts_many(
             st["sample_fn"],
@@ -513,7 +665,7 @@ class Counter:
             backend=self.backend,
             graph=self.graph.name,
             k=plan.k,
-            unique_tables=len(plan.dag.nodes),
+            unique_tables=len(dag.nodes),
             chain_tables=chain_tables,
             delta=delta,
             eps=eps,
@@ -527,11 +679,14 @@ class Counter:
         drawn from the family's shared ``k`` colors: float64
         ``[num_templates]``; multiply by the family plan's ``scales`` for
         copy estimates."""
-        plan = self._family(templates)["plan"]
+        st = self._family(templates)
+        plan = st["plan"]
         coloring = np.asarray(coloring, np.int32).reshape(-1)
         if coloring.shape[0] != self.graph.n:
             raise ValueError(f"coloring has {coloring.shape[0]} entries, "
                              f"graph has {self.graph.n} vertices")
+        if self.backend == "distributed":
+            return self._distributed_coloring(st, plan, coloring).numpy()
         maps, ok = colorful_map_count_many_checked(plan, coloring)
         if not bool(ok):  # a capacity overflowed: the dense program
             maps = colorful_map_count_many(plan, coloring)

@@ -108,8 +108,8 @@ class CompactionSpec:
     All capacities are per coloring, sized from the probe; a node absent
     from a ``*_caps`` mapping runs dense.  ``density`` and
     ``gather_density`` keep the probe's measurements for reports.  The
-    reference's exchange and shard capacities come with the distributed
-    engine (ROADMAP queue 1 item 7).
+    reference's exchange and shard capacities come with the compacted
+    exchange of the distributed engine (ROADMAP queue 1 item 7).
     """
 
     threshold: float

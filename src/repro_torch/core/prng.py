@@ -29,7 +29,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["key", "PRNGKey", "key_data", "fold_in", "split", "randint", "threefry_2x32"]
+__all__ = ["key", "PRNGKey", "key_data", "fold_in", "split", "randint", "randint_keys",
+           "threefry_2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -108,6 +109,23 @@ def _random_bits32(k: Key, shape: Sequence[int], device) -> torch.Tensor:
     return a ^ b
 
 
+def _check_span(minval: int, maxval: int) -> None:
+    if not 0 < maxval - minval < 1 << 31:
+        raise ValueError(f"randint needs 0 < maxval - minval < 2^31; got [{minval}, {maxval})")
+
+
+def _randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, minval: int, maxval: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Fold two 32-bit draws into ``[minval, maxval)`` with the reference's
+    double-width remainder."""
+    span = maxval - minval
+    multiplier = ((1 << 16) % span) ** 2 % span
+    # uint32 arithmetic with wrap-around, as the reference computes it
+    offset = ((((higher % span) * multiplier) & _MASK) + lower % span) & _MASK
+    offset = offset % span
+    return (offset + minval).to(dtype)
+
+
 def randint(
     k: Key,
     shape: Sequence[int],
@@ -123,14 +141,36 @@ def randint(
     modulo bias when the span is not a power of two), computed in int64 on
     ``device`` and returned as ``dtype``.
     """
-    if not 0 < maxval - minval < 1 << 31:
-        raise ValueError(f"randint needs 0 < maxval - minval < 2^31; got [{minval}, {maxval})")
+    _check_span(minval, maxval)
     k_hi, k_lo = split(k)
     higher = _random_bits32(k_hi, shape, device)
     lower = _random_bits32(k_lo, shape, device)
-    span = maxval - minval
-    multiplier = ((1 << 16) % span) ** 2 % span
-    # uint32 arithmetic with wrap-around, as the reference computes it
-    offset = ((((higher % span) * multiplier) & _MASK) + lower % span) & _MASK
-    offset = offset % span
-    return (offset + minval).to(dtype)
+    return _randint_from_bits(higher, lower, minval, maxval, dtype)
+
+
+def randint_keys(
+    keys: torch.Tensor,
+    shape: Sequence[int],
+    minval: int,
+    maxval: int,
+    *,
+    dtype: torch.dtype = torch.int32,
+    device: Optional[Union[str, torch.device]] = None,
+) -> torch.Tensor:
+    """``randint`` of each key of ``keys`` (``[K, 2]``, as :func:`split`
+    returns them) at once: ``[K, *shape]``, row ``i`` bit for bit
+    ``randint(keys[i], shape, ...)``, in one pass of tensor ops instead of K."""
+    _check_span(minval, maxval)
+    kd = torch.as_tensor(keys).reshape(-1, 2).to(device=device, dtype=torch.int64)
+    lead = (-1,) + (1,) * len(tuple(shape))
+    # split(key, 2): the counters (0, 0) and (0, 1)
+    zero = torch.zeros(2, dtype=torch.int64, device=kd.device)
+    a, b = threefry_2x32(kd[:, :1], kd[:, 1:], zero, torch.arange(2, device=kd.device))
+    hi, lo = _iota_2x32(shape, kd.device)
+
+    def bits(w1, w2):
+        x, y = threefry_2x32(w1.reshape(lead), w2.reshape(lead), hi, lo)
+        return x ^ y
+
+    return _randint_from_bits(bits(a[:, 0], b[:, 0]), bits(a[:, 1], b[:, 1]), minval, maxval,
+                              dtype)

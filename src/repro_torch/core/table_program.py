@@ -22,8 +22,9 @@ are zeroed in place, which costs no copy of a multi-gigabyte table.  A
 compacted plan threads active-row frontiers (:mod:`.frontier`) through
 the program: each ``combine`` table's frontier is computed once, freed with
 the table and handed to every reader as ``f_left``/``f_right``.  The
-distributed-exchange strategy of the reference waits for its slice
-(ROADMAP queue 1 item 7).
+distributed engine (:mod:`.distributed`) runs this executor per shard with
+its exchange strategy as ``node_fn``; its compacted exchange, which would
+thread frontiers through the wire, is ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations

@@ -17,11 +17,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
-__all__ = ["KERNELS", "build", "kernel_fn", "check", "sass"]
+__all__ = ["KERNELS", "build", "kernel_fn", "check", "count_launch", "sass"]
 
 #: one shared library per source file
 KERNELS = ("spmm_edgetile", "spmm_block", "color_combine", "fused_count", "flash_attention",
@@ -31,6 +32,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 _ARCH = "arch=compute_90a,code=sm_90a"
 _libs: Dict[str, ctypes.CDLL] = {}
+#: guards first builds and the launch counts: the distributed engine's
+#: LocalMesh ranks are threads that launch the same kernels
+_lock = threading.RLock()
 
 
 def _tool(name: str, env: str = "") -> Optional[str]:
@@ -103,10 +107,13 @@ def build(names: Iterable[str] = KERNELS, *, verbose: bool = False) -> Dict[str,
 def _lib(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = _libs[name] = ctypes.CDLL(str(path))
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                path = _lib_path(name)
+                if not path.exists():
+                    build([name])
+                lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
 
 
@@ -120,6 +127,15 @@ def kernel_fn(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def count_launch(fn, *attrs: str) -> None:
+    """Add one to each launch count ``attrs`` of wrapper ``fn`` (default
+    ``launches``), under a lock: a bare ``+= 1`` from two threads can lose
+    one."""
+    with _lock:
+        for attr in attrs or ("launches",):
+            setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check(err: int, what: str) -> None:

@@ -253,7 +253,7 @@ def color_combine(left: torch.Tensor, m: torch.Tensor, tables) -> torch.Tensor:
                  n * b, a, tables.w, tables.s, tables.j, tables.jp, tile.rows, tile.chunk,
                  tile.columns, stream)
     _build.check(err, "color_combine_launch")
-    color_combine.launches += 1
+    _build.count_launch(color_combine)
     return out
 
 

@@ -103,7 +103,7 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
                  tables.jp, tile.vertices, tile.colorings, tile.chunk, tile.columns, tile.per_sm,
                  int(vec), stream)
     _build.check(err, "fused_count_launch")
-    fused_count.launches += 1
+    _build.count_launch(fused_count)
     return out
 
 

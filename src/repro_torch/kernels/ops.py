@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,12 @@ __all__ = [
     "color_combine",
     "fused_count",
     "fused_count_compact",
+    "RectCsr",
+    "build_rect_csr",
+    "BucketCsrs",
+    "build_bucket_csrs",
+    "spmm_rect",
+    "fused_count_rect",
     "flash_attention",
 ]
 
@@ -303,6 +309,97 @@ def fused_count_compact(plan: SpmmPlan, left: torch.Tensor, right_c: torch.Tenso
     bitwise the dense fused count.  ``left`` is ``[n_pad, B, A]``; returns
     ``[n_pad, B, S]``."""
     return fused_count(plan.indptr, _remap(plan, inv), left, right_c, tables)
+
+
+@dataclasses.dataclass(frozen=True)
+class RectCsr:
+    """A CSR of ``rows`` destination rows whose columns index a source of
+    another shape: the distributed engine's shard over the received
+    ``[P r_pad, B, W]`` buffer (the counterpart of the reference's
+    ``spmm_slabs`` layout, ``ops.py:419``, without its padded slabs).
+    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32 in destination order."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.indptr.numel() - 1
+
+    def to(self, device) -> "RectCsr":
+        return RectCsr(self.indptr.to(device), self.indices.to(device))
+
+
+def build_rect_csr(dst: np.ndarray, cols: np.ndarray, rows: int) -> RectCsr:
+    """A :class:`RectCsr` on the host from destination-sorted ``dst`` and
+    their source ``cols``."""
+    dst = np.asarray(dst, np.int64)
+    if len(dst) and np.any(np.diff(dst) < 0):
+        raise ValueError("destination rows must be nondecreasing (CSR order)")
+    indptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=rows), out=indptr[1:])
+    return RectCsr(torch.from_numpy(indptr),
+                   torch.from_numpy(np.ascontiguousarray(cols, np.int32)))
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketCsrs:
+    """One CSR per source bucket over the same ``rows`` destination rows,
+    sharing one edge array: ``indptr[q]`` (int64 ``[rows + 1]``, a row of
+    ``[Q, rows + 1]``) holds bucket ``q``'s absolute offsets into the
+    bucket-major edge list, and each of ``indices`` (int32) is one view of
+    those edges' sources (the distributed engine keeps two: request slots
+    and shard-local rows).  The counterpart of the reference's tiled
+    buckets (``ops.build_bucket_tiles``, ``ops.py:176``): storage is
+    ``O(E + Q rows)``, and a bucket is consumed by one kernel launch over
+    its CSR, not a loop over fixed-size tiles."""
+
+    indptr: torch.Tensor
+    indices: Tuple[torch.Tensor, ...]
+
+    def csr(self, q: int, view: int = 0) -> RectCsr:
+        return RectCsr(self.indptr[q], self.indices[view])
+
+    def to(self, device) -> "BucketCsrs":
+        return BucketCsrs(self.indptr.to(device), tuple(t.to(device) for t in self.indices))
+
+
+def build_bucket_csrs(bucket: np.ndarray, dst: np.ndarray, srcs: Tuple[np.ndarray, ...],
+                      num_buckets: int, rows: int) -> BucketCsrs:
+    """Per-bucket CSRs of a bucketed edge list, on the host.
+
+    ``bucket`` must be nondecreasing and ``dst`` nondecreasing within each
+    bucket (a stable sort by bucket of a destination-sorted list); ``srcs``
+    are parallel per-edge source indices."""
+    bucket = np.asarray(bucket, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if len(bucket) and np.any(np.diff(bucket) < 0):
+        raise ValueError("edges must be sorted by bucket")
+    counts = np.bincount(bucket * rows + dst, minlength=num_buckets * rows)
+    indptr = np.zeros(num_buckets * rows + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    # bucket q's rows are entries q*rows .. (q+1)*rows: overlapping windows
+    # of one cumulative sum, so each row of [Q, rows + 1] is absolute
+    idx = np.arange(num_buckets)[:, None] * rows + np.arange(rows + 1)[None, :]
+    return BucketCsrs(torch.from_numpy(indptr[idx]),
+                      tuple(torch.from_numpy(np.ascontiguousarray(s, np.int32)) for s in srcs))
+
+
+def spmm_rect(csr: RectCsr, source: torch.Tensor) -> torch.Tensor:
+    """``out[v] = sum_{e in row v} source[indices[e]]`` over a rectangular
+    CSR: ``source`` ``[C, B, W]`` -> ``[rows, B, W]`` through the edge
+    kernel, which adds each row's terms in CSR order (rows without edges
+    come out zero)."""
+    return spmm_edge_tile(csr.indptr, csr.indices, source)
+
+
+def fused_count_rect(csr: RectCsr, left: torch.Tensor, source: torch.Tensor,
+                     tables: "CombineTables") -> torch.Tensor:
+    """The fused count over a rectangular CSR (the counterpart of the
+    reference's ``fused_count_slabs``, ``ops.py:665``): ``left`` ``[rows, B,
+    A]`` contracted with the neighbor sum of ``source`` ``[C, B, W]``, which
+    never exists whole; returns ``[rows, B, S]``."""
+    return fused_count(csr.indptr, csr.indices, left, source, tables)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -115,7 +115,7 @@ def spmm_block(plan, table: torch.Tensor) -> torch.Tensor:
                  out.data_ptr(), n_row_blocks, width, plan.patch_max_used,
                  plan.patch_max_slots, int(vec), stream)
     _build.check(err, "spmm_block_launch")
-    spmm_block.launches += 1
+    _build.count_launch(spmm_block)
     return out
 
 

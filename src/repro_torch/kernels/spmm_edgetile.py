@@ -81,7 +81,7 @@ def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Ten
         err = fn(indptr.data_ptr(), indices.data_ptr(), table.data_ptr(), out.data_ptr(),
                  rows, width, int(vec), stream)
     _build.check(err, "spmm_edgetile_launch")
-    spmm_edge_tile.launches += 1
+    _build.count_launch(spmm_edge_tile)
     return out
 
 

@@ -1,9 +1,18 @@
-"""Subgraph-counting launcher for the PyTorch port: one device.
+"""Subgraph-counting launcher for the PyTorch port.
 
 ``python -m repro_torch.launch.count --config bench-small --mode single
 [--templates A,B,C] [--fuse] [--spmm-kind auto|edges|blocks] [--compact
 --density-threshold T --capacity-factor F --probes P] --iters N --batch B
 --seed S [--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
+
+``--mode alltoall|pipeline|adaptive|ring [--group-factor G] [--adaptive
+model|measured] [--shards P]`` runs the distributed exchange engine
+instead: a ``LocalMesh`` of P thread ranks on the device, or, started by
+``torchrun`` (``WORLD_SIZE`` > 1), one rank a process over the world (NCCL
+on ``cuda``, gloo with ``--device cpu``), and prints the per-node routes
+and their modeled costs before the estimate.  Its colorings are drawn from
+the iteration keys whatever the shard count, so ``--shards 2`` and
+``--shards 4`` print identical estimates.
 
 Synthesizes the configured R-MAT graph (or loads ``--graph``), resolves the
 config row into a ``CountRequest`` and runs it through the ``Counter``
@@ -26,6 +35,7 @@ an error naming the ROADMAP item that ports them.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -36,11 +46,6 @@ from ..core import prng
 from ..core.estimator import num_groups_for
 from ..core.graphs import load_edge_file, load_npz
 from ..core.templates import TEMPLATES
-
-_TODO = {
-    "mode": "the distributed exchange modes are ROADMAP queue 1 item 7",
-}
-
 
 def _plan_report(plan):
     """The density signals the plan's choices used: the spmm auto patch
@@ -60,6 +65,25 @@ def _plan_report(plan):
             caps[f"{tag}[{i}]"] = c
     print(f"compaction: threshold {spec.threshold} node densities: {dens}")
     print(f"compaction caps: {caps if caps else 'none engaged'}")
+
+
+def _route_report(counter, request):
+    """The exchange routes of each node and the cost model behind them
+    (calibrated under ``--adaptive measured``)."""
+    from ..core.distributed import plan_route_report
+
+    opts = request.plan_opts
+    rep = plan_route_report(counter.plan, mode=opts.get("mode", "adaptive"),
+                            group_factor=opts.get("group_factor", 1),
+                            wire_dtype=opts.get("wire_dtype", "float32"),
+                            adaptive=opts.get("adaptive", "model"), mesh=counter.mesh)
+    m = rep["model"]
+    src = "calibrated" if rep["calibrated"] else "assumed"
+    print(f"routing: wire={rep['wire_dtype']} {src} model alpha={m['alpha']:.3g}s "
+          f"beta={m['beta']:.3g}s/B flops={m['flops_per_s']:.3g}/s")
+    for i, row in sorted(rep["per_node"].items()):
+        print(f"  node {i}: {row['mode']:<8} a2a {row['a2a_bytes'] / 1e6:.3f} MB "
+              f"ring {row['ring_bytes'] / 1e6:.3f} MB predicted {row['predicted_s'] * 1e6:.1f} us")
 
 
 def _robust_report(res):
@@ -126,14 +150,25 @@ def main(argv=None):
     ap.add_argument("--target-rsd", type=float, default=None,
                     help="stop early once the running relative standard error of the "
                          "mean reaches this (resume-aware)")
+    ap.add_argument("--group-factor", type=int, default=1,
+                    help="distributed pipeline: shifts a step (W = ceil((P-1)/G) steps)")
+    ap.add_argument("--adaptive", default=None, choices=["model", "measured"],
+                    help="the adaptive router's cost model: the assumed link constants, or "
+                         "one calibration probe on the mesh")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="distributed modes: graph shards, a LocalMesh of that many thread "
+                         "ranks on the device (default: the config row's; under torchrun the "
+                         "world size)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.mode != "single":
-        ap.error(f"--mode {args.mode}: {_TODO['mode']}; this port runs --mode single")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1 (got {args.batch})")
     ccfg = COUNTING_CONFIGS[args.config]
+    single = args.mode == "single"
+    if not single and (args.compact or (args.compact is None and ccfg.compact)):
+        ap.error(f"--mode {args.mode} with compaction: the compacted exchange is ROADMAP "
+                 f"queue 1 item 7")
     family = list(ccfg.templates)
     if args.templates:
         # fail fast, before any graph is synthesized or plan built: unknown
@@ -171,14 +206,25 @@ def main(argv=None):
                                              ("density_threshold", args.density_threshold),
                                              ("capacity_factor", args.capacity_factor),
                                              ("probes", args.probes)) if val is not None}
-    request = ccfg.to_request(g, backend="single", n_iter=args.iters, delta=args.delta,
-                              batch=args.batch, spmm_kind=spmm_kind, fuse=args.fuse,
-                              device=args.device, **overrides)
+    if single:
+        request = ccfg.to_request(g, backend="single", n_iter=args.iters, delta=args.delta,
+                                  batch=args.batch, spmm_kind=spmm_kind, fuse=args.fuse,
+                                  device=args.device, **overrides)
+    else:
+        dist_opts = _mesh_opts(args, ccfg)
+        if args.adaptive is not None:
+            dist_opts["adaptive"] = args.adaptive
+        request = ccfg.to_request(g, backend="distributed", n_iter=args.iters,
+                                  delta=args.delta, batch=args.batch, mode=args.mode,
+                                  group_factor=args.group_factor, fuse=args.fuse,
+                                  **dist_opts, **overrides)
     counter = Counter.from_request(request)
     key = prng.key(args.seed)
     ran = -(-args.iters // args.batch) * args.batch
     if family:
         return _run_family(counter, request, family, key, ran, robust_kw, args)
+    if not single:
+        return _run_distributed(counter, request, key, ran, robust_kw, args)
     plan = counter.plan
     _plan_report(plan)
     if plan.device.type == "cuda":
@@ -196,6 +242,36 @@ def main(argv=None):
     return res
 
 
+def _mesh_opts(args, ccfg) -> dict:
+    """The distributed backend's mesh: the torchrun world, or a LocalMesh of
+    ``--shards`` ranks (default the config row's) on the device."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .mesh import init_process_group, process_mesh
+
+        dev = init_process_group(args.device)
+        mesh = process_mesh(device=dev)
+        return {"mesh": mesh, "num_shards": mesh.data_size, "device": dev}
+    return {"num_shards": args.shards or ccfg.num_shards, "device": args.device}
+
+
+def _run_distributed(counter, request, key, ran, robust_kw, args):
+    plan = counter.plan
+    mesh = counter.mesh
+    _route_report(counter, request)
+    if mesh.device.type == "cuda":
+        print(f"device: {torch.cuda.get_device_name(mesh.device)}")
+    label = (f"{request.plan_opts['mode']}(batch={args.batch},fuse={args.fuse},"
+             f"g={args.group_factor},mesh={mesh.data_size}x{mesh.iter_size})")
+    counter.sample_fn(key, args.batch)  # build and load kernels outside the timer
+    t0 = time.perf_counter()
+    res = counter.estimate(n_iter=request.n_iter, delta=request.delta, key=key,
+                           batch=request.batch, **robust_kw)
+    dt = time.perf_counter() - t0
+    _robust_report(res)
+    _report(label, plan.num_shards, res, dt, ran)
+    return res
+
+
 def _run_family(counter, request, family, key, ran, robust_kw, args):
     """One shared-DAG pass per batch counts the whole family; the
     single-template plan is never built."""
@@ -206,7 +282,8 @@ def _run_family(counter, request, family, key, ran, robust_kw, args):
                                 batch=request.batch, **robust_kw)
     dt = time.perf_counter() - t0
     _robust_report(res)
-    print(f"mode=single(batch={args.batch},fuse={args.fuse}) shards=1: family of {len(res)} "
+    shards = 1 if args.mode == "single" else counter.mesh.data_size
+    print(f"mode={args.mode}(batch={args.batch},fuse={args.fuse}) shards={shards}: family of {len(res)} "
           f"templates, k={res.k}, {res.unique_tables} unique tables (vs {res.chain_tables} "
           f"chain nodes), {ran} colorings in {dt:.2f}s ({dt / max(ran, 1) * 1e3:.1f} "
           f"ms/coloring)")

@@ -188,7 +188,7 @@ def test_launcher_fused_and_unfused_agree():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mode", "ring"], "item 7"),
+    (["--mode", "ring", "--compact"], "item 7"),
 ])
 def test_launcher_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit):

@@ -572,3 +572,44 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda_device):
                                       "caches": caches})
     want, _ = cpu.decode_fn(params, {"tokens": toks[:, 200:], "pos": 200, "caches": cpu_caches})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+DIST_MODES = [("alltoall", 1), ("pipeline", 1), ("pipeline", 3), ("adaptive", 1), ("ring", 1)]
+
+
+@pytest.mark.parametrize("name", ["u3-1", "u5-2", "cycle4"])
+def test_distributed_engine_on_the_card(cuda_device, name):
+    """Every mode x fuse on LocalMesh ranks sharing the card == brute force,
+    and the count reaches the kernels (their launch counts rise)."""
+    from repro_torch.comm import LocalMesh
+    from repro_torch.core.distributed import build_distributed_plan, make_count_fn, shard_coloring
+
+    g = erdos_renyi(97, 5.0, seed=7)
+    tree = template(name)
+    col = np.random.default_rng(3).integers(0, tree.n, g.n).astype(np.int32)
+    want = count_colorful_maps(g, tree, col)
+    before = spmm_edge_tile.launches + fused_count.launches
+    for P, I in ((4, 1), (8, 2)):
+        plan = build_distributed_plan(g, tree, P, device=cuda_device)
+        cols = np.broadcast_to(shard_coloring(plan, col)[None], (I, P, plan.n_loc_pad))
+        for mode, gf in DIST_MODES:
+            for fuse in (False, True):
+                f = make_count_fn(plan, LocalMesh(P, I, device=cuda_device), mode=mode,
+                                  group_factor=gf, fuse=fuse)
+                assert f(cols).tolist() == [want] * I, (P, I, mode, gf, fuse)
+    assert spmm_edge_tile.launches + fused_count.launches > before
+
+
+def test_distributed_counter_on_the_card(cuda_device):
+    """The keyed samples of the distributed Counter on the card equal the
+    CPU's, at another shard count (the stream ignores the shard count)."""
+    from repro_torch.api import Counter
+
+    g = erdos_renyi(200, 4.0, seed=1)
+    card = Counter.from_graph(g, "u5-2", backend="distributed", num_shards=4, mode="pipeline",
+                              device=cuda_device)
+    cpu = Counter.from_graph(g, "u5-2", backend="distributed", num_shards=2, mode="ring",
+                             device="cpu")
+    a = card.estimate(n_iter=8, key=prng.key(1), batch=4).samples
+    b = cpu.estimate(n_iter=8, key=prng.key(1), batch=4).samples
+    np.testing.assert_array_equal(a, b)

@@ -68,6 +68,16 @@ def test_slice_eight_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_NINE_MODULES = ["comm/__init__.py", "comm/group.py", "comm/ring.py", "comm/pipelined.py",
+                      "comm/adaptive.py", "launch/mesh.py", "core/distributed.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_NINE_MODULES)
+def test_slice_nine_modules_are_checked(module):
+    """The distributed slice's modules are among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -77,7 +87,10 @@ def test_engine_import_loads_no_jax():
         "repro_torch.configs.base, repro_torch.kernels.flash_attention, repro_torch.models, "
         "repro_torch.models.layers, repro_torch.models.attention, "
         "repro_torch.models.transformer, repro_torch.models.factory, "
-        "repro_torch.models.convert, repro_torch.testing.numerics, repro_torch.core.frontier; "
+        "repro_torch.models.convert, repro_torch.testing.numerics, repro_torch.core.frontier, "
+        "repro_torch.comm, repro_torch.comm.group, repro_torch.comm.ring, "
+        "repro_torch.comm.pipelined, repro_torch.comm.adaptive, repro_torch.launch.mesh, "
+        "repro_torch.core.distributed; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

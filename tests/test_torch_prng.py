@@ -52,6 +52,23 @@ def test_randint_after_fold_in_and_offset_range():
         prng.randint(key, (3,), 4, 4)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(97,), (2, 300)])
+def test_randint_keys(seed, shape):
+    """Many keys at once == each key's randint == jax.random.randint of each
+    split key (the distributed backend's keyed colorings)."""
+    keys = prng.split(prng.key(seed), 5)
+    jkeys = jax.random.split(jax.random.key(seed), 5)
+    got = prng.randint_keys(keys, shape, 0, 11)
+    assert got.shape == (5,) + shape and got.dtype == torch.int32
+    for i in range(5):
+        assert torch.equal(got[i], prng.randint(keys[i], shape, 0, 11))
+        np.testing.assert_array_equal(
+            got[i].numpy(), np.asarray(jax.random.randint(jkeys[i], shape, 0, 11, dtype=jnp.int32)))
+    with pytest.raises(ValueError):
+        prng.randint_keys(keys, shape, 2, 2)
+
+
 def test_threefry_known_answer():
     """Threefry-2x32's published test vector (Salmon et al., 20 rounds)."""
     x = prng.threefry_2x32(0x13198A2E, 0x03707344, torch.tensor([0x243F6A88]),

@@ -9,7 +9,8 @@ the checkpoint manager's corrupt-skip and crash-residue handling.  Every
 failure is injected deterministically through the port's own
 ``repro_torch.testing.faults``.  The compaction variant (resume under an
 overflow storm) is in ``test_torch_compaction.py``, the family one in
-``test_torch_family.py``; the distributed one waits for its slice.
+``test_torch_family.py``, the distributed one in
+``test_torch_distributed.py``.
 """
 
 import os
