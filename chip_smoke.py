@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
 the single-device tree-template estimate, family counting, treewidth-2 bag
 programs, active-frontier compaction, the distributed exchange engine on
-thread ranks sharing the card, and the granite-3-8b serving path (prefill,
+thread ranks sharing the card (dense, compacted and at narrow wires), and
+the granite-3-8b serving path (prefill,
 then decode), with every kernel of their paths built from this checkout
 and held against its plain PyTorch version.
 
@@ -136,7 +137,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              LocalMesh P = 4 (alpha, beta beside the card's name).  (d) the
              launcher: --config bench-small --mode adaptive at --shards 2
              and 4 print identical estimates, within the RSD of --mode
-             single.
+             single;
+13. compact — the compacted exchange and the narrow wire of the same
+             engine.  (a) exact: phase 12 (a)'s graphs and trees on LocalMesh
+             P = 4 (floors forced down, threshold 1.0), every mode x fuse x
+             wire (float32, int16, int8) x {dense, compact} == brute force on
+             its own rung; storms of compression.saturate and
+             compaction.overflow give the same counts.  (b) full width:
+             phase 11's two rows at 2^22 (u10-2), P = 4, B = 2, alltoall,
+             pipeline g1 and ring, unfused and fused, at float32 dense,
+             float32 compact and int16 compact, a warm then a timed call:
+             compact == dense and int16 == float32 bitwise, all within rtol
+             1e-5 of the single-device count; ms per coloring, peak bytes,
+             node_exchange_bytes per exchanged node, the spec and the rung
+             each call ended on; launches as the rungs predict (path
+             "distributed_compact"); the kernels against their plain
+             versions at the widest compacted node's shapes.  (c) phase 12
+             (b)'s u12-2 plan at alltoall, int16 against float32: the rung
+             reached and the time.  (d) NCCL at world size 1 (phase 12 (c)'s
+             world): int16 and int8 payloads as bytes, every narrow count
+             call == LocalMesh P = 1; the launcher's bench-sparse --mode
+             pipeline --shards 4 --compact --wire-dtype int16 prints the
+             estimates of --wire-dtype float32 with no node engaged.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -1856,16 +1878,16 @@ def _rect_tensor(csr, cols: int):
                                    (csr.rows, cols))
 
 
-def dist_kernel_rows(plan, dev):
-    """(b): at the node of DIST_CHECK_NODE, the edge and fused kernels on
-    shard 0's rectangular alltoall CSR and on its bucket CSR from shard 1,
-    and the combine on the shard's rows, == their plain versions on integer
-    tables (sums below 2^24), timed beside them, the library call and the
-    bound."""
+def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
+    """(b): at the node of shape ``node`` (A, W, S, J), the edge and fused
+    kernels on shard 0's rectangular alltoall CSR and on its bucket CSR from
+    shard 1, and the combine on the shard's rows, == their plain versions on
+    integer tables (sums below 2^24), timed beside them, the library call
+    and the bound."""
     import torch
     from repro_torch.kernels import ops, ref
 
-    i = next(i for i, t in plan.combine.items() if (t.a, t.w, t.s, t.j) == DIST_CHECK_NODE)
+    i = next(i for i, t in plan.combine.items() if (t.a, t.w, t.s, t.j) == node)
     tbl = plan.combine[i]
     arrays = plan.shard_arrays(0, dev)
     gen = torch.Generator(device=dev)
@@ -1890,7 +1912,7 @@ def dist_kernel_rows(plan, dev):
         lib_equal = torch.equal(torch.sparse.mm(lib, flat).reshape(got.shape), got)
         del got, want
         if err != 0 or not lib_equal:
-            raise AssertionError(f"phase 12 spmm_edgetile != plain on the {shape}: {err}, "
+            raise AssertionError(f"{phase} spmm_edgetile != plain on the {shape}: {err}, "
                                  f"library equal {lib_equal}")
         rows["spmm_edgetile"].append(dict(
             shape=shape, err=err, ms=cuda_ms(lambda: ops.spmm_rect(csr, src)),
@@ -1904,7 +1926,7 @@ def dist_kernel_rows(plan, dev):
         err = max_abs_err(got, want)
         del got, want
         if err != 0:
-            raise AssertionError(f"phase 12 fused_count != plain on the {shape}: {err}")
+            raise AssertionError(f"{phase} fused_count != plain on the {shape}: {err}")
         nb = (rows_n * (tbl.a + tbl.s) + src_rows * tbl.w) * b * 4 + csr_bytes
         rows["fused_count"].append(dict(
             shape=shape, err=err, ms=cuda_ms(lambda: ops.fused_count_rect(csr, left, src, tbl)),
@@ -1918,7 +1940,7 @@ def dist_kernel_rows(plan, dev):
     err = max_abs_err(got, ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2))
     del got
     if err != 0:
-        raise AssertionError(f"phase 12 color_combine != plain on the shard's rows: {err}")
+        raise AssertionError(f"{phase} color_combine != plain on the shard's rows: {err}")
     shape = f"shard rows={rows_n} A={tbl.a} W={tbl.w} S={tbl.s} J={tbl.j}"
     rows["color_combine"].append(dict(
         shape=shape, err=err, ms=cuda_ms(lambda: ops.color_combine(left, m, tbl)),
@@ -1929,7 +1951,7 @@ def dist_kernel_rows(plan, dev):
     del left, m
     for name, rs in rows.items():
         for r in rs:
-            log(f"phase 12 (b) {name} on the {r['shape']}: {r['ms']:.3f}ms (plain "
+            log(f"{phase} {name} on the {r['shape']}: {r['ms']:.3f}ms (plain "
                 f"{r['plain_ms']:.1f}, library {r['library_ms']}, bound {r['bound'][0]:.3f} "
                 f"{r['bound'][1]}) == plain")
     torch.cuda.empty_cache()
@@ -2038,11 +2060,10 @@ def dist_full(g, dev):
     log(f"phase 12 (b): launches {got_launches} as the plan predicts (warm, timed and profiled "
         f"calls); "
         f"single-device u12-2 {single_ms:.1f} ms/coloring")
-    del plan, mesh
     torch.cuda.empty_cache()
     return launches, rows, {"modes": results, "single_device_ms_per_coloring": single_ms,
                             "plan_seconds": plan_s, "shards": DIST_SHARDS,
-                            "batch": DIST_BATCH}
+                            "batch": DIST_BATCH}, (plan, mesh, cols, want)
 
 
 def _free_port() -> int:
@@ -2053,10 +2074,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dist_nccl(dev):
+def dist_nccl(dev, also=()):
     """(c): an NCCL group of world size 1 on the card (a TCPStore on
     localhost): every mode on (a)'s graphs == LocalMesh P = 1; then
-    calibrate on LocalMesh P = 4."""
+    calibrate on LocalMesh P = 4.  ``also``: checks of later phases that
+    need the same NCCL world, each called as ``check(mesh, local)`` inside
+    it, their results returned beside."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch.comm import LocalMesh, ProcessGroupComm, ProcessMesh, SoloGroup, calibrate
@@ -2089,6 +2112,7 @@ def dist_nccl(dev):
                 a = keyed_sample_fn(plan, mesh)(prng.key(3), 2)
                 if not np.array_equal(a, keyed_sample_fn(plan, local)(prng.key(3), 2)):
                     raise AssertionError("phase 12 (c) NCCL keyed samples != LocalMesh")
+        later = [check(mesh, local) for check in also]
     finally:
         dist.destroy_process_group()
     log(f"phase 12 (c): NCCL at world size 1, {checked} count calls == LocalMesh P=1")
@@ -2100,7 +2124,7 @@ def dist_nccl(dev):
     log(f"phase 12 (c) calibrate on LocalMesh P=4 ({cal['card']}): alpha {model.alpha:.3e} s, "
         f"beta {model.beta:.3e} s/B ({1 / model.beta / 1e9:.1f} GB/s), matmul "
         f"{model.flops_per_s:.3e} flop/s, in {cal['seconds']:.1f}s")
-    return {"nccl_count_calls": checked, "calibrate": cal}
+    return {"nccl_count_calls": checked, "calibrate": cal}, later
 
 
 def dist_launch():
@@ -2128,15 +2152,340 @@ def dist_launch():
 
 
 def phase_distributed(g, dev):
-    """Phase 12: (a)-(d); returns the path's launches, the kernel rows and a
-    summary."""
+    """Phase 12: (a)-(d), and phase 13 (c) on (b)'s plan and (d)'s NCCL
+    check in (c)'s world; returns the path's launches, the kernel rows, a
+    summary, and phase 13's (c) and (d) NCCL results."""
     t0 = time.perf_counter()
     exact = dist_exact(dev)
-    launches, rows, full = dist_full(g, dev)
-    nccl = dist_nccl(dev)
+    launches, rows, full, u12 = dist_full(g, dev)
+    saturation = compact_saturation(*u12)
+    del u12
+    nccl, (narrow_nccl,) = dist_nccl(dev, also=(compact_nccl,))
     launch = dist_launch()
-    log(f"phase 12 passed in {time.perf_counter() - t0:.1f}s")
-    return launches, rows, {"exact": exact, "full": full, "nccl": nccl, "launcher": launch}
+    log(f"phase 12 passed in {time.perf_counter() - t0:.1f}s (with phase 13 (c) and the NCCL "
+        f"part of (d))")
+    return launches, rows, {"exact": exact, "full": full, "nccl": nccl, "launcher": launch}, \
+        (saturation, narrow_nccl)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the compacted exchange and the narrow wire
+# ---------------------------------------------------------------------------
+
+WIRES = ("float32", "int16", "int8")
+#: the ladder a call climbs from its first rung (a compacted plan's, then a
+#: dense one's): the programs a call ran are its rungs from start to end
+LADDERS = (("int8 compact", "int16 compact", "float32 compact", "float32 dense"),
+           ("int8 dense", "int16 dense", "float32 dense"))
+#: (b): the modes run at full width (adaptive resolves to one of them per
+#: node; pipeline g3 differs from g1 in the shifts a step posts)
+COMPACT_MODES = (("alltoall", 1), ("pipeline", 1), ("ring", 1))
+#: (b): (wire, compacted) settings of each mode x fuse
+COMPACT_SETTINGS = (("float32", False), ("float32", True), ("int16", True))
+COMPACT_SHARDS = 4
+COMPACT_BATCH = 2
+
+
+def programs_run(first: str, last: str) -> int:
+    """How many programs a call ran, climbing from rung ``first`` to ``last``."""
+    ladder = next(lad for lad in LADDERS if first in lad)
+    return ladder.index(last) - ladder.index(first) + 1
+
+
+def compact_saturation(plan, mesh, cols, want):
+    """13 (c): u12-2 on the main cell's graph (phase 12 (b)'s plan and
+    colorings, P = 4, B = 2), alltoall at int16 against float32, a warm then
+    a timed call each: the rung reached, the time, counts == float32's."""
+    import torch
+    from repro_torch.core.distributed import make_count_fn
+
+    out, got_of = {}, {}
+    reset_launches()
+    want_launches = {"spmm_edgetile": 0, "color_combine": 0, "fused_count": 0}
+    for wire in ("float32", "int16"):
+        f = make_count_fn(plan, mesh, mode="alltoall", wire_dtype=wire)
+        f(cols)
+        warm = f.rung
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = f(cols)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = programs_run(f"{wire} dense", warm) + programs_run(f"{wire} dense", f.rung)
+        for k, v in _predicted_launches(plan, f.node_modes, False, ran).items():
+            want_launches[k] += v
+        got_of[wire] = got
+        out[wire] = {"ms_per_coloring": dt * 1e3 / got.shape[0], "rung": f.rung,
+                     "warm_rung": warm, "peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"phase 13 (c) u12-2 alltoall {wire}: {dt * 1e3 / got.shape[0]:.1f} ms/coloring, "
+            f"ended on {f.rung} (warm call {warm}), peak {out[wire]['peak_bytes']} bytes")
+    launches = read_launches()
+    if not torch.equal(got_of["int16"], got_of["float32"]):
+        raise AssertionError(f"phase 13 (c): int16 {got_of['int16'].tolist()} != float32 "
+                             f"{got_of['float32'].tolist()}")
+    rel = float(((got_of["float32"] - want).abs() / want.abs().clamp(min=1)).max())
+    if rel > DIST_RTOL or {k: launches[k] for k in want_launches} != want_launches:
+        raise AssertionError(f"phase 13 (c): rel {rel} to single; launches {launches}, "
+                             f"predicted {want_launches}")
+    out["int16_over_float32"] = out["int16"]["ms_per_coloring"] / out["float32"]["ms_per_coloring"]
+    log(f"phase 13 (c): int16 == float32 bitwise, {out['int16_over_float32']:.2f}x its time; "
+        f"launches {want_launches} as the rungs predict")
+    return out, launches
+
+
+def compact_nccl(mesh, local):
+    """13 (d), inside phase 12's NCCL world of size 1: int16 and int8
+    payloads through ``ProcessGroupComm`` as bitcast bytes == what was sent,
+    and every mode x fuse x narrow wire on dense and compacted plans ==
+    ``LocalMesh`` P = 1."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import build_distributed_plan, make_count_fn, shard_coloring
+    from repro_torch.core.graphs import erdos_renyi
+    from repro_torch.core.templates import path_tree, template
+
+    comm = mesh.data
+    for dt in (torch.int16, torch.int8):
+        x = torch.randint(-100, 100, (1, 37, 3), dtype=dt, device=mesh.device)
+        if not torch.equal(comm.all_to_all(x), x) or comm.all_to_all(x).dtype != dt:
+            raise AssertionError(f"phase 13 (d): NCCL all_to_all of {dt} changed the payload")
+    g = erdos_renyi(97, 5.0, seed=7)
+    checked = 0
+    for tree in (path_tree(4), template("u5-2")):
+        with floors_forced_down():
+            comp = build_distributed_plan(g, tree, 1, device=mesh.device, compact=True,
+                                          density_threshold=1.0)
+        col = np.random.default_rng(4).integers(0, comp.k, g.n).astype(np.int32)
+        cols = np.broadcast_to(shard_coloring(comp, col)[None], (2, 1, comp.n_loc_pad))
+        for plan in (dc.replace(comp, compaction=None), comp):
+            for mode, gf in DIST_MODES:
+                for fuse in (False, True):
+                    for wire in ("int16", "int8"):
+                        kw = dict(mode=mode, group_factor=gf, fuse=fuse, wire_dtype=wire)
+                        got = make_count_fn(plan, mesh, **kw)(cols)
+                        if got.tolist() != make_count_fn(plan, local, **kw)(cols).tolist():
+                            raise AssertionError(f"phase 13 (d) NCCL {tree.name} {kw}: {got}")
+                        checked += 1
+    log(f"phase 13 (d): NCCL int16 and int8 payloads as bytes; {checked} narrow count calls "
+        f"== LocalMesh P=1")
+    return {"nccl_narrow_count_calls": checked}
+
+
+def compact_exact(dev):
+    """13 (a): phase 12 (a)'s graphs and trees on LocalMesh P = 4, two
+    colorings, every mode x fuse x wire x {dense, compact} == brute force on
+    its own rung; storms of compression.saturate and compaction.overflow
+    give the same counts on the rungs they force."""
+    import dataclasses as dc
+
+    import numpy as np
+    from repro_torch.comm import LocalMesh
+    from repro_torch.core.brute_force import count_colorful_maps
+    from repro_torch.core.distributed import build_distributed_plan, make_count_fn, shard_coloring
+    from repro_torch.core.graphs import erdos_renyi, rmat
+    from repro_torch.core.templates import path_tree, spider_tree, template
+    from repro_torch.testing import faults
+
+    t0 = time.perf_counter()
+    mesh = LocalMesh(COMPACT_SHARDS, device=dev)
+    calls = 0
+    for g in (erdos_renyi(97, 5.0, seed=7), rmat(*DIST_EXACT_RMAT, skew=8, seed=2)):
+        for name, tree in (("p4", path_tree(4)), ("sp21", spider_tree([2, 1])),
+                           ("u5-2", template("u5-2"))):
+            rng = np.random.default_rng(13)
+            colorings = [rng.integers(0, tree.n, g.n).astype(np.int32) for _ in range(2)]
+            want = [count_colorful_maps(g, tree, c) for c in colorings]
+            with floors_forced_down():
+                comp = build_distributed_plan(g, tree, COMPACT_SHARDS, device=dev, compact=True,
+                                              density_threshold=1.0)
+            spec = comp.compaction
+            cols = np.stack([shard_coloring(comp, c) for c in colorings])
+            # u5-2 (root 0) reads no internal right child: its plan may engage nothing
+            engaged = "compact" if spec.enabled else "dense"
+            for plan, tag in ((dc.replace(comp, compaction=None), "dense"), (comp, engaged)):
+                for mode, gf in DIST_MODES:
+                    for fuse in (False, True):
+                        for wire in WIRES:
+                            f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse,
+                                              wire_dtype=wire)
+                            got = f(cols).tolist()
+                            calls += 1
+                            if got != want or f.rung != f"{wire} {tag}":
+                                raise AssertionError(
+                                    f"phase 13 (a) {g.name} {name} {tag} {_dist_label(mode, gf)} "
+                                    f"fuse={fuse} {wire}: {got} on {f.rung} != brute force {want}")
+            log(f"phase 13 (a) {g.name} {name}: {want}; caps exchange {dict(spec.exchange_caps)} "
+                f"ring {dict(spec.shard_caps)} combine {dict(spec.combine_caps)}; every mode x "
+                f"fuse x wire x {{dense, compact}} == brute force on its own rung")
+            if name != "p4":
+                continue
+            storms = {}
+            for site, wire, mode, at in (("compression.saturate", "int8", "pipeline", (0, 1)),
+                                         ("compaction.overflow", "float32", "alltoall", None)):
+                f = make_count_fn(comp, mesh, mode=mode, wire_dtype=wire)
+                with faults.active(faults.inject(site, at=at)) as fp:
+                    got = f(cols).tolist()
+                if got != want or not fp.fired:
+                    raise AssertionError(f"phase 13 (a) {site} storm: {got} on {f.rung}")
+                storms[site] = f.rung
+            log(f"phase 13 (a) {g.name} storms: {storms}, counts == brute force")
+    log(f"phase 13 (a): {calls} count calls exact in {time.perf_counter() - t0:.1f}s")
+    return {"count_calls": calls, "seconds": time.perf_counter() - t0}
+
+
+def compact_full(name: str, dev):
+    """13 (b): one sparse row at 2^22 vertices (phase 11's cut), u10-2 on
+    LocalMesh P = 4, B = 2: the compacted plan and its dense twin, every
+    mode of COMPACT_MODES x fuse x COMPACT_SETTINGS, a warm then a timed
+    call; compact == dense and narrow == float32 bitwise within a mode and
+    fuse, all within DIST_RTOL of the single-device count; launches as the
+    rungs predict.  Returns the launches, the kernel rows and a summary."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.comm import LocalMesh
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import build_counting_plan, colorful_map_count
+    from repro_torch.core.distributed import (build_distributed_plan, global_coloring,
+                                              make_count_fn, node_exchange_bytes, shard_coloring)
+    from repro_torch.core.templates import template
+
+    tag = f"phase 13 (b) {name}"
+    row = COUNTING_CONFIGS[name]
+    g = rmat_graph(*SPARSE_GRAPHS[name], skew=row.skew)
+    tree = template(row.template)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp = build_distributed_plan(g, tree, COMPACT_SHARDS, device=dev, compact=True,
+                                  density_threshold=row.density_threshold,
+                                  capacity_factor=row.capacity_factor)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    dense = dc.replace(comp, compaction=None)
+    spec = comp.compaction
+    if not spec.exchange_caps and not spec.shard_caps:
+        raise AssertionError(f"{tag}: no exchange or ring capacity engaged: {spec}")
+    exchanged = [i for i, nd in enumerate(comp.program.nodes) if nd.kind == "combine"]
+    wire_bytes = {f"{mode} {wire}": {str(i): node_exchange_bytes(comp, i, mode, wire)
+                                     for i in exchanged}
+                  for mode in ("alltoall", "ring") for wire in ("float32", "int16")}
+    log(f"{tag}: plan P={COMPACT_SHARDS} (with the probe) {plan_s:.2f}s, r_pad={comp.r_pad} "
+        f"n_loc_pad={comp.n_loc_pad}; densities "
+        f"{ {i: round(d, 4) for i, d in spec.density.items()} }, exchange caps "
+        f"{dict(spec.exchange_caps)}, ring caps {dict(spec.shard_caps)}, combine caps "
+        f"{dict(spec.combine_caps)}")
+    log(f"{tag}: node_exchange_bytes (dense, compact) a coloring {wire_bytes}")
+    keys = prng.split(prng.key(13), COMPACT_BATCH)
+    col = torch.stack([global_coloring(k, g.n, comp.k, device=dev) for k in keys])
+    cols = np.stack([shard_coloring(comp, c) for c in col.cpu().numpy()])
+    single = build_counting_plan(g, tree, device=dev)
+    want = colorful_map_count(single, col).cpu()
+    del single
+    torch.cuda.empty_cache()
+    # the kernels at the widest node whose right child ships compacted, on
+    # the expanded buffer's shapes (those of the dense exchange)
+    caps = spec.exchange_caps or spec.shard_caps
+    node = max((comp.combine[i] for i in exchanged if comp.program.nodes[i].right in caps),
+               key=lambda t: t.w)
+    rows = dist_kernel_rows(comp, dev, (node.a, node.w, node.s, node.j), phase=tag)
+    mesh = LocalMesh(COMPACT_SHARDS, device=dev)
+    runs, launches_want = {}, {"spmm_edgetile": 0, "color_combine": 0, "fused_count": 0}
+    reset_launches()
+    for mode, gf in COMPACT_MODES:
+        for fuse in (False, True):
+            base = None
+            for wire, compact in COMPACT_SETTINGS:
+                label = (f"{_dist_label(mode, gf)}{' fused' if fuse else ''} {wire} "
+                         f"{'compact' if compact else 'dense'}")
+                plan = comp if compact else dense
+                f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse,
+                                  wire_dtype=wire)
+                first = f"{wire} {'compact' if compact else 'dense'}"
+                f(cols)
+                warm = f.rung
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                got = f(cols)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated(dev)
+                ran = programs_run(first, warm) + programs_run(first, f.rung)
+                for k, v in _predicted_launches(plan, f.node_modes, fuse, ran).items():
+                    launches_want[k] += v
+                if not torch.isfinite(got).all() or got.shape != (COMPACT_BATCH,):
+                    raise AssertionError(f"{tag} {label}: bad counts {got}")
+                base = got if base is None else base
+                rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+                if not torch.equal(got, base) or rel > DIST_RTOL:
+                    raise AssertionError(f"{tag} {label}: {got.tolist()} vs float32 dense "
+                                         f"{base.tolist()} (bitwise) and single {want.tolist()} "
+                                         f"(rel {rel:.2e})")
+                runs[label] = {"ms_per_coloring": dt * 1e3 / COMPACT_BATCH, "peak_bytes": peak,
+                               "rung": f.rung, "warm_rung": warm, "programs_run": ran,
+                               "max_rel_err": rel}
+                log(f"{tag} {label}: {dt * 1e3 / COMPACT_BATCH:.1f} ms/coloring, peak {peak} "
+                    f"bytes, ended on {f.rung} (warm {warm}), rel {rel:.2e} to single")
+    launches = read_launches()
+    if {k: launches[k] for k in launches_want} != launches_want:
+        raise AssertionError(f"{tag}: launches {launches}, the rungs predict {launches_want}")
+    log(f"{tag}: compact == dense and int16 == float32 bitwise in every mode x fuse, within "
+        f"{DIST_RTOL} of single {want.tolist()}; launches {launches_want} as the rungs predict")
+    summary = {"plan_s": plan_s, "r_pad": comp.r_pad, "n_loc_pad": comp.n_loc_pad,
+               "spec": {"threshold": spec.threshold, "capacity_factor": spec.capacity_factor,
+                        "density": dict(spec.density),
+                        "exchange_caps": dict(spec.exchange_caps),
+                        "shard_caps": dict(spec.shard_caps),
+                        "combine_caps": dict(spec.combine_caps)},
+               "node_exchange_bytes": wire_bytes, "runs": runs,
+               "single_device_counts": want.tolist()}
+    del comp, dense, plan, g, mesh, f
+    torch.cuda.empty_cache()
+    return launches, rows, summary
+
+
+def compact_launch():
+    """13 (d), the launcher: bench-sparse --mode pipeline --shards 4
+    --compact --wire-dtype int16 prints the estimates of --wire-dtype
+    float32 with no node engaged, and its compaction and routing reports."""
+    base = ["--config", "bench-sparse", "--mode", "pipeline", "--shards", "4", "--iters", "16",
+            "--batch", "8"]
+    narrow = _launch(base + ["--compact", "--wire-dtype", "int16"])
+    dense = _launch(base + ["--wire-dtype", "float32", "--density-threshold", "-1"])
+    caps = [ln for ln in narrow if ln.startswith("compaction caps")]
+    if (not _estimates(narrow) or _estimates(narrow) != _estimates(dense) or not caps
+            or "exchange[" not in caps[0]
+            or not any(ln.startswith("routing: wire=int16") for ln in narrow)):
+        raise AssertionError(f"phase 13 (d) launcher: {narrow} vs {dense}")
+    log(f"phase 13 (d) launcher: --compact --wire-dtype int16 == --wire-dtype float32 dense "
+        f"({_estimates(narrow)}); {caps[0]}")
+    return {"estimates": _estimates(narrow), "caps": caps[0]}
+
+
+def phase_compact(dev, saturation, narrow_nccl):
+    """Phase 13: (a), (b) on both sparse rows, (c) and the NCCL part of (d)
+    from phase 12's run, the launcher.  Returns the path's launches, the
+    kernel rows and a summary."""
+    t0 = time.perf_counter()
+    exact = compact_exact(dev)
+    launches, rows, cells = None, None, {}
+    for name in SPARSE_GRAPHS:
+        cell_launches, cell_rows, cells[name] = compact_full(name, dev)
+        launches = cell_launches if launches is None else {
+            k: launches[k] + cell_launches[k] for k in launches}
+        rows = cell_rows if rows is None else {k: rows[k] + cell_rows[k] for k in rows}
+    sat, sat_launches = saturation
+    launches = {k: launches[k] + sat_launches[k] for k in launches}
+    launcher = compact_launch()
+    log(f"phase 13 passed in {time.perf_counter() - t0:.1f}s (without (c) and the NCCL part "
+        f"of (d), which ran in phase 12's)")
+    return launches, rows, {"exact": exact, "cells": cells, "saturation_u12": sat,
+                            "nccl": narrow_nccl, "launcher": launcher}
 
 
 def attention_pairs(l: int, causal: bool, window: int) -> int:
@@ -2477,7 +2826,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, dist, card):
+                 sparse, dist, compact, card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -2505,6 +2854,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                                               for r in d_rows.get(name, [])]
         errs += [r["err"] for r in sparse_rows.get(name, [])]
         errs += [r["err"] for r in dist[0].get(name, [])]
+        errs += [r["err"] for r in compact[0].get(name, [])]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(p[name] for p in launches.values()),
@@ -2559,6 +2909,13 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                 {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "err")}
                 | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
                 for r in dist[0][name]]
+        if compact[0].get(name):
+            # phase 13: the same on a compacted plan's exchanged node of
+            # u10-2 at 2^22 (each sparse row), ms per launch
+            entry["distributed_compact_checks"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "err")}
+                | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                for r in compact[0][name]]
         if name in ("color_combine", "fused_count"):
             # bytes, shared-memory reads of the FMAs and, fused, the gathers
             entry["staged_floor_ms"] = tot("staged_floor_ms")
@@ -2596,6 +2953,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "dense_path": dense,
             "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
             "sparse_path": sparse[1], "distributed_path": dist[1],
+            "distributed_compact_path": compact[1],
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -2620,7 +2978,7 @@ def run_phases(dev):
     torch.cuda.empty_cache()
     family_launches, family_rows, family = phase_family(g, dev)
     torch.cuda.empty_cache()
-    dist_launches, dist_rows, dist = phase_distributed(g, dev)
+    dist_launches, dist_rows, dist, (saturation, narrow_nccl) = phase_distributed(g, dev)
     del g
     torch.cuda.empty_cache()
     dense_graph = rmat_graph(2 ** 16, 16_000_000)
@@ -2640,19 +2998,21 @@ def run_phases(dev):
     lm = phase_lm(dev, flash["ms"])
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
     sparse_launches, sparse_rows, sparse = phase_sparse(dev)
+    torch.cuda.empty_cache()
+    compact_launches, compact_rows, compact = phase_compact(dev, saturation, narrow_nccl)
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
                 "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
-                "distributed": dist_launches}
+                "distributed": dist_launches, "distributed_compact": compact_launches}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
     dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2)}
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide, dags, (sparse_rows, sparse), (dist_rows, dist))
+            wide, dags, (sparse_rows, sparse), (dist_rows, dist), (compact_rows, compact))
 
 
 def main() -> int:

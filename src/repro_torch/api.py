@@ -30,11 +30,13 @@ so a result of the port can be held against the reference's for the same
 key sample for sample.  :meth:`Counter.estimate_many` counts a template
 family in one shared-DAG pass per batch of colorings (the family protocol,
 ``sample_fn(key, batch) -> float64 [batch, T]``).  ``compact=True`` runs
-the single backend's active-frontier compacted plan (DESIGN.md §15),
-which re-runs a batch on its dense twin when a capacity overflows; on the
-distributed backend it, and a narrow ``wire_dtype``, are ROADMAP queue 1
-item 7.  Under a ``torch.distributed`` world every rank runs the same
-estimator loop on replicated counts, and only rank 0 writes checkpoints.
+an active-frontier compacted plan (DESIGN.md §15) on either backend, which
+re-runs a batch on its dense twin when a capacity overflows; on the
+distributed backend it compacts the exchange too, and ``wire_dtype``
+(``"int16"``, ``"int8"``) narrows the wire (§18), re-running a saturated
+batch one rung wider.  Under a ``torch.distributed`` world every rank runs
+the same estimator loop on replicated counts, and only rank 0 writes
+checkpoints.
 ``sample_stream`` and ``serve`` wait for their ROADMAP item and raise
 ``NotImplementedError`` naming it.
 
@@ -82,23 +84,19 @@ _TODO = {
 #: active-frontier compaction, DESIGN.md §15)
 _SINGLE_OPTS = frozenset({"root", "spmm_kind", "fuse", "n_colors", "device", "compact",
                           "density_threshold", "capacity_factor", "probes"})
-#: plan_opts the distributed backend reads: the plan's (``root``,
-#: ``n_colors``, ``compact``), the mesh's (``mesh``, ``num_shards``,
+#: plan_opts the distributed backend reads: the plan's
+#: (:data:`_DIST_PLAN_OPTS`), the mesh's (``mesh``, ``num_shards``,
 #: ``device``) and the count function's (:data:`_DIST_FN_OPTS`)
-_DIST_OPTS = frozenset({"root", "n_colors", "compact", "mesh", "num_shards", "device", "mode",
-                        "group_factor", "fuse", "wire_dtype", "adaptive"})
-_DIST_PLAN_OPTS = frozenset({"root", "n_colors", "compact"})
+_DIST_PLAN_OPTS = frozenset({"root", "n_colors", "compact", "density_threshold",
+                             "capacity_factor", "probes"})
 _DIST_FN_OPTS = frozenset({"mode", "group_factor", "fuse", "wire_dtype", "adaptive"})
+_DIST_OPTS = _DIST_PLAN_OPTS | _DIST_FN_OPTS | {"mesh", "num_shards", "device"}
 #: the reference's options that have no effect on the port: accepted, so
 #: that one config row feeds either backend, and dropped (``impl``: there is
 #: one route a device; ``bucket_tile``: the port keeps bucket CSRs, not
-#: tiles; ``data_axis``/``iter_axis``: a mesh's axes are fixed; the
-#: compaction knobs on the distributed backend, where compaction is not
-#: ported); ``block_size`` must be 128
-_OTHER_OPTS = frozenset(
-    {"block_size", "bucket_tile", "impl", "data_axis", "iter_axis", "density_threshold",
-     "capacity_factor", "probes"}
-)
+#: tiles; ``data_axis``/``iter_axis``: a mesh's axes are fixed);
+#: ``block_size`` must be 128
+_OTHER_OPTS = frozenset({"block_size", "bucket_tile", "impl", "data_axis", "iter_axis"})
 #: what :meth:`Counter.with_options` may swap (the reference's set)
 _WITH_OPTS = frozenset({"mode", "group_factor", "impl", "fuse", "iter_axis", "bucket_tile",
                         "wire_dtype", "adaptive"})
@@ -361,7 +359,8 @@ class Counter:
         """A new Counter sharing this one's plan and mesh, with other
         execution options (distributed backend only): ``mode``,
         ``group_factor``, ``fuse``, ``adaptive``, ``wire_dtype``, so that
-        comparing the four exchange modes costs one plan build.  The
+        comparing the four exchange modes or the wires costs one plan
+        build; the count function is built anew.  The
         reference's ``impl``, ``iter_axis`` and ``bucket_tile`` are taken
         and have no effect (the port has one route a device, a mesh's own
         axes and bucket CSRs, not tiles)."""

@@ -1,7 +1,7 @@
 """Adaptive-Group communication (the paper's §3.2) over the port's own
 transport: the :class:`~.group.Group` interface, ring relays, the grouped
-direct-send exchange and the Hockney router.  The narrow wire of
-``repro/comm/compress.py`` waits for ROADMAP queue 1 item 7."""
+direct-send exchange, the Hockney router and the exact narrow wire
+(:mod:`.compress`)."""
 
 from .adaptive import (  # noqa: F401
     V5E_DCI,
@@ -13,6 +13,16 @@ from .adaptive import (  # noqa: F401
     fused_cost,
     overlap_ratio,
     pipeline_cost,
+)
+from .compress import (  # noqa: F401
+    WIRE_DTYPES,
+    WIRE_ESCALATION,
+    mask_column_count,
+    mask_columns,
+    mask_from_columns,
+    narrow_cast,
+    widen,
+    wire_itemsize,
 )
 from .group import (  # noqa: F401
     Group,

@@ -19,7 +19,10 @@ Transports:
 * :class:`ProcessGroupComm`: a ``torch.distributed`` group, one rank a
   process (NCCL for CUDA tensors, gloo for CPU tensors):
   ``all_to_all_single`` on the uniform chunks, ``batch_isend_irecv`` for
-  the shifts.
+  the shifts.  Neither backend takes int16 (gloo raises ``Invalid scalar
+  type``, NCCL has no 16-bit integer type), so the narrow wire's int16 and
+  int8 payloads travel as a bitcast ``uint8`` view of their last axis and
+  are viewed back on receipt: bytes, never a cast.
 * :class:`LocalMesh`: ``data x iters`` ranks as threads of one process,
   all on one device, the counterpart of the reference's host-device mesh
   (``repro/launch/mesh.py:22``).  Its collectives exchange tensors through
@@ -319,6 +322,15 @@ class LocalMesh:
 # ---------------------------------------------------------------------------
 
 
+#: dtypes a process group carries as a bitcast byte view (see the module docstring)
+_BYTE_VIEWED = (torch.int16, torch.int8)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous) as the tensor the backend is handed."""
+    return x.view(torch.uint8) if x.dtype in _BYTE_VIEWED else x
+
+
 class ProcessGroupComm(Group):
     """A ``torch.distributed`` group, this process one rank of it.
 
@@ -342,7 +354,7 @@ class ProcessGroupComm(Group):
         _check_chunks(chunks, self.size)
         chunks = chunks.contiguous()
         out = torch.empty_like(chunks)
-        self._dist.all_to_all_single(out, chunks, group=self.group)
+        self._dist.all_to_all_single(_as_bytes(out), _as_bytes(chunks), group=self.group)
         return out
 
     def shift_start(self, x, s):
@@ -353,8 +365,10 @@ class ProcessGroupComm(Group):
         dist = self._dist
         x = x.contiguous()
         buf = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x, self._peer((self.rank + s) % self.size), self.group),
-               dist.P2POp(dist.irecv, buf, self._peer((self.rank - s) % self.size), self.group)]
+        ops = [dist.P2POp(dist.isend, _as_bytes(x), self._peer((self.rank + s) % self.size),
+                          self.group),
+               dist.P2POp(dist.irecv, _as_bytes(buf), self._peer((self.rank - s) % self.size),
+                          self.group)]
         reqs = dist.batch_isend_irecv(ops)
 
         def wait():

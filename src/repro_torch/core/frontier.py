@@ -31,6 +31,14 @@ engine pays for every row; a compacted plan skips the inactive ones.
   no two writes meet; the caller reads the flags once per call, and rows
   past a capacity are dropped, never written out of bounds.
 
+The distributed engine's compacted exchange (:func:`distributed_compaction`,
+:func:`chunk_slots`, :func:`node_exchange_bytes`) ships each coloring's
+active rows of a request chunk, or of a relayed shard, as a slab of its own
+(``cap`` rows beside their slots, the coloring axis inside: ``[cap, B, W +
+1]``), as the reference's ``vmap`` over colorings does: the bytes of a
+batch are B times the reference's per-coloring slab, whatever rows the
+colorings share.
+
 Everything here is exact: compaction never changes a bit of the counts.
 Inactive rows contribute exact zeros in the dense program, and the compact
 program never multiplies or gathers them.
@@ -45,6 +53,7 @@ from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..comm.compress import mask_column_count, wire_itemsize
 from ..kernels import ops
 from .graphs import edge_list, relabel_random, rmat
 
@@ -60,11 +69,17 @@ __all__ = [
     "model_density",
     "probe_activity",
     "single_device_compaction",
+    "distributed_compaction",
     "sampled_density",
+    "node_exchange_bytes",
     "make_frontier_fn",
     "inverse_map",
     "combine_rows",
     "compact_combine",
+    "row_cumsum",
+    "chunk_slots",
+    "encode_slots",
+    "decode_slots",
 ]
 
 #: compact a node once its measured active-row fraction is at or below this
@@ -107,9 +122,9 @@ class CompactionSpec:
 
     All capacities are per coloring, sized from the probe; a node absent
     from a ``*_caps`` mapping runs dense.  ``density`` and
-    ``gather_density`` keep the probe's measurements for reports.  The
-    reference's exchange and shard capacities come with the compacted
-    exchange of the distributed engine (ROADMAP queue 1 item 7).
+    ``gather_density`` keep the probe's measurements for reports.  A
+    single-device plan fills ``table_caps`` and ``combine_caps``; a
+    distributed one ``exchange_caps``, ``shard_caps`` and ``combine_caps``.
     """
 
     threshold: float
@@ -122,11 +137,16 @@ class CompactionSpec:
     table_caps: Mapping[int, int]
     #: node -> combine-gather capacity (rows the combine contracts)
     combine_caps: Mapping[int, int]
+    #: node -> per-peer compacted-chunk capacity (distributed alltoall, pipeline)
+    exchange_caps: Mapping[int, int] = dataclasses.field(default_factory=dict)
+    #: node -> compacted relay capacity of a whole shard (distributed ring)
+    shard_caps: Mapping[int, int] = dataclasses.field(default_factory=dict)
     probes: int = 0
 
     @property
     def enabled(self) -> bool:
-        return bool(self.table_caps or self.combine_caps)
+        return bool(self.table_caps or self.combine_caps or self.exchange_caps
+                    or self.shard_caps)
 
 
 def capacity_for(
@@ -282,6 +302,121 @@ def single_device_compaction(
     )
 
 
+def distributed_compaction(
+    graph,
+    program,
+    combine,
+    k: int,
+    *,
+    num_shards: int,
+    shard_size: int,
+    n_loc_pad: int,
+    r_pad: int,
+    send_idx: np.ndarray,
+    threshold: float,
+    capacity_factor: float,
+    probes: int = 2,
+    seed: int = 0,
+) -> CompactionSpec:
+    """Probe densities and size the distributed capacities (the reference's
+    rules, ``frontier.py:300``).
+
+    ``exchange_caps`` bound the per-peer compacted chunk: the active rows
+    among each (src, dst) request list ``send_idx``, measured per pair, so
+    a hub-heavy list is sized by its own activity.  ``shard_caps`` bound the
+    compacted whole-shard relay of the ring mode, ``combine_caps`` the
+    per-shard combine gather.  Exchange and shard capacities are multiples
+    of 8 and engage for right children at or below ``threshold`` at any
+    width; ``table_caps`` stays empty.  The probe runs where ``combine``'s
+    split tables live and its maxima come to the host in one copy.
+    """
+    n = graph.n
+    Pn, ss = num_shards, shard_size
+    rights, _ = _child_roles(program)
+    acts = probe_activity(graph, program, combine, k, probes=probes, seed=seed)
+    if not acts:
+        return CompactionSpec(threshold, capacity_factor, {}, {}, {}, {}, probes=probes)
+    dev = next(iter(acts.values())).table.device
+    sidx = torch.from_numpy(send_idx.astype(np.int64)).to(dev)
+    glob = (sidx + (torch.arange(Pn, device=dev) * ss)[:, None, None]).clamp(max=Pn * ss)
+    valid = sidx != ss
+
+    def padded(mask: torch.Tensor) -> torch.Tensor:
+        """``[probes, n]`` -> ``[probes, P ss + 1]``, the last column false."""
+        return torch.nn.functional.pad(mask, (0, Pn * ss + 1 - n))
+
+    nodes = sorted(acts)
+    stats = []
+    for i in nodes:
+        table = padded(acts[i].table)
+        gath = padded(acts[i].gather)[:, : Pn * ss]
+        chunk = ((table[:, glob] & valid).sum(dim=-1).max() if i in rights
+                 else torch.zeros((), dtype=torch.int64, device=dev))
+        stats.append(torch.stack([table.sum(dim=1).max(),
+                                  table[:, : Pn * ss].view(-1, Pn, ss).sum(dim=2).max(),
+                                  gath.view(-1, Pn, ss).sum(dim=2).max(), chunk]))
+    got = dict(zip(nodes, torch.stack(stats).cpu().tolist()))
+    density = {i: c[0] / max(n, 1) for i, c in got.items()}
+    gather_density = {i: c[2] / max(ss, 1) for i, c in got.items()}
+    exchange_caps = {}
+    shard_caps = {}
+    combine_caps = {}
+    for i, (_, max_shard, max_gath, max_chunk) in got.items():
+        # the reference's rule: wire capacities are gated by density alone
+        if i in rights and density[i] <= threshold:
+            cap = capacity_for(max_chunk, capacity_factor, r_pad, multiple=8)
+            if cap is not None:
+                exchange_caps[i] = cap
+            cap = capacity_for(max_shard, capacity_factor, n_loc_pad, multiple=8)
+            if cap is not None:
+                shard_caps[i] = cap
+        if (gather_density[i] <= threshold
+                and combine[i].s * combine[i].j >= MIN_COMBINE_ELEMENTS):
+            cap = capacity_for(max_gath, capacity_factor, n_loc_pad)
+            if cap is not None:
+                combine_caps[i] = cap
+    return CompactionSpec(
+        threshold=threshold,
+        capacity_factor=capacity_factor,
+        density=density,
+        gather_density=gather_density,
+        table_caps={},
+        combine_caps=combine_caps,
+        exchange_caps=exchange_caps,
+        shard_caps=shard_caps,
+        probes=probes,
+    )
+
+
+def node_exchange_bytes(plan, i: int, mode: str, wire_dtype: str = "float32") -> Tuple[int, int]:
+    """``(dense, compact)`` bytes a rank ships for node ``i``'s exchange, per
+    coloring, under ``mode`` at ``wire_dtype``: the reference's formula
+    (``frontier.py:481``) on the port's true widths.
+
+    Dense: ``P - 1`` peers times a chunk's rows (``r_pad`` requested rows,
+    or the ``n_loc_pad`` rows of a relayed shard on ``ring``) times the
+    right child's width.  Compact, where the node's right child has a
+    capacity: ``cap`` rows of the width plus the slot carrier, one float32
+    column on the wide wire or the bit-packed mask columns of a narrow one.
+    A batch of B colorings ships B times each (a slab a coloring).  ``plan``
+    is a :class:`~.distributed.DistributedPlan`."""
+    nd = plan.program.nodes[i]
+    w = plan.widths[nd.right]
+    spec = plan.compaction
+    if mode == "ring":
+        rows = plan.n_loc_pad
+        cap = spec.shard_caps.get(nd.right) if spec is not None else None
+    else:
+        rows = plan.r_pad
+        cap = spec.exchange_caps.get(nd.right) if spec is not None else None
+    ebytes = wire_itemsize(wire_dtype)
+    dense = (plan.num_shards - 1) * rows * w * ebytes
+    if not cap:
+        return dense, dense
+    extra = 1 if wire_dtype == "float32" else mask_column_count(rows, cap, wire_dtype)
+    return dense, (plan.num_shards - 1) * cap * (w + extra) * ebytes
+
+
 def sampled_density(
     num_vertices: int,
     avg_degree: float,
@@ -320,27 +455,15 @@ def _first(mask: torch.Tensor, size: int) -> torch.Tensor:
     return mask & (torch.cumsum(mask, 0) <= size)
 
 
-def _positions(keep: torch.Tensor, fill: int, size: int) -> torch.Tensor:
-    """``int64 [size]``: the indices where ``keep`` (1-D bool, at most
-    ``size`` set) holds, in ascending order, then ``fill`` in the slots
-    left.  Stream compaction by a cumulative sum and one scatter in which
-    every entry has a target of its own (the kept ones their slots, the
-    others the slots past ``size`` in order), so no host sync and no two
-    writes meet."""
-    n = keep.numel()
-    cum = torch.cumsum(keep, 0)
-    every = torch.arange(n, dtype=torch.int64, device=keep.device)
-    target = torch.where(keep, cum - 1, size + every - cum)
-    buf = torch.full((size + n,), fill, dtype=torch.int64, device=keep.device)
-    return buf.scatter_(0, target, every)[:size]
-
-
 def make_frontier_fn(
-    table_caps: Mapping[int, int], sentinel_row: int, flags: List[torch.Tensor]
+    table_caps: Mapping[int, int], sentinel_row: int, flags: List[torch.Tensor],
+    mask_only: frozenset = frozenset(),
 ) -> Callable[[int, torch.Tensor], Optional[Frontier]]:
     """Frontier hook for :func:`~.table_program.run_table_program`: a node
     in ``table_caps`` gets its :class:`Frontier` (appending its per-coloring
-    flags to ``flags``), any other node ``None`` (dense).
+    flags to ``flags``), a node in ``mask_only`` just its activity mask
+    (the distributed exchange and combine read no more), any other node
+    ``None`` (dense).
 
     ``sentinel_row`` names a zero row of every table (row ``n``).  The
     union of the batch's active vertices fits ``B (cap - 1)`` slots whenever
@@ -350,7 +473,7 @@ def make_frontier_fn(
     def frontier_fn(i: int, table: torch.Tensor) -> Optional[Frontier]:
         cap = table_caps.get(i)
         if cap is None:
-            return None
+            return Frontier(_active(table), None, None) if i in mask_only else None
         mask = _active(table)
         flags.append(mask.sum(dim=0) <= cap - 1)
         rows, b = mask.shape
@@ -359,7 +482,7 @@ def make_frontier_fn(
             return Frontier(mask, None, None)
         keep = _first(mask.any(dim=1), size)
         # the last slot is never kept: it holds the sentinel's zero row
-        return Frontier(mask, _positions(keep, sentinel_row, size + 1), inverse_map(keep, size))
+        return Frontier(mask, chunk_slots(keep, size + 1, sentinel_row), inverse_map(keep, size))
 
     return frontier_fn
 
@@ -371,7 +494,7 @@ def combine_rows(act: torch.Tensor, cap: int, sentinel_row: int) -> torch.Tensor
     row's flat index in the slots left, the last always."""
     b = act.shape[1]
     size = b * (cap - 1)
-    return _positions(_first(act.reshape(-1), size), sentinel_row * b, size + 1)
+    return chunk_slots(_first(act.reshape(-1), size), size + 1, sentinel_row * b)
 
 
 def compact_combine(
@@ -401,10 +524,50 @@ def compact_combine(
     rows, b = act.shape
     size = b * (cap - 1)
     keep = _first(act.reshape(-1), size)
-    idx = _positions(keep, sentinel_row * b, size + 1)
+    idx = chunk_slots(keep, size + 1, sentinel_row * b)
     lc = c_left.view(rows * b, -1).index_select(0, idx)
     mc = m.view(rows * b, -1).index_select(0, idx)
     outc = ops.color_combine(lc.view(size + 1, 1, -1), mc.view(size + 1, 1, -1), tables)
     # every row not contracted reads the last slot, the sentinel's zero output
     out = outc.view(size + 1, -1).index_select(0, inverse_map(keep, size))
     return out.view(rows, b, tables.s)
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``int64`` inclusive cumulative sums of ``x`` (``[..., L]`` bool or
+    integer) along its last axis, as one scan of the flattened tensor less
+    each row's start.  A scan along a long last axis of few rows runs one
+    block a row on the card (1.7 ms for two rows of 2^20); the flat scan
+    is one device-wide pass."""
+    flat = torch.cumsum(x.reshape(-1), 0).view(x.shape)
+    return flat - (flat[..., :1] - x[..., :1].to(flat.dtype))
+
+
+def chunk_slots(act: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
+    """``int64 [..., cap]``: for each row of ``act`` (``[..., L]`` bool) the
+    indices of its first ``cap`` set entries in ascending order, then
+    ``fill`` in the slots left, which must name a zero row (the reference's
+    ``vmap``'d capacity-padded ``nonzero``).  Stream compaction by a
+    cumulative sum and one scatter in which every entry has a target of its
+    own (the kept ones their slots, the others the slots past ``cap`` in
+    order), so no host sync and no two writes meet."""
+    L = act.shape[-1]
+    keep = act & (row_cumsum(act) <= cap)
+    kcum = row_cumsum(keep)
+    every = torch.arange(L, dtype=torch.int64, device=act.device).expand(act.shape)
+    target = torch.where(keep, kcum - 1, cap + every - kcum)
+    buf = torch.full(act.shape[:-1] + (cap + L,), fill, dtype=torch.int64, device=act.device)
+    return buf.scatter_(-1, target, every)[..., :cap]
+
+
+def encode_slots(slots: torch.Tensor) -> torch.Tensor:
+    """Slot indices -> a float32 carrier (a bitcast of their int32), so a
+    compacted payload travels as one tensor.  Every slot below 2^23 is a
+    subnormal float: the carrier is copied, never widened, added into or
+    multiplied (flush-to-zero arithmetic would zero it)."""
+    return slots.to(torch.int32).view(torch.float32)
+
+
+def decode_slots(col: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`encode_slots`: int64 slots."""
+    return col.contiguous().view(torch.int32).to(torch.int64)

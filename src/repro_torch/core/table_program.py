@@ -23,8 +23,8 @@ compacted plan threads active-row frontiers (:mod:`.frontier`) through
 the program: each ``combine`` table's frontier is computed once, freed with
 the table and handed to every reader as ``f_left``/``f_right``.  The
 distributed engine (:mod:`.distributed`) runs this executor per shard with
-its exchange strategy as ``node_fn``; its compacted exchange, which would
-thread frontiers through the wire, is ROADMAP queue 1 item 7.
+its exchange strategy as ``node_fn``; its compacted exchange reads the
+frontiers' masks to ship only active rows.
 """
 
 from __future__ import annotations

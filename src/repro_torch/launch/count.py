@@ -6,13 +6,16 @@
 --seed S [--checkpoint-dir DIR | --resume DIR] [--device cuda|cpu]``
 
 ``--mode alltoall|pipeline|adaptive|ring [--group-factor G] [--adaptive
-model|measured] [--shards P]`` runs the distributed exchange engine
-instead: a ``LocalMesh`` of P thread ranks on the device, or, started by
-``torchrun`` (``WORLD_SIZE`` > 1), one rank a process over the world (NCCL
-on ``cuda``, gloo with ``--device cpu``), and prints the per-node routes
-and their modeled costs before the estimate.  Its colorings are drawn from
-the iteration keys whatever the shard count, so ``--shards 2`` and
-``--shards 4`` print identical estimates.
+model|measured] [--shards P] [--wire-dtype float32|int16|int8]`` runs the
+distributed exchange engine instead: a ``LocalMesh`` of P thread ranks on
+the device, or, started by ``torchrun`` (``WORLD_SIZE`` > 1), one rank a
+process over the world (NCCL on ``cuda``, gloo with ``--device cpu``), and
+prints the compaction report, then the per-node routes and their modeled
+costs (``routing: wire=...``) before the estimate.  Its colorings are drawn
+from the iteration keys whatever the shard count, so ``--shards 2`` and
+``--shards 4`` print identical estimates; ``--compact`` compacts the
+exchange and ``--wire-dtype`` narrows it, and neither changes a bit of the
+estimates.
 
 Synthesizes the configured R-MAT graph (or loads ``--graph``), resolves the
 config row into a ``CountRequest`` and runs it through the ``Counter``
@@ -28,8 +31,7 @@ family, trees and treewidth-2 names alike, in one shared-DAG pass per batch
 ``compact``, such as ``bench-sparse``) runs the active-frontier compacted
 plan and prints the probed node densities and engaged capacities; its
 estimates equal the dense run's (``--density-threshold -1`` engages no
-node).  The distributed exchange modes of ``repro.launch.count`` exit with
-an error naming the ROADMAP item that ports them.
+node).
 """
 
 from __future__ import annotations
@@ -48,19 +50,19 @@ from ..core.graphs import load_edge_file, load_npz
 from ..core.templates import TEMPLATES
 
 def _plan_report(plan):
-    """The density signals the plan's choices used: the spmm auto patch
-    density, and the per-node table densities and engaged capacities of
-    active-frontier compaction (the reference's report, without its
-    exchange and ring capacities, which come with the distributed engine)."""
-    spmm = plan.spmm_plan
-    if spmm.patch_density is not None:
+    """The density signals the plan's choices used (the reference's report):
+    the spmm auto patch density of a single-device plan, and the per-node
+    table densities and engaged capacities of active-frontier compaction."""
+    spmm = getattr(plan, "spmm_plan", None)
+    if spmm is not None and spmm.patch_density is not None:
         print(f"spmm auto: {spmm.patch_density:.1f} edges/patch -> kind={spmm.kind}")
     spec = plan.compaction
     if spec is None:
         return
     dens = " ".join(f"n{i}={spec.density[i]:.3f}" for i in sorted(spec.density))
     caps = {}
-    for tag, m in (("combine", spec.combine_caps), ("table", spec.table_caps)):
+    for tag, m in (("combine", spec.combine_caps), ("table", spec.table_caps),
+                   ("exchange", spec.exchange_caps), ("ring", spec.shard_caps)):
         for i, c in sorted(m.items()):
             caps[f"{tag}[{i}]"] = c
     print(f"compaction: threshold {spec.threshold} node densities: {dens}")
@@ -150,6 +152,10 @@ def main(argv=None):
     ap.add_argument("--target-rsd", type=float, default=None,
                     help="stop early once the running relative standard error of the "
                          "mean reaches this (resume-aware)")
+    ap.add_argument("--wire-dtype", default=None, choices=["float32", "int16", "int8"],
+                    help="distributed modes: ship the exchange payloads at this width; a "
+                         "saturated batch re-runs one rung wider, so estimates are exact "
+                         "(default: the config row's)")
     ap.add_argument("--group-factor", type=int, default=1,
                     help="distributed pipeline: shifts a step (W = ceil((P-1)/G) steps)")
     ap.add_argument("--adaptive", default=None, choices=["model", "measured"],
@@ -166,9 +172,6 @@ def main(argv=None):
         ap.error(f"--batch must be >= 1 (got {args.batch})")
     ccfg = COUNTING_CONFIGS[args.config]
     single = args.mode == "single"
-    if not single and (args.compact or (args.compact is None and ccfg.compact)):
-        ap.error(f"--mode {args.mode} with compaction: the compacted exchange is ROADMAP "
-                 f"queue 1 item 7")
     family = list(ccfg.templates)
     if args.templates:
         # fail fast, before any graph is synthesized or plan built: unknown
@@ -212,8 +215,9 @@ def main(argv=None):
                                   device=args.device, **overrides)
     else:
         dist_opts = _mesh_opts(args, ccfg)
-        if args.adaptive is not None:
-            dist_opts["adaptive"] = args.adaptive
+        for name, val in (("adaptive", args.adaptive), ("wire_dtype", args.wire_dtype)):
+            if val is not None:
+                dist_opts[name] = val
         request = ccfg.to_request(g, backend="distributed", n_iter=args.iters,
                                   delta=args.delta, batch=args.batch, mode=args.mode,
                                   group_factor=args.group_factor, fuse=args.fuse,
@@ -257,6 +261,7 @@ def _mesh_opts(args, ccfg) -> dict:
 def _run_distributed(counter, request, key, ran, robust_kw, args):
     plan = counter.plan
     mesh = counter.mesh
+    _plan_report(plan)
     _route_report(counter, request)
     if mesh.device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(mesh.device)}")

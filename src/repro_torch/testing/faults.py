@@ -2,8 +2,8 @@
 
 The port's own copy of ``repro/testing/faults.py`` (the port imports
 nothing of the reference package).  The port instruments the sample,
-checkpoint, estimator and compaction sites; the reference's compression
-and service sites come with the slices that port those paths.
+checkpoint, estimator, compaction and compression sites; the reference's
+service sites come with the slice that ports serving.
 
 Recovery paths are only trustworthy if they are *exercised*: this module
 lets tier-1 tests make a specific failure happen at a specific, repeatable
@@ -26,7 +26,12 @@ Instrumented sites (grep ``faults.fire`` for the authoritative list):
                            immediately after a checkpoint save (kill between
                            checkpoints)
 ``compaction.overflow``    the §15 speculate-check wrapper treats the batch as
-                           overflowed and re-runs it on the dense twin
+                           overflowed and re-runs it on the dense twin (the
+                           single-device counter and the distributed count
+                           function of a compacted plan)
+``compression.saturate``   a narrow-wire distributed count function treats the
+                           batch as saturated and re-runs it one rung wider
+                           (int8 -> int16 -> float32), DESIGN.md §18
 =========================  ====================================================
 
 Usage::

@@ -102,8 +102,9 @@ def test_backends_and_unported_surfaces():
     g = _graph()
     c = Counter.from_graph(g, "u5-2", backend="auto", device="cpu", num_shards=8, mode="ring")
     assert c.backend == "single" and c.plan_opts == {"device": "cpu"}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Counter.from_graph(g, "u5-2", backend="distributed", device="cpu", compact=True).plan
+    dist_compact = Counter.from_graph(g, "u5-2", backend="distributed", device="cpu",
+                                      compact=True, density_threshold=0.5, wire_dtype="int16")
+    assert dist_compact.plan.compaction.threshold == 0.5  # the compacted exchange is ported
     with pytest.raises(ValueError, match="unknown backend"):
         Counter.from_graph(g, "u5-2", backend="tpu", device="cpu")
     with pytest.raises(TypeError, match="unknown plan_opts"):

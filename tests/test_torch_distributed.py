@@ -379,8 +379,10 @@ def test_route_report_costs_the_ports_bytes():
                                        if nd.kind == "combine"]
     for i, row in rep["per_node"].items():
         w = plan.widths[plan.program.nodes[i].right]
-        assert row["a2a_bytes"] == 7 * plan.r_pad * w * 4 == node_exchange_bytes(plan, i, "pipeline")
-        assert row["ring_bytes"] == 7 * plan.n_loc_pad * w * 4
+        a2a = 7 * plan.r_pad * w * 4
+        assert row["a2a_bytes"] == a2a and node_exchange_bytes(plan, i, "pipeline") == (a2a, a2a)
+        ring = 7 * plan.n_loc_pad * w * 4
+        assert row["ring_bytes"] == ring and node_exchange_bytes(plan, i, "ring") == (ring, ring)
         mode, diag = choose_mode_full(row["a2a_bytes"], row["ring_bytes"], row["flops"], 8,
                                       V5E_ICI, 2)
         assert row["mode"] == mode and row["predicted_s"] == diag["predicted_s"]
@@ -394,16 +396,20 @@ def test_route_report_costs_the_ports_bytes():
 
 
 def test_unported_surfaces_name_their_items():
+    """Compaction and the narrow wire are ported (a plan carries its spec;
+    an unknown wire is the reference's ValueError); shape-only plans name
+    item 9."""
     g = _graphs("er97")[0]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_distributed_plan(g, path_tree(4), 2, compact=True, device="cpu")
+    assert build_distributed_plan(g, path_tree(4), 2, compact=True, device="cpu",
+                                  density_threshold=1.0).compaction.enabled
     plan = _plan("er97", "p4", 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_count_fn(plan, LocalMesh(4, device="cpu"), wire_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        plan_route_report(plan, wire_dtype="int16")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Counter.from_graph(g, "u3-1", backend="distributed", device="cpu", compact=True).plan
+    with pytest.raises(ValueError, match="wire_dtype='int4'"):
+        make_count_fn(plan, LocalMesh(4, device="cpu"), wire_dtype="int4")
+    with pytest.raises(ValueError, match="wire_dtype='int4'"):
+        plan_route_report(plan, wire_dtype="int4")
+    assert plan_route_report(plan, wire_dtype="int16")["wire_dtype"] == "int16"
+    assert Counter.from_graph(g, "u3-1", backend="distributed", device="cpu",
+                              compact=True).plan.compaction is not None
     with pytest.raises(NotImplementedError, match="item 9"):
         abstract_plan(10**6, 10**7, path_tree(4), 8)
     with pytest.raises(ValueError, match="mode="):
@@ -500,6 +506,8 @@ _GLOO_WORKER = textwrap.dedent("""
     import torch.multiprocessing as mp
 
     MODES = %s
+    COLORINGS = [np.random.default_rng(9 + i).integers(0, 4, 97).astype(np.int32)
+                 for i in range(2)]
 
     def work(rank, world, port, out_path):
         sys.path.insert(0, %r)
@@ -507,7 +515,7 @@ _GLOO_WORKER = textwrap.dedent("""
         from repro_torch.core.distributed import (build_distributed_plan, keyed_sample_fn,
                                                   make_count_fn, shard_coloring)
         from repro_torch.core.graphs import erdos_renyi
-        from repro_torch.core.templates import template
+        from repro_torch.core.templates import path_tree, template
         from repro_torch.launch.mesh import process_mesh
 
         torch.set_num_threads(1)
@@ -527,6 +535,17 @@ _GLOO_WORKER = textwrap.dedent("""
                         f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse)
                         out[f"{shape}-{name}-{mode}-g{gf}-{int(fuse)}"] = f(cols).tolist()
                 out[f"{shape}-{name}-keyed"] = keyed_sample_fn(plan, mesh)(prng.key(1), 4).tolist()
+            # compacted and narrow: int16 and int8 payloads as bitcast bytes
+            plan = build_distributed_plan(g, path_tree(4), shape[0], device="cpu", compact=True,
+                                          density_threshold=1.0)
+            cols = np.stack([shard_coloring(plan, c) for c in COLORINGS])
+            for mode, gf in MODES:
+                for fuse in (False, True):
+                    for wire in ("int16", "int8"):
+                        f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse,
+                                          wire_dtype=wire)
+                        out[f"{shape}-p4-compact-{mode}-g{gf}-{int(fuse)}-{wire}"] = [
+                            f(cols).tolist(), f.rung]
         if rank == 0:
             with open(out_path, "w") as fh:
                 json.dump(out, fh)
@@ -546,7 +565,9 @@ _GLOO_WORKER = textwrap.dedent("""
 def test_gloo_processes_equal_local_mesh(tmp_path):
     """Four gloo processes (``ProcessGroupComm`` through ``process_mesh``, as
     a 4 x 1 and a 2 x 2 mesh), every mode and fuse, fixed and keyed
-    colorings == ``LocalMesh`` of the same shape."""
+    colorings == ``LocalMesh`` of the same shape; and a compacted plan at
+    the int16 and int8 wires (gloo takes no int16: the payloads cross as
+    bitcast bytes) == brute force, on the narrow rung itself."""
     script = tmp_path / "gloo_worker.py"
     script.write_text(_GLOO_WORKER)
     out_path = tmp_path / "out.json"
@@ -569,4 +590,13 @@ def test_gloo_processes_equal_local_mesh(tmp_path):
                     n += 1
             assert got[f"{shape}-{name}-keyed"] == keyed_sample_fn(plan, mesh)(
                 prng.key(1), 4).tolist()
-    assert n == 2 * 3 * len(MODES) * 2
+        colorings = [np.random.default_rng(9 + i).integers(0, 4, 97).astype(np.int32)
+                     for i in range(2)]
+        brute = [count_colorful_maps(g, path_tree(4), c) for c in colorings]
+        for mode, gf in MODES:
+            for fuse in (False, True):
+                for wire in ("int16", "int8"):
+                    counts, rung = got[f"{shape}-p4-compact-{mode}-g{gf}-{int(fuse)}-{wire}"]
+                    assert counts == brute and rung == f"{wire} compact"
+                    n += 1
+    assert n == 2 * 3 * len(MODES) * 2 + 2 * len(MODES) * 2 * 2
