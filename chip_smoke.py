@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card, end to end:
 the single-device tree-template estimate, family counting, treewidth-2 bag
 programs, active-frontier compaction, the distributed exchange engine on
-thread ranks sharing the card (dense, compacted and at narrow wires), and
-the granite-3-8b serving path (prefill,
+thread ranks sharing the card (dense, compacted and at narrow wires), the
+resident counting service, and the granite-3-8b serving path (prefill,
 then decode), with every kernel of their paths built from this checkout
 and held against its plain PyTorch version.
 
@@ -158,7 +158,37 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              world): int16 and int8 payloads as bytes, every narrow count
              call == LocalMesh P = 1; the launcher's bench-sparse --mode
              pipeline --shards 4 --compact --wire-dtype int16 prints the
-             estimates of --wire-dtype float32 with no node engaged.
+             estimates of --wire-dtype float32 with no node engaged;
+14. serve  — the counting service (repro_torch.serve) on the main cell's
+             graph, bench-service's script (k = 7, batch 8, tenants alice,
+             bob and carol, u3-1, u5-2 and u7-2, repeated twice).  First
+             each kernel against its plain version at every node shape of
+             the union family plan u3-1/u5-2/u7-2 at k = 7, batch 8 (the
+             shapes of every plan the service builds in (a)).  (a)
+             run_until_idle unfused then fused: every done ticket == the
+             solo Counter.estimate / estimate_many with the same key and
+             batch, bitwise, fused == unfused, launches as the dispatches'
+             family programs predict (path "serve"); plan build seconds a
+             cache miss, ms a pass call (median, the service's EWMA),
+             request latency p50 and max, host overhead a pass call (step
+             less dispatch and plan builds), coalescing and hit rate; the
+             unfused run again under the profiler (busy share).  (b) the
+             driver thread, one client thread a tenant: == (a) bitwise.  (c)
+             a cancel mid-stream and an expired deadline (virtual clock):
+             co-riders == solo, the cancelled ticket's checkpointed state
+             resumes through estimate_many to the uninterrupted result.  (d)
+             plan_cache_capacity=1, families A, B, A: after two evictions the
+             allocated bytes == A's plan alone, and with the service gone ==
+             before the first build, within 1 MiB.  (e) at bench-small:
+             service.pass_poison quarantines one call of one pass,
+             service.step_crash is recorded and the driver goes on,
+             service.slow_pass past timeout_s retries at the same key ==
+             solo.  (f) the distributed backend on LocalMesh P = 4: every
+             ticket == the solo distributed estimate bitwise, and every
+             call of every ticket within 1e-5 of the single-device union
+             plan on the same colorings.
+             (g) the launcher: bench-service and --threaded print identical
+             estimates; smoke-service --backend distributed runs.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -2792,6 +2822,587 @@ def device_split(fn):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the counting service
+# ---------------------------------------------------------------------------
+
+#: the request script: bench-service's (k = 7, batch 8, tenants alice, bob,
+#: carol, templates u3-1, u5-2, u7-2, repeated twice)
+SERVE_WORKLOAD = "bench-service"
+#: (e): the faults run at bench-small's size
+SERVE_FAULT_CONFIG = "bench-small"
+SERVE_SHARDS = 4  # (f): LocalMesh ranks sharing the card
+SERVE_DIST_RTOL = 1e-5  # (f): distributed vs the single-device plan, same colorings
+SERVE_MEM_SLACK = 1 << 20  # (d): bytes
+SERVE_SLOW = (1.0, 3.0)  # (e): supervisor timeout and the slow pass's sleep, seconds
+
+
+def serve_instrument(svc, want=None):
+    """Time ``svc``'s steps, dispatches and plan builds on the host clock,
+    and (single backend) add to ``want`` the launches each dispatch's
+    family program predicts (a tree node one SpMM and one combine, or one
+    fused launch).  The service, like the reference's, keeps no per-call
+    times of its own, so this wraps its ``step``, ``_call`` and the
+    counter's ``_family``; :func:`serve_instrument_check` fails the phase
+    if the wrappers did not see every dispatch and build."""
+    rec = {"step_s": [], "call_s": [], "build_s": []}
+    step, call, family = svc.step, svc._call, svc._counter._family
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            rec["step_s"].append(time.perf_counter() - t0)
+
+    def timed_call(entry, key, batch, call_index):
+        t0 = time.perf_counter()
+        out = call(entry, key, batch, call_index=call_index)
+        rec["call_s"].append(time.perf_counter() - t0)
+        if want is not None:
+            plan = svc._counter._families[entry["trees"]]["plan"]
+            kinds = [nd.kind for nd in plan.dag.nodes]
+            if set(kinds) != {"leaf", "combine"}:
+                raise AssertionError(f"phase 14: node kinds {set(kinds)} in {entry['trees']}")
+            for name in (("fused_count",) if plan.fuse else ("spmm_edgetile", "color_combine")):
+                want[name] += kinds.count("combine")
+        return out
+
+    def timed_family(trees):
+        t0 = time.perf_counter()
+        try:
+            return family(trees)
+        finally:
+            rec["build_s"].append(time.perf_counter() - t0)
+
+    svc.step, svc._call, svc._counter._family = timed_step, timed_call, timed_family
+    return rec
+
+
+def serve_instrument_check(tag, rec, stats):
+    """Every dispatch (pass and backfill calls) and every plan-cache miss
+    went through the wrappers of :func:`serve_instrument`."""
+    calls = stats["pass_calls"] + stats["backfill_calls"]
+    misses = stats["plan_cache"]["misses"]
+    if (len(rec["call_s"]) != calls or len(rec["build_s"]) != misses
+            or len(rec["step_s"]) < calls or not calls):
+        raise AssertionError(f"{tag}: the timers saw {len(rec['call_s'])} dispatches, "
+                             f"{len(rec['build_s'])} builds and {len(rec['step_s'])} steps; "
+                             f"the service counts {calls} dispatches and {misses} misses")
+
+
+def serve_union(wl) -> tuple:
+    """Every template of the workload's script, in order of first use."""
+    return tuple(dict.fromkeys(n for _, names, _ in wl.requests for n in names))
+
+
+def serve_kernel_rows(g, dev, wl):
+    """Each kernel against its plain version at every node shape of the
+    script's union family plan (u3-1/u5-2/u7-2 at k = 7, batch 8): the
+    shapes the service's passes give the kernels.  Returns the plan (the
+    single-device reference of (f)) and the rows."""
+    from repro_torch.core.count_engine import build_multi_counting_plan
+
+    t0 = time.perf_counter()
+    plan = build_multi_counting_plan(g, serve_union(wl), n_colors=wl.k, device=dev)
+    log(f"phase 14 union plan {serve_union(wl)} k={plan.k}: {len(plan.dag.nodes)} DAG nodes, "
+        f"{len(plan.dag.internal_nodes())} internal; plan in {time.perf_counter() - t0:.1f}s")
+    return plan, dag_kernel_rows(plan, wl.batch, "phase 14")
+
+
+def serve_shapes_covered(tag, svc, union_plan):
+    """Every node shape of every family plan ``svc`` built is one the
+    kernel rows of the union plan hold."""
+    held = set(node_shapes(union_plan, union_plan.dag))
+    for trees, st in svc._counter._families.items():
+        plan = st["plan"]
+        got = set(node_shapes(plan, plan.dag))
+        if plan.n_pad != union_plan.n_pad or not got <= held:
+            raise AssertionError(f"{tag}: {[t.name for t in trees]} has node shapes "
+                                 f"{sorted(got - held)} beyond the kernel rows' {sorted(held)}")
+
+
+def serve_submit_script(svc, wl, tenant=None):
+    """Submit the workload's script (one tenant's part of it with
+    ``tenant``); returns ``[((tenant, i), ticket)]``, ``i`` the request's
+    place among its tenant's."""
+    seen, out = {}, []
+    for _ in range(wl.repeats):
+        for name, templates, kw in wl.requests:
+            i = seen[name] = seen.get(name, -1) + 1
+            if tenant is None or name == tenant:
+                out.append(((name, i), svc.submit(name, templates, **kw)))
+    return out
+
+
+def serve_solo(counters, g, t, backend="single", **opts):
+    """The port's solo estimate for ticket ``t``'s request (memoized on
+    ``counters``): ``Counter.estimate`` for one template, ``estimate_many``
+    for a family, at the service's k and batch and the request's key and
+    budget."""
+    from repro_torch.api import Counter
+
+    req = t._request
+    names = tuple(t.templates)
+    memo = (names, req.n_iter, req.target_rsd, req.key_fp, backend)
+    if memo not in counters:
+        kw = dict(key=req.key, batch=req.batch, delta=req.delta, target_rsd=req.target_rsd)
+        ck = (names[0], len(names) == 1, backend)
+        if ck not in counters:
+            counters[ck] = Counter.from_graph(g, names[0], backend=backend,
+                                              n_colors=t._service.k, **opts)
+        c = counters[ck]
+        counters[memo] = (c.estimate(req.n_iter, **kw) if len(names) == 1
+                          else c.estimate_many(names, req.n_iter, **kw))
+    return counters[memo]
+
+
+def serve_same(a, b) -> bool:
+    """Two results of one request agree bitwise: niter, samples, estimate(s)."""
+    import numpy as np
+
+    if a.niter != b.niter or not np.array_equal(a.samples, b.samples):
+        return False
+    if hasattr(a, "estimates"):
+        return np.array_equal(a.estimates, b.estimates)
+    return a.estimate == b.estimate
+
+
+def serve_check_solo(tag, tickets, counters, g, **kw):
+    for key, t in tickets:
+        if t.status != "done":
+            raise AssertionError(f"{tag} {key}: {t.status} ({t.error})")
+        solo = serve_solo(counters, g, t, **kw)
+        if not serve_same(t.result(), solo):
+            raise AssertionError(f"{tag} {key} {t.templates}: {t.result().samples[:4]} != solo "
+                                 f"{solo.samples[:4]} (niter {t.result().niter}, {solo.niter})")
+
+
+def serve_stats(svc) -> dict:
+    s = svc.stats()
+    return {k: s.get(k, 0) for k in ("pass_calls", "request_calls", "backfill_calls",
+                                     "history_rides", "quarantined", "completed")} | {
+        "coalescing_factor": s["coalescing_factor"], "plan_cache": s["cache"],
+        "memo": s["results"]}
+
+
+def serve_sync(g, dev, wl, card, union_plan):
+    """(a): the script on a synchronous service, unfused then fused, each
+    done ticket == the solo estimate bitwise (fused == unfused), launches as
+    the dispatches' family programs predict, every plan's node shapes among
+    ``union_plan``'s; timings of the unfused run; then the unfused run once
+    more under the profiler (the busy share)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import CountingService, ServiceConfig
+
+    runs, want = {}, {"spmm_edgetile": 0, "color_combine": 0, "fused_count": 0}
+    reset_launches()
+    for fuse in (False, True):
+        svc = CountingService(g, n_colors=wl.k, backend="single",
+                              plan_opts={"device": dev, "fuse": fuse},
+                              config=ServiceConfig(batch=wl.batch))
+        rec = serve_instrument(svc, want)
+        t0 = time.perf_counter()
+        tickets = serve_submit_script(svc, wl)
+        svc.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[fuse] = (svc, tickets, rec, wall)
+    launches = read_launches()
+    got = {k: launches[k] for k in want}
+    if got != want or any(v <= 0 for v in got.values()):
+        raise AssertionError(f"phase 14 (a): launches {launches}, the dispatches predict {want}")
+    counters = {}
+    serve_check_solo("phase 14 (a) unfused", runs[False][1], counters, g, device=dev)
+    for (key, a), (_, b) in zip(runs[False][1], runs[True][1]):
+        if not serve_same(a.result(), b.result()):
+            raise AssertionError(f"phase 14 (a) {key}: fused != unfused")
+    for fuse, (s, _, r, _) in runs.items():
+        serve_instrument_check(f"phase 14 (a) fuse={fuse}", r, serve_stats(s))
+        serve_shapes_covered(f"phase 14 (a) fuse={fuse}", s, union_plan)
+    svc, tickets, rec, wall = runs[False]
+    stats = serve_stats(svc)
+    if stats["coalescing_factor"] <= 1.0:
+        raise AssertionError(f"phase 14 (a): no coalescing {stats}")
+    misses = stats["plan_cache"]["misses"]
+    lat = sorted(t.latency_s for _, t in tickets)
+
+    def host_ms(r):  # step less dispatch and plan builds, a dispatch
+        return (sum(r["step_s"]) - sum(r["call_s"]) - sum(r["build_s"])) / len(r["call_s"]) * 1e3
+
+    timing = {
+        "wall_s": wall, "dispatches": len(rec["call_s"]),
+        "plan_build_s_per_miss": sum(rec["build_s"]) / misses,
+        "ms_per_pass_call_median": float(np.median(rec["call_s"])) * 1e3,
+        "ms_per_pass_call_ewma": svc._call_ewma_s * 1e3,
+        "latency_p50_s": float(np.median(lat)), "latency_max_s": lat[-1],
+        "host_overhead_ms_per_call": host_ms(rec),
+        "fused_host_overhead_ms_per_call": host_ms(runs[True][2]),
+        "fused_wall_s": runs[True][3],
+        "fused_ms_per_pass_call_median": float(np.median(runs[True][2]["call_s"])) * 1e3,
+    }
+    log(f"phase 14 (a) {wl.name} (k={wl.k}, batch {wl.batch}, {len(tickets)} requests) on the "
+        f"main graph: every done ticket == its solo estimate bitwise, fused == unfused; "
+        f"launches {got} as the {timing['dispatches']} dispatches' family programs predict")
+    log(f"phase 14 (a) stats: {stats}")
+    log(f"phase 14 (a) [{card}] unfused run {wall:.2f}s (fused {runs[True][3]:.2f}s): plan build "
+        f"{timing['plan_build_s_per_miss']:.3f} s per cache miss ({misses} misses); "
+        f"{timing['ms_per_pass_call_median']:.2f} ms per pass call (median; EWMA "
+        f"{timing['ms_per_pass_call_ewma']:.2f}; fused median "
+        f"{timing['fused_ms_per_pass_call_median']:.2f}); request latency p50 "
+        f"{timing['latency_p50_s']:.3f} s, max {timing['latency_max_s']:.3f} s; host overhead "
+        f"{timing['host_overhead_ms_per_call']:.3f} ms per pass call (step less dispatch and "
+        f"plan builds; the fused run, second in the process, "
+        f"{timing['fused_host_overhead_ms_per_call']:.3f}); coalescing "
+        f"x{stats['coalescing_factor']:.2f}, plan-cache hit rate "
+        f"{stats['plan_cache']['hit_rate']:.2f}")
+    results = {key: t.result() for key, t in tickets}
+    runs.clear()
+    del svc, tickets
+
+    def rerun():
+        s = CountingService(g, n_colors=wl.k, backend="single", plan_opts={"device": dev},
+                            config=ServiceConfig(batch=wl.batch))
+        serve_submit_script(s, wl)
+        s.run_until_idle()
+
+    split = device_split(rerun)
+    log(f"phase 14 (a) [{card}] unfused run under the profiler: busy {split['device_busy_ms']:.1f} "
+        f"of {split['wall_ms']:.1f} ms ({split['busy_share']:.1%}); top {split['top_kernels'][:4]}")
+    timing["profiled"] = split
+    return launches, results, counters, {"stats": stats, "timing": timing}
+
+
+def serve_threaded(g, dev, wl, results):
+    """(b): the driver thread; three client threads, one per tenant, submit
+    their part of the script at once; every result == (a)'s bitwise."""
+    import threading
+
+    from repro_torch.serve import CountingService, ServiceConfig
+
+    svc = CountingService(g, n_colors=wl.k, backend="single", plan_opts={"device": dev},
+                          config=ServiceConfig(batch=wl.batch)).start()
+    tenants = sorted({name for name, _, _ in wl.requests})
+    barrier, out, errors = threading.Barrier(len(tenants)), {}, []
+
+    def client(name):
+        try:
+            barrier.wait()
+            out.update(serve_submit_script(svc, wl, tenant=name))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(n,)) for n in tenants]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        if errors:
+            raise errors[0]
+        if not all(t.wait(300) for t in out.values()) or not svc.join_idle(300):
+            raise AssertionError("phase 14 (b): the driver did not drain")
+    finally:
+        svc.stop()
+    wall = time.perf_counter() - t0
+    for key, t in out.items():
+        if t.status != "done" or not serve_same(t.result(), results[key]):
+            raise AssertionError(f"phase 14 (b) {key}: {t.status} differs from (a)")
+    if svc.driver_errors:
+        raise AssertionError(f"phase 14 (b): driver errors {svc.driver_errors}")
+    stats = serve_stats(svc)
+    log(f"phase 14 (b): {len(out)} requests from {len(tenants)} client threads on the driver "
+        f"thread in {wall:.2f}s == (a) bitwise; stats {stats}")
+    return {"wall_s": wall, "stats": stats}
+
+
+class _Clock:
+    """A virtual clock for deadlines: ``sleep`` advances it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def sleep(self, s):
+        self.t += s
+
+
+def serve_cancel(g, dev, wl, counters):
+    """(c): cancel one request mid-stream and let one deadline expire (a
+    virtual clock); the co-riders == their solo results bitwise, and the
+    cancelled ticket's state, checkpointed, resumes through the solo
+    estimate_many to the uninterrupted solo result."""
+    from repro_torch.api import Counter
+    from repro_torch.core import prng
+    from repro_torch.serve import CountingService, ServiceConfig
+
+    clk = _Clock()
+    svc = CountingService(g, n_colors=wl.k, backend="single", plan_opts={"device": dev},
+                          config=ServiceConfig(batch=wl.batch), clock=clk, sleep=clk.sleep)
+    (_, fam, fkw), (_, fam_b, bkw), (_, one, okw), _, (_, one2, o2kw) = wl.requests
+    cancelled = svc.submit("alice", fam, **fkw)
+    expired = svc.submit("bob", fam_b, **bkw, timeout_s=10.0)
+    riders = [(("carol", 0), svc.submit("carol", one, **okw)),
+              (("carol", 1), svc.submit("carol", one2, **o2kw))]
+    for _ in range(3):
+        svc.step()
+    if not cancelled.cancel():
+        raise AssertionError("phase 14 (c): cancel did not take effect")
+    clk.t += 11.0
+    svc.run_until_idle()
+    if cancelled.status != "cancelled" or expired.status != "deadline_exceeded":
+        raise AssertionError(f"phase 14 (c): {cancelled.status}, {expired.status}")
+    serve_check_solo("phase 14 (c) co-rider", riders, counters, g, device=dev)
+    st = cancelled.state()
+    if not (0 < st.cursor < cancelled._request.n_calls) or st.status != "cancelled":
+        raise AssertionError(f"phase 14 (c): cancelled state at cursor {st.cursor} ({st.status})")
+    with tempfile.TemporaryDirectory(prefix=".smoke_tmp", dir=ROOT) as tmp:
+        cancelled.checkpoint(tmp)
+        c = Counter.from_graph(g, fam[0], n_colors=wl.k, device=dev)
+        resumed = c.estimate_many(fam, fkw["n_iter"], key=prng.key(0), batch=wl.batch,
+                                  resume=tmp)
+    full = serve_solo(counters, g, cancelled, device=dev)
+    if resumed.resumed_from != st.cursor * wl.batch or not serve_same(resumed, full):
+        raise AssertionError(f"phase 14 (c): resumed {resumed.resumed_from} iterations, "
+                             f"samples {resumed.samples[:2]} vs {full.samples[:2]}")
+    log(f"phase 14 (c): cancelled at call {st.cursor} of {cancelled._request.n_calls} and "
+        f"resumed through estimate_many(resume=...) == the uninterrupted solo result bitwise; "
+        f"{expired} expired after {expired._request.cursor} calls; co-riders == solo")
+    return {"cancel_cursor": st.cursor, "expired_cursor": expired._request.cursor}
+
+
+def serve_evict(g, dev, wl, card):
+    """(d): plan_cache_capacity=1; families A, B, A (two evictions): the
+    memory after them == with A's plan alone, and after the service goes,
+    == before the first build, each within SERVE_MEM_SLACK."""
+    import gc
+
+    import torch
+    from repro_torch.serve import CountingService, ServiceConfig
+
+    fam_a, fam_b = wl.requests[0][1], wl.requests[1][1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    svc = CountingService(g, n_colors=wl.k, backend="single", plan_opts={"device": dev},
+                          config=ServiceConfig(batch=wl.batch, plan_cache_capacity=1,
+                                               result_cache_capacity=0))
+    mem = []
+    for fam in (fam_a, fam_b, fam_a):
+        svc.submit("alice", fam, n_iter=wl.batch)
+        svc.run_until_idle()
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated(dev))
+    cache = svc.stats()["cache"]
+    done = all(t.status == "done" for t in svc.completed)
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    if (cache["evictions"] != 2 or not done or abs(mem[2] - mem[0]) > SERVE_MEM_SLACK
+            or abs(after - before) > SERVE_MEM_SLACK):
+        raise AssertionError(f"phase 14 (d): cache {cache}, memory before {before}, after each "
+                             f"family {mem}, after the service {after}")
+    log(f"phase 14 (d) [{card}]: {cache['evictions']} evictions; allocated {before} bytes before "
+        f"the first build, {mem} after A, B, A (A's plan {mem[0] - before} bytes), {after} after "
+        f"the service went")
+    return {"before": before, "after_each": mem, "after": after, "plan_bytes": mem[0] - before}
+
+
+def serve_faults(dev, wl):
+    """(e) at bench-small's size on the card: service.pass_poison
+    quarantines one call of one pass and the request on another pass is
+    untouched; service.step_crash is recorded and the driver goes on;
+    service.slow_pass under timeout_s retries at the same key, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.serve import CountingService, ServiceConfig
+    from repro_torch.testing import faults
+
+    g = COUNTING_CONFIGS[SERVE_FAULT_CONFIG].synthesize()
+    counters = {}
+
+    def svc_of(**kw):
+        return CountingService(g, n_colors=wl.k, backend="single", plan_opts={"device": dev},
+                               config=ServiceConfig(batch=wl.batch, **kw))
+
+    def solo_rows(t, drop=()):
+        s = serve_solo(counters, g, t, device=dev).samples
+        b = wl.batch
+        return [s[i * b:(i + 1) * b] for i in range(len(s) // b) if i not in drop]
+
+    svc = svc_of()
+    ta = svc.submit("alice", ("u3-1", "u5-2"), n_iter=2 * wl.batch)
+    tc = svc.submit("carol", ("u3-1",), n_iter=2 * wl.batch)
+    tb = svc.submit("bob", ("u5-2",), n_iter=2 * wl.batch, key=prng.key(5))
+    with faults.active(faults.inject("service.pass_poison", at=(0,))) as plan:
+        svc.run_until_idle()
+    if plan.fired != [("service.pass_poison", 0)] or svc.stats().get("quarantined") != 1:
+        raise AssertionError(f"phase 14 (e) pass_poison: fired {plan.fired}, {svc.stats()}")
+    for t in (ta, tc):
+        r = t.result()
+        if [q.call_index for q in r.quarantined] != [0] or not np.array_equal(
+                r.samples, np.concatenate(solo_rows(t, drop={0}))):
+            raise AssertionError(f"phase 14 (e) pass_poison {t}: {r.quarantined}")
+    serve_check_solo("phase 14 (e) other pass", [("bob", tb)], counters, g, device=dev)
+
+    svc = svc_of().start()
+    try:
+        with faults.active(faults.inject("service.step_crash", at=(0,))) as plan:
+            t = svc.submit("alice", ("u3-1", "u5-2"), n_iter=2 * wl.batch)
+            if not t.wait(300) or not plan.fired:
+                raise AssertionError("phase 14 (e) step_crash: the request did not finish")
+    finally:
+        svc.stop()
+    if not any("InjectedFault" in e for e in svc.driver_errors):
+        raise AssertionError(f"phase 14 (e) step_crash: driver errors {svc.driver_errors}")
+    serve_check_solo("phase 14 (e) step_crash", [("alice", t)], counters, g, device=dev)
+
+    timeout, slow = SERVE_SLOW
+    svc = svc_of(timeout_s=timeout, max_retries=1)
+    t = svc.submit("alice", ("u3-1", "u5-2"), n_iter=2 * wl.batch)
+    t0 = time.perf_counter()
+    with faults.active(faults.inject("service.slow_pass", at=(0,), payload=slow)) as plan:
+        svc.run_until_idle()
+    dt = time.perf_counter() - t0
+    if ("service.slow_pass", 0) not in plan.fired or t.result().quarantined:
+        raise AssertionError(f"phase 14 (e) slow_pass: fired {plan.fired}, {t.result()}")
+    serve_check_solo("phase 14 (e) slow_pass", [("alice", t)], counters, g, device=dev)
+    # the timed-out attempt's thread sleeps on, then runs its pass: let it
+    # end before the next check measures the card
+    time.sleep(max(0.0, slow - dt) + 1.0)
+    torch.cuda.synchronize()
+    log(f"phase 14 (e) {SERVE_FAULT_CONFIG} (V={g.n}): pass_poison quarantined call 0 of one "
+        f"pass (its riders == solo less that call, the other pass == solo); step_crash recorded "
+        f"and the driver went on; slow_pass past a {timeout}s timeout retried at the same key "
+        f"== solo bitwise in {dt:.2f}s")
+    return {"graph": SERVE_FAULT_CONFIG, "slow_pass_s": dt}
+
+
+def serve_distributed(g, dev, wl, card, union_plan):
+    """(f): the script on the distributed backend, LocalMesh P = 4 on the
+    card: every ticket == the solo distributed estimate bitwise, and every
+    call of every ticket within SERVE_DIST_RTOL of ``union_plan`` (the
+    single-device family plan of all the script's templates) on the same
+    colorings: the keyed backend draws each iteration's coloring from its
+    own split key, so (a)'s samples are of other colorings."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.count_engine import colorful_map_count_many
+    from repro_torch.core.distributed import global_coloring
+    from repro_torch.core.estimator import call_key
+    from repro_torch.serve import CountingService, ServiceConfig
+
+    opts = {"num_shards": SERVE_SHARDS, "device": dev}
+    t0 = time.perf_counter()
+    svc = CountingService(g, n_colors=wl.k, backend="distributed", plan_opts=opts,
+                          config=ServiceConfig(batch=wl.batch))
+    rec = serve_instrument(svc)
+    tickets = serve_submit_script(svc, wl)
+    svc.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = {}
+    serve_check_solo("phase 14 (f)", tickets, counters, g, backend="distributed", **opts)
+    names = [t.name for t in union_plan.templates]
+    scales = np.asarray(union_plan.scales)
+    single, rel, calls = {}, 0.0, 0
+    for key, t in tickets:
+        req, got, b = t._request, t.result().samples, wl.batch
+        cols = [names.index(n) for n in t.templates]
+        for c in range(len(got) // b):
+            if (req.key_fp, c) not in single:  # one call's colorings, on the union plan
+                colorings = torch.stack([global_coloring(k, g.n, wl.k, device=dev)
+                                         for k in prng.split(call_key(req.key, c), b)])
+                single[req.key_fp, c] = (colorful_map_count_many(union_plan, colorings)
+                                         .cpu().numpy() * scales)
+            want = single[req.key_fp, c][:, cols].reshape(got[c * b:(c + 1) * b].shape)
+            rel = max(rel, float(np.max(np.abs(got[c * b:(c + 1) * b] - want) / np.abs(want))))
+            calls += 1
+    if rel > SERVE_DIST_RTOL or not calls:
+        raise AssertionError(f"phase 14 (f): rel {rel} to the single-device plan over {calls} "
+                             f"calls")
+    stats = serve_stats(svc)
+    serve_instrument_check("phase 14 (f)", rec, stats)
+    timing = {"wall_s": wall, "dispatches": len(rec["call_s"]),
+              "plan_build_s_per_miss": sum(rec["build_s"]) / stats["plan_cache"]["misses"],
+              "ms_per_pass_call_median": float(np.median(rec["call_s"])) * 1e3}
+    log(f"phase 14 (f) [{card}] distributed, LocalMesh P={SERVE_SHARDS} on the main graph: "
+        f"every ticket == its solo distributed estimate bitwise; all {calls} calls of the "
+        f"{len(tickets)} tickets ({len(single)} batches of colorings) within rel {rel:.2e} "
+        f"of the single-device plan on the same colorings; run {wall:.2f}s, plan build "
+        f"{timing['plan_build_s_per_miss']:.2f} s per miss, "
+        f"{timing['ms_per_pass_call_median']:.1f} "
+        f"ms per pass call (median), stats {stats}")
+    return {"graph": "main", "shards": SERVE_SHARDS, "rel_to_single": rel,
+            "calls_checked": calls, "stats": stats, "timing": timing}
+
+
+def _serve_launch(argv):
+    from repro_torch.launch.serve import main as serve_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_main(argv)
+    out = buf.getvalue()
+    log("".join(f"  {line}\n" for line in out.splitlines()).rstrip())
+    return out.splitlines()
+
+
+def serve_launch():
+    """(g): the launcher: bench-service synchronous and --threaded print
+    identical estimates; smoke-service on the distributed backend runs."""
+    def estimates(lines):
+        return [ln.split("latency=")[0] for ln in lines if ln.startswith("  Ticket(")]
+
+    sync = _serve_launch(["--workload", "bench-service"])
+    threaded = _serve_launch(["--workload", "bench-service", "--threaded"])
+    if not estimates(sync) or estimates(sync) != estimates(threaded):
+        raise AssertionError(f"phase 14 (g): --threaded printed {threaded}, not {sync}")
+    dist = _serve_launch(["--workload", "smoke-service", "--backend", "distributed"])
+    if not any(ln.startswith("served 3 (failed 0") for ln in dist):
+        raise AssertionError(f"phase 14 (g): smoke-service --backend distributed: {dist}")
+    log("phase 14 (g): the launcher's bench-service and --threaded print identical estimates; "
+        "smoke-service --backend distributed serves its 3 requests")
+
+
+def phase_serve(g, dev):
+    """Phase 14: the counting service on the main graph (see the module
+    docstring); returns the path's launches, the kernel rows at its shapes
+    and what the kernels line reports."""
+    import torch
+    from repro_torch.configs.subgraph import SERVICE_WORKLOADS
+
+    wl = SERVICE_WORKLOADS[SERVE_WORKLOAD]
+    card = card_line()
+    t0 = time.perf_counter()
+    union_plan, rows = serve_kernel_rows(g, dev, wl)
+    launches, results, counters, sync = serve_sync(g, dev, wl, card, union_plan)
+    threaded = serve_threaded(g, dev, wl, results)
+    cancel = serve_cancel(g, dev, wl, counters)
+    counters.clear()
+    torch.cuda.empty_cache()
+    evict = serve_evict(g, dev, wl, card)
+    faults_ = serve_faults(dev, wl)
+    dist = serve_distributed(g, dev, wl, card, union_plan)
+    del union_plan
+    torch.cuda.empty_cache()
+    serve_launch()
+    dt = time.perf_counter() - t0
+    log(f"phase 14 passed in {dt:.1f}s")
+    return launches, rows, {"workload": wl.name, "templates": serve_union(wl), "k": wl.k,
+                            "batch": wl.batch, "graph": "main", "seconds": dt, "sync": sync,
+                            "threaded": threaded, "cancel": cancel, "evict": evict,
+                            "faults": faults_, "distributed": dist}
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the redesigned count-table kernels' designs, and where the times of the
@@ -2948,12 +3559,13 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
     return {"kernels": out, "card": card, "batch": {"main": MAIN_BATCH, "dense": DENSE_BATCH,
                                                  "family": FAMILY_BATCH, "tw2": TW2_BATCH,
-                                                 "distributed": DIST_BATCH},
+                                                 "distributed": DIST_BATCH,
+                                                 "serve": dags["serve"][1]["batch"]},
             "time_unit": "ms per u12-2 DP pass over all node shapes", "main_path": main_path,
             "dense_path": dense,
             "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
             "sparse_path": sparse[1], "distributed_path": dist[1],
-            "distributed_compact_path": compact[1],
+            "distributed_compact_path": compact[1], "serve_path": dags["serve"][1],
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -2979,6 +3591,8 @@ def run_phases(dev):
     family_launches, family_rows, family = phase_family(g, dev)
     torch.cuda.empty_cache()
     dist_launches, dist_rows, dist, (saturation, narrow_nccl) = phase_distributed(g, dev)
+    torch.cuda.empty_cache()
+    serve_launches, serve_rows, serve = phase_serve(g, dev)
     del g
     torch.cuda.empty_cache()
     dense_graph = rmat_graph(2 ** 16, 16_000_000)
@@ -3005,12 +3619,13 @@ def run_phases(dev):
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
                 "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
-                "distributed": dist_launches, "distributed_compact": compact_launches}
+                "distributed": dist_launches, "distributed_compact": compact_launches,
+                "serve": serve_launches}
     for name in main_launches:
         if not sum(p[name] for p in launches.values()):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
-    dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2)}
+    dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2), "serve": (serve_rows, serve)}
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
             wide, dags, (sparse_rows, sparse), (dist_rows, dist), (compact_rows, compact))
 

@@ -36,9 +36,9 @@ distributed backend it compacts the exchange too, and ``wire_dtype``
 (``"int16"``, ``"int8"``) narrows the wire (§18), re-running a saturated
 batch one rung wider.  Under a ``torch.distributed`` world every rank runs
 the same estimator loop on replicated counts, and only rank 0 writes
-checkpoints.
-``sample_stream`` and ``serve`` wait for their ROADMAP item and raise
-``NotImplementedError`` naming it.
+checkpoints.  :meth:`Counter.serve` starts a resident multi-tenant
+counting service (:mod:`.serve`) on the Counter's graph, and
+:meth:`Counter.sample_stream` streams per-coloring estimate batches.
 
 Plan construction is lazy: building a ``Counter`` is cheap; the first
 counting call builds and caches the plan.
@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Iterator, Mapping, Optional, Union
 
 import numpy as np
 
@@ -71,11 +71,18 @@ from .core.templates import Template, Tree, template_program, template as resolv
 from .kernels.ops import ROW_BLOCK
 from .train.checkpoint import CheckpointManager
 
-__all__ = ["CountRequest", "CountResult", "MultiCountResult", "Counter"]
-
-_TODO = {
-    "serve": "serving is ROADMAP queue 1 item 8",
-}
+__all__ = [
+    "CountRequest",
+    "CountResult",
+    "MultiCountResult",
+    "Counter",
+    "run",
+    # serving layer (lazy re-exports; see module __getattr__)
+    "CountingService",
+    "ServiceClient",
+    "ServiceConfig",
+    "Ticket",
+]
 
 #: plan_opts the single backend passes to ``build_counting_plan``
 #: (``n_colors`` widens the color budget past the template size: the
@@ -302,7 +309,10 @@ class Counter:
       coloring (oracle testing); :meth:`count_coloring_many` its family
       analogue;
     * :attr:`sample_fn` — the raw backend protocol, for warm-up and for
-      composing with other aggregators.
+      composing with other aggregators; :meth:`sample_stream` — its
+      endless keyed stream;
+    * :meth:`serve` — a resident multi-tenant counting service on the
+      graph.
     """
 
     def __init__(self, graph: Graph, tree: Union[Tree, Template], backend: str,
@@ -691,9 +701,97 @@ class Counter:
             maps = colorful_map_count_many(plan, coloring)
         return maps.cpu().numpy()
 
-    # ------------------------------------------------------- not yet ported
-    def sample_stream(self, *args, **kwargs):
-        raise NotImplementedError(f"sample_stream: {_TODO['serve']}")
+    def sample_stream(self, key: Optional[prng.Key] = None, *,
+                      batch: int = 8) -> Iterator[np.ndarray]:
+        """Endless stream of per-coloring estimate batches (float64 [batch]).
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError(f"serve: {_TODO['serve']}")
+        For incremental/serving use: consume until the caller's own
+        convergence criterion is met, feed a live dashboard, etc.  The key
+        is split per step, so the stream is reproducible from ``key``
+        (default ``prng.key(0)``).
+        """
+        if key is None:
+            key = prng.key(0)
+        while True:
+            key, sub = prng.split(key)
+            yield self.sample_fn(sub, batch)
+
+    # ---------------------------------------------------------------- serving
+    def serve(self, *, n_colors: Optional[int] = None, config=None,
+              start: bool = False, **config_kw):
+        """A resident :class:`~.serve.CountingService` on this graph.
+
+        The service loads the graph once and serves a multi-tenant request
+        stream: plan-cache reuse across requests, coalesced coloring
+        passes, per-tenant fair scheduling (DESIGN.md §17), and the §20
+        hardening — driver thread, deadlines/cancellation, backpressure,
+        supervised passes.  It runs with a fixed shared color budget —
+        ``n_colors`` defaults to this Counter's own
+        (``plan_opts['n_colors']`` or the template size), and every
+        request's results are bit-identical to a solo
+        ``Counter.estimate``/``estimate_many`` at that budget, on this
+        Counter's backend and device.
+
+        ``start=True`` launches the background driver thread before
+        returning; any extra keyword (``max_pending=...``,
+        ``shed_oldest=True``, ``timeout_s=...``) builds the
+        :class:`~.serve.ServiceConfig` in place of ``config``.
+        """
+        from .serve import CountingService, ServiceConfig
+
+        if config_kw:
+            if config is not None:
+                raise ValueError("pass config= or ServiceConfig kwargs, not both")
+            config = ServiceConfig(**config_kw)
+        k = n_colors or self.plan_opts.get("n_colors") or self.k
+        opts = {key: v for key, v in self.plan_opts.items() if key != "n_colors"}
+        svc = CountingService(
+            self.graph,
+            n_colors=k,
+            backend=self.backend,
+            plan_opts=opts,
+            config=config,
+        )
+        return svc.start() if start else svc
+
+
+def __getattr__(name):
+    # lazy serving re-exports: .serve imports this module at module scope,
+    # so the reverse edge must resolve at attribute time
+    if name in ("CountingService", "ServiceClient", "ServiceConfig", "Ticket",
+                "QueueFullError", "UnsatisfiableRequestError"):
+        from . import serve as _serve
+
+        return getattr(_serve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def run(
+    request: CountRequest,
+    *,
+    key: Optional[prng.Key] = None,
+    progress: bool = False,
+    checkpoint=None,
+    resume: Union[bool, str] = False,
+) -> CountResult:
+    """One-shot: resolve a :class:`CountRequest` and run its estimate.
+
+    The request's robustness spec (``max_retries``, ``checkpoint_every``,
+    ``target_rsd``) applies; ``checkpoint``/``resume`` name where the state
+    lives, since a directory is a property of the invocation, not of the
+    workload.
+    """
+    counter = Counter.from_request(request)
+    return counter.estimate(
+        request.n_iter,
+        eps=request.eps,
+        delta=request.delta,
+        key=key,
+        batch=request.batch,
+        progress=progress,
+        max_retries=request.max_retries,
+        target_rsd=request.target_rsd,
+        checkpoint=checkpoint,
+        checkpoint_every=request.checkpoint_every,
+        resume=resume,
+    )

@@ -1,6 +1,7 @@
 """Counting-workload configs — the paper's own experiment grid (Table 2/Fig 5).
 
-A data copy of ``repro/configs/subgraph.py``'s ``CountingConfig`` rows.
+A data copy of ``repro/configs/subgraph.py``'s ``CountingConfig`` rows
+and its ``ServiceWorkloadConfig`` request scripts.
 The port's launcher runs the single-device rows through
 :meth:`CountingConfig.to_request`; the distributed fields (``num_shards``,
 ``mode``, ...) ride the request as the reference's do, and the single
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["CountingConfig", "COUNTING_CONFIGS", "PAPER_DATASETS"]
+__all__ = ["CountingConfig", "COUNTING_CONFIGS", "PAPER_DATASETS", "ServiceWorkloadConfig",
+           "SERVICE_WORKLOADS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,4 +139,53 @@ COUNTING_CONFIGS = {
     "bench-tw2-mixed": CountingConfig(
         "bench-tw2-mixed", 256, 2_000, template="cycle6", num_shards=8,
         templates=("u3-1", "cycle4", "u5-2", "cycle6", "diamond")),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceWorkloadConfig:
+    """A synthetic multi-tenant request stream for the counting service.
+
+    ``graph`` names a :data:`COUNTING_CONFIGS` row (synthesized at run
+    time); ``requests`` is the admission script — ``(tenant, templates,
+    kwargs)`` tuples submitted in order, each repeated ``repeats`` times so
+    the plan cache and the coalescer have something to chew on.  The
+    service runs with ``n_colors = k`` and per-call batch ``batch``.
+    """
+
+    name: str
+    graph: str  # COUNTING_CONFIGS row to synthesize
+    k: int  # service-wide shared color budget
+    batch: int = 8
+    repeats: int = 1
+    requests: tuple = ()  # ((tenant, templates, kwargs), ...)
+
+    def counting_config(self) -> CountingConfig:
+        return COUNTING_CONFIGS[self.graph]
+
+
+SERVICE_WORKLOADS = {
+    # three tenants, overlapping template families and shared default key:
+    # alice re-asks the same family (plan-cache hits), bob's family shares
+    # subtrees with alice's, carol's scalar queries coalesce into whatever
+    # family pass is in flight
+    "bench-service": ServiceWorkloadConfig(
+        "bench-service", graph="bench-small", k=7, batch=8, repeats=2,
+        requests=(
+            ("alice", ("u3-1", "u5-2"), {"n_iter": 48}),
+            ("bob", ("u5-2", "u7-2"), {"n_iter": 32}),
+            ("carol", ("u3-1",), {"n_iter": 64, "target_rsd": 0.2}),
+            ("alice", ("u3-1", "u5-2"), {"n_iter": 24}),
+            ("carol", ("u5-2",), {"n_iter": 40}),
+        ),
+    ),
+    # single-tenant smoke row for CI (small budgets, tiny graph)
+    "smoke-service": ServiceWorkloadConfig(
+        "smoke-service", graph="bench-small", k=5, batch=4,
+        requests=(
+            ("alice", ("u3-1", "u5-2"), {"n_iter": 8}),
+            ("bob", ("u5-2",), {"n_iter": 8}),
+            ("alice", ("u3-1",), {"n_iter": 12}),
+        ),
+    ),
 }

@@ -167,6 +167,12 @@ class EstimatorState:
     per-call key sequence completed (including quarantined ones — their
     keys are consumed, their records kept, so a resumed run neither replays
     nor double-counts them).
+
+    ``status`` is provenance, not identity: the terminal status of the run
+    that exported this state (``""`` for a plain checkpoint, or a service
+    ticket's such as ``"cancelled"``/``"deadline_exceeded"``).  Resume
+    ignores it, and it rides ``to_arrays`` so a checkpoint directory
+    records why the banked work stopped where it did.
     """
 
     signature: str  # run_signature() — checked on resume
@@ -176,6 +182,7 @@ class EstimatorState:
     cursor: int  # backend calls completed (PRNG key cursor)
     samples: np.ndarray  # [done] or [done, T] banked estimates
     quarantined: tuple = ()  # QuarantinedBatch records
+    status: str = ""  # exporting run's terminal status (provenance only)
 
     @property
     def done(self) -> int:
@@ -203,6 +210,7 @@ class EstimatorState:
             "q_attempts": np.asarray([r.attempts for r in q], np.int64),
             "q_keys": keys,
             "q_reasons": np.frombuffer(reasons.encode("utf-8"), np.uint8).copy(),
+            "status": np.frombuffer(self.status.encode("utf-8"), np.uint8).copy(),
         }
 
     @classmethod
@@ -228,6 +236,8 @@ class EstimatorState:
             cursor=int(flat["cursor"]),
             samples=np.asarray(flat["samples"], np.float64),
             quarantined=q,
+            status=(bytes(np.asarray(flat["status"], np.uint8)).decode("utf-8")
+                    if "status" in flat else ""),
         )
 
 

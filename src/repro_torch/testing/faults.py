@@ -1,9 +1,7 @@
 """Deterministic fault injection at named sites (DESIGN.md §16).
 
 The port's own copy of ``repro/testing/faults.py`` (the port imports
-nothing of the reference package).  The port instruments the sample,
-checkpoint, estimator, compaction and compression sites; the reference's
-service sites come with the slice that ports serving.
+nothing of the reference package), with the same sites.
 
 Recovery paths are only trustworthy if they are *exercised*: this module
 lets tier-1 tests make a specific failure happen at a specific, repeatable
@@ -32,6 +30,15 @@ Instrumented sites (grep ``faults.fire`` for the authoritative list):
 ``compression.saturate``   a narrow-wire distributed count function treats the
                            batch as saturated and re-runs it one rung wider
                            (int8 -> int16 -> float32), DESIGN.md §18
+``service.step_crash``     :meth:`CountingService.step` raises
+                           :class:`InjectedFault` before scheduling anything
+                           (the §20 driver thread must record it and survive)
+``service.pass_poison``    one coalesced pass call's backend payload is
+                           poisoned with NaN — a §16 hard fault: the call
+                           quarantines without killing co-riding requests
+``service.slow_pass``      one coalesced pass call sleeps ``payload`` seconds
+                           (default 4x the service timeout) so the service
+                           supervisor's per-batch timeout fires and retries
 =========================  ====================================================
 
 Usage::

@@ -114,10 +114,16 @@ def test_backends_and_unported_surfaces():
     assert compact.plan.compaction is not None and compact.plan.compaction.probes == 2
     assert Counter.from_graph(g, "u5-2", device="cpu", n_colors=7).plan.k == 7
     assert c.estimate_many(["u3-1"], n_iter=2).samples.shape == (2, 1)
-    for call, item in ((lambda: c.sample_stream(), "item 8"),
-                       (lambda: c.serve(), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # sample_stream and serve are ported: a stream batch and a served
+    # request are the solo estimate's samples
+    first = next(c.sample_stream(prng.key(0), batch=2))
+    assert first.shape == (2,) and first.dtype == np.float64
+    svc = c.serve(batch=2)
+    assert svc.k == 5 and svc.device == torch.device("cpu")
+    served = svc.client("a").count("u3-1", n_iter=4)
+    solo = Counter.from_graph(g, "u3-1", device="cpu", n_colors=5).estimate(
+        4, key=prng.key(0), batch=2)
+    np.testing.assert_array_equal(served.samples, solo.samples)
     with pytest.raises(ValueError, match="pass n_iter or eps"):
         c.estimate()
 

@@ -78,6 +78,15 @@ def test_slice_nine_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_ELEVEN_MODULES = ["serve/__init__.py", "serve/counting_service.py", "launch/serve.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_ELEVEN_MODULES)
+def test_slice_eleven_modules_are_checked(module):
+    """The counting service's modules are among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -90,7 +99,7 @@ def test_engine_import_loads_no_jax():
         "repro_torch.models.convert, repro_torch.testing.numerics, repro_torch.core.frontier, "
         "repro_torch.comm, repro_torch.comm.group, repro_torch.comm.ring, "
         "repro_torch.comm.pipelined, repro_torch.comm.adaptive, repro_torch.launch.mesh, "
-        "repro_torch.core.distributed; "
+        "repro_torch.core.distributed, repro_torch.serve, repro_torch.launch.serve; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
