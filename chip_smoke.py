@@ -3,9 +3,11 @@
 the single-device tree-template estimate, family counting, treewidth-2 bag
 programs, active-frontier compaction, the distributed exchange engine on
 thread ranks sharing the card (dense, compacted and at narrow wires), the
-resident counting service, and the granite-3-8b serving path (prefill,
-then decode), with every kernel of their paths built from this checkout
-and held against its plain PyTorch version.
+resident counting service, the counting dry-run's memory model held
+against those runs, and the granite-3-8b serving path (prefill, then
+decode), with every kernel of their paths built from this checkout and
+held against its plain PyTorch version.  Every bound is the roofline of a
+kernel's work count (``repro_torch.kernels.work``).
 
     python3 chip_smoke.py            # all phases, one card (about 8-10 minutes)
 
@@ -189,6 +191,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              plan on the same colorings.
              (g) the launcher: bench-service and --threaded print identical
              estimates; smoke-service --backend distributed runs.
+15. dryrun — the counting dry-run (repro_torch.launch.dryrun: one rank's
+             program on meta tensors at paper scale) and the roofline
+             (repro_torch.roofline.analysis).  (a) the dry-run CLI for every
+             COUNTING_CONFIGS row at its production mesh, single- and
+             multi-pod, and rmat500-u12-2 at alltoall, pipeline and ring, in
+             processes that see no card: per-rank argument and temp bytes,
+             fits on this card, the dominant roofline term; any error record
+             fails.  (b) the model of each phase 12 (c) NCCL call at world
+             size 1 within 5% of its max_memory_allocated growth.  (c) the
+             model of phase 12 (b)'s LocalMesh P = 4 u12-2 cell, every mode x
+             fuse: the split tables once, the four ranks' arguments and
+             settled bytes (held between ops) and one rank's excess over
+             them, within 15% of the peak over the warm and timed calls; the
+             alltoall / pipeline ratio within 10%.
+             (d) no kernel time of phases 2-14 below the bound its work count
+             (repro_torch.kernels.work) gives.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -211,9 +229,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
-FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA as 2 (data sheet)
-FP32_ADDS_PER_S = FP32_FLOPS_PER_S / 2  # a lone add issues at the FMA rate
 # shared memory of the H100: 132 SMs x 128 bytes a clock x 1.98 GHz (data
 # sheet); an exact float32 combine FMA with both operands staged there reads
 # 2.25 wavefronts of 128 bytes a warp (two operands, a quarter of a split
@@ -227,7 +242,6 @@ DENSE_ITERS = 32  # colorings per estimate on the dense cell: 2 calls
 DENSE_PLAIN_BLOCKS = 8  # row blocks the dense-product plain block SpMM is held on
 PLAIN_RTOL = 1e-5  # float32 order: index_add_ uses atomics, counts exceed 2^24
 ORDER_WIDTH = 66  # node width of phase 2's order-sensitive checks (the sequential sum is slow)
-BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
 LM_ARCH = "granite-3-8b"
 LM_BATCH = 4  # prompts per prefill
 LM_LEN = 4096  # tokens per prompt
@@ -290,12 +304,22 @@ def max_abs_err(a, b) -> float:
                default=0.0)
 
 
-def bound_ms(nbytes: float, adds: float, fmas: float = 0):
-    """The larger of the bytes' time at the HBM rate and the float32 adds'
-    and FMAs' time at the data sheet's rate (either issues once a cycle)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (adds + fmas) / FP32_ADDS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(w):
+    """The least time the card could take for one launch's work
+    (``repro_torch.kernels.work``): the larger of its bytes at the HBM rate
+    and its operations at their peaks (``roofline.analysis.bound_s``, the
+    data sheet's rates), and which of the two it is."""
+    from repro_torch.roofline.analysis import bound_s
+
+    t, by = bound_s(w)
+    return t * 1e3, by
+
+
+def hbm_ms(nbytes: float) -> float:
+    """``nbytes`` at the HBM rate, ms: what a design moves, beside its bound."""
+    from repro_torch.roofline.analysis import HBM_BYTES_PER_S
+
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def rmat_graph(n: int, m: int, skew: int = 3):
@@ -477,14 +501,13 @@ def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, t
     timed beside the plain version, the library call where one exists and
     the bound; appended to ``rows``."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     from repro_torch.kernels.color_combine import color_combine
     from repro_torch.kernels.fused_count import fused_count
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
     a, bw, s, j = shape_key
     n_pad, e, dev = sp.n_pad, sp.num_directed, sp.indptr.device
-    csr_bytes = (n_pad + 1) * 8 + e * 4
 
     def table(width, hi):
         return torch.randint(0, hi, (n_pad, batch, width), generator=gen, device=dev).float()
@@ -495,7 +518,7 @@ def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, t
     # The gather bound counts every edge's read of a B*W row segment once:
     # the bytes this design moves, beside the contract bound (each table
     # read once).
-    gather_ms = e * batch * bw * 4 / HBM_BYTES_PER_S * 1e3
+    gather_ms = hbm_ms(e * batch * bw * 4)
     # SpMM: sums of at most max_degree values <= 3 stay far below 2^24
     right = table(bw, 4)
     got = spmm_edge_tile(sp.indptr, sp.indices, right)
@@ -508,13 +531,12 @@ def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, t
     if err != 0 or not lib_equal:
         raise AssertionError(f"spmm_edgetile != plain at {shape}: max_abs_err {err}, "
                              f"library equal {lib_equal}")
-    nb = 2 * n_pad * batch * bw * 4 + csr_bytes
     row = dict(
         shape=shape, mult=mult, err=err,
         ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right)),
         plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
         library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
-        bound=bound_ms(nb, e * batch * bw), gather_ms=gather_ms)
+        bound=bound_ms(work.spmm_edge(n_pad, n_pad, e, batch * bw)), gather_ms=gather_ms)
     if hub is not None:
         row["hub_cut_ms"] = cuda_ms(lambda: spmm_edge_tile(hub[0], hub[1], right))
     rows["spmm_edgetile"].append(row)
@@ -527,10 +549,9 @@ def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, t
     del got, want
     if err != 0:
         raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
-    nb = n_pad * batch * (a + bw + s) * 4 + tbl.pairs.numel() * 4
     # the staged floor: the bound, or the FMAs' shared-memory reads if longer
     smem_ms = n_pad * batch * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
-    bound = bound_ms(nb, 0, n_pad * batch * s * j)
+    bound = bound_ms(work.color_combine(n_pad * batch, a, bw, s, j, tbl.jp))
     rows["color_combine"].append(dict(
         shape=shape, mult=mult, err=err,
         ms=cuda_ms(lambda: color_combine(left, m, tbl)),
@@ -545,13 +566,13 @@ def tree_shape_rows(sp, batch: int, shape_key, mult: int, tbl, gen, csr, rows, t
     del got, want
     if err != 0:
         raise AssertionError(f"fused_count != plain at {shape}: max_abs_err {err}")
-    nb = n_pad * batch * (a + bw + s) * 4 + csr_bytes + tbl.pairs.numel() * 4
     rows["fused_count"].append(dict(
         shape=shape, mult=mult, err=err,
         ms=cuda_ms(lambda: fused_count(sp.indptr, sp.indices, left, right, tbl)),
         plain_ms=cuda_ms(lambda: ref.fused_count_ref(
             sp.indptr, sp.indices, left, right, tbl.idx1, tbl.idx2), 1),
-        library_ms=None, bound=bound_ms(nb, e * batch * bw, n_pad * batch * s * j),
+        library_ms=None,
+        bound=bound_ms(work.fused_count(n_pad, n_pad, e, batch, a, bw, s, j, tbl.jp)),
         gather_ms=gather_ms, staged_floor_ms=max(gather_ms, smem_ms)))
     del left, right
     extra = (f"; ten largest rows cut {rows['spmm_edgetile'][-1]['hub_cut_ms']:.3f}ms"
@@ -673,7 +694,7 @@ def phase_kernels_dense(plan, batch: int):
     cannot run whole.  Timed beside the edge kernel, the whole-graph plain
     version, the library call and the bound."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     from repro_torch.kernels.spmm_block import spmm_block
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
@@ -691,7 +712,6 @@ def phase_kernels_dense(plan, batch: int):
         f"slot lists {sp.patch_slots.numel()} bytes (at most {sp.patch_max_slots} a patch)")
     csr = torch.sparse_csr_tensor(sp.indptr, sp.indices.long(), torch.ones(e, device=dev),
                                   (n_pad, n_pad))
-    block_bytes = nb * 128 * 4 * 4 + (nrb + 1 + nb) * 4
     rows = []
     widths = {}
     for i, nd in plan.chain.internal_nodes():
@@ -722,9 +742,8 @@ def phase_kernels_dense(plan, batch: int):
             block_ref_ms=cuda_ms(lambda: ref.spmm_block_ref(sub.patch_ptr, sub.patch_col,
                                                             sub_bits, table), 1),
             sample_ms=cuda_ms(lambda: spmm_block(sub, table)),
-            bound=bound_ms(block_bytes + 2 * n_pad * bw * 4, e * bw),
-            staging_ms=used * bw * 4 / HBM_BYTES_PER_S * 1e3,
-            gather_ms=e * bw * 4 / HBM_BYTES_PER_S * 1e3)
+            bound=bound_ms(work.spmm_block(n_pad, nb, e, bw)),
+            staging_ms=hbm_ms(used * bw * 4), gather_ms=hbm_ms(e * bw * 4))
         rows.append(row)
         del table, flat
         torch.cuda.empty_cache()
@@ -1100,13 +1119,12 @@ def bag_shape_rows(sp, batch: int, x: int, shape_key, mult: int, tbl, gen, csr, 
     beside the plain version on the whole table, the library call where one
     exists and the bound; appended to ``rows``."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     from repro_torch.kernels.color_combine import color_combine
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
     a, w, s, j = shape_key
     n_pad, e, dev = sp.n_pad, sp.num_directed, sp.indptr.device
-    csr_bytes = (n_pad + 1) * 8 + e * 4
 
     def table(width, hi):
         return torch.randint(0, hi, (n_pad, batch, x * width), generator=gen, device=dev).float()
@@ -1126,8 +1144,7 @@ def bag_shape_rows(sp, batch: int, x: int, shape_key, mult: int, tbl, gen, csr, 
         ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, sp.indices, right), 2),
         plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, sp.indices, right), 1),
         library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat), 2),
-        bound=bound_ms(2 * n_pad * bw * 4 + csr_bytes, e * bw),
-        gather_ms=e * bw * 4 / HBM_BYTES_PER_S * 1e3))
+        bound=bound_ms(work.spmm_edge(n_pad, n_pad, e, bw)), gather_ms=hbm_ms(e * bw * 4)))
     del right, flat
     torch.cuda.empty_cache()
     left, m = table(a, 4), table(w, 4)
@@ -1140,7 +1157,7 @@ def bag_shape_rows(sp, batch: int, x: int, shape_key, mult: int, tbl, gen, csr, 
     if err != 0:
         raise AssertionError(f"color_combine != plain at {shape}: max_abs_err {err}")
     n_rows = n_pad * batch * x
-    bound = bound_ms(n_rows * (a + w + s) * 4 + tbl.pairs.numel() * 4, 0, n_rows * s * j)
+    bound = bound_ms(work.color_combine(n_rows, a, w, s, j, tbl.jp))
     smem_ms = n_rows * s * j * SMEM_BYTES_PER_FMA / SMEM_BYTES_PER_S * 1e3
     rows["color_combine"].append(dict(
         shape=shape, mult=mult, err=err,
@@ -1474,7 +1491,7 @@ def sparse_source_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
     remap) and the dense ops are timed into ``ops_ms``."""
     import torch
     from repro_torch.core.frontier import make_frontier_fn
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     from repro_torch.kernels.fused_count import fused_count
     from repro_torch.kernels.spmm_edgetile import spmm_edge_tile
 
@@ -1498,7 +1515,6 @@ def sparse_source_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
     right_c = right.index_select(0, fr.idx)
     cols = torch.index_select(fr.inv, 0, sp.indices)
     e, width = sp.num_directed, batch * tbl.w
-    csr_bytes = (n_pad + 1) * 8 + e * 4
     shape = f"node {i} A={tbl.a} B={tbl.w} S={tbl.s} J={tbl.j} source {rows_c}/{n_pad} rows"
     got = spmm_edge_tile(sp.indptr, cols, right_c)
     err = max_abs_err(got, ref.spmm_segment_ref(sp.indptr, cols, right_c))
@@ -1516,8 +1532,7 @@ def sparse_source_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
         ms=cuda_ms(lambda: spmm_edge_tile(sp.indptr, cols, right_c)),
         plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(sp.indptr, cols, right_c), 1),
         library_ms=cuda_ms(lambda: torch.sparse.mm(csr, flat)),
-        bound=bound_ms(rows_c * width * 4 + n_pad * width * 4 + csr_bytes, e * width),
-        gather_ms=e * width * 4 / HBM_BYTES_PER_S * 1e3))
+        bound=bound_ms(work.spmm_edge(n_pad, rows_c, e, width)), gather_ms=hbm_ms(e * width * 4)))
     del csr, flat
     ops_ms.update({
         "frontier_ms": cuda_ms(lambda: frontier_fn(nd.right, right)),
@@ -1535,16 +1550,15 @@ def sparse_source_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
     if err != 0 or not dense_equal or not ops_equal:
         raise AssertionError(f"{tag} fused_count on a compact source at {shape}: err {err}, "
                              f"== dense {dense_equal}, == fused_count_compact {ops_equal}")
-    nbytes = (n_pad * batch * (tbl.a + tbl.s) + rows_c * width) * 4 + csr_bytes \
-        + tbl.pairs.numel() * 4
     rows["fused_count"].append(dict(
         shape=shape, mult=1, err=err,
         ms=cuda_ms(lambda: fused_count(sp.indptr, cols, left, right_c, tbl)),
         plain_ms=cuda_ms(lambda: ref.fused_count_ref(sp.indptr, cols, left, right_c, tbl.idx1,
                                                      tbl.idx2), 1),
         library_ms=None,
-        bound=bound_ms(nbytes, e * width, n_pad * batch * tbl.s * tbl.j),
-        gather_ms=e * width * 4 / HBM_BYTES_PER_S * 1e3))
+        bound=bound_ms(work.fused_count(n_pad, rows_c, e, batch, tbl.a, tbl.w, tbl.s, tbl.j,
+                                        tbl.jp)),
+        gather_ms=hbm_ms(e * width * 4)))
     ops_ms.update({
         "fused_count_compact_ms": cuda_ms(lambda: ops.fused_count_compact(sp, left, right_c,
                                                                           fr.inv, tbl)),
@@ -1566,7 +1580,7 @@ def sparse_combine_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
     back out) into ``ops_ms``."""
     import torch
     from repro_torch.core.frontier import combine_rows, compact_combine, inverse_map
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     from repro_torch.kernels.color_combine import color_combine
 
     sp, tbl = plan.spmm_plan, plan.combine[i]
@@ -1604,8 +1618,7 @@ def sparse_combine_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
         ms=cuda_ms(lambda: color_combine(lc, mc, tbl)),
         plain_ms=cuda_ms(lambda: ref.color_combine_ref(lc, mc, tbl.idx1, tbl.idx2), 1),
         library_ms=None,
-        bound=bound_ms(r * (tbl.a + tbl.w + tbl.s) * 4 + tbl.pairs.numel() * 4, 0,
-                       r * tbl.s * tbl.j),
+        bound=bound_ms(work.color_combine(r, tbl.a, tbl.w, tbl.s, tbl.j, tbl.jp)),
         gather_ms=None))
 
     outc = lc.new_zeros((r, tbl.s))
@@ -1915,7 +1928,7 @@ def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
     integer tables (sums below 2^24), timed beside them, the library call
     and the bound."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     i = next(i for i, t in plan.combine.items() if (t.a, t.w, t.s, t.j) == node)
     tbl = plan.combine[i]
@@ -1931,7 +1944,6 @@ def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
     for tag, csr, src_rows in (("alltoall CSR", arrays.a2a, plan.num_shards * plan.r_pad),
                                ("bucket CSR (1 -> 0)", arrays.buckets.csr(1, 0), plan.r_pad)):
         e = int(csr.indptr[-1] - csr.indptr[0])
-        csr_bytes = (rows_n + 1) * 8 + e * 4
         shape = f"{tag} rows={rows_n} source={src_rows} A={tbl.a} W={tbl.w} S={tbl.s} J={tbl.j}"
         src = table(src_rows, tbl.w, 4)
         got = ops.spmm_rect(csr, src)
@@ -1948,7 +1960,7 @@ def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
             shape=shape, err=err, ms=cuda_ms(lambda: ops.spmm_rect(csr, src)),
             plain_ms=cuda_ms(lambda: ref.spmm_segment_ref(csr.indptr, csr.indices, src), 1),
             library_ms=cuda_ms(lambda: torch.sparse.mm(lib, flat)),
-            bound=bound_ms((src_rows + rows_n) * b * tbl.w * 4 + csr_bytes, e * b * tbl.w)))
+            bound=bound_ms(work.spmm_edge(rows_n, src_rows, e, b * tbl.w))))
         del src, flat
         left, src = table(rows_n, tbl.a, 2), table(src_rows, tbl.w, 2)
         got = ops.fused_count_rect(csr, left, src, tbl)
@@ -1957,13 +1969,13 @@ def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
         del got, want
         if err != 0:
             raise AssertionError(f"{phase} fused_count != plain on the {shape}: {err}")
-        nb = (rows_n * (tbl.a + tbl.s) + src_rows * tbl.w) * b * 4 + csr_bytes
         rows["fused_count"].append(dict(
             shape=shape, err=err, ms=cuda_ms(lambda: ops.fused_count_rect(csr, left, src, tbl)),
             plain_ms=cuda_ms(lambda: ref.fused_count_ref(csr.indptr, csr.indices, left, src,
                                                          tbl.idx1, tbl.idx2), 1),
             library_ms=None,
-            bound=bound_ms(nb, e * b * tbl.w, rows_n * b * tbl.s * tbl.j)))
+            bound=bound_ms(work.fused_count(rows_n, src_rows, e, b, tbl.a, tbl.w, tbl.s, tbl.j,
+                                            tbl.jp))))
         del left, src
     left, m = table(rows_n, tbl.a, 4), table(rows_n, tbl.w, 4)
     got = ops.color_combine(left, m, tbl)
@@ -1976,8 +1988,7 @@ def dist_kernel_rows(plan, dev, node=DIST_CHECK_NODE, phase="phase 12 (b)"):
         shape=shape, err=err, ms=cuda_ms(lambda: ops.color_combine(left, m, tbl)),
         plain_ms=cuda_ms(lambda: ref.color_combine_ref(left, m, tbl.idx1, tbl.idx2), 1),
         library_ms=None,
-        bound=bound_ms(rows_n * b * (tbl.a + tbl.w + tbl.s) * 4, 0,
-                       rows_n * b * tbl.s * tbl.j)))
+        bound=bound_ms(work.color_combine(rows_n * b, tbl.a, tbl.w, tbl.s, tbl.j, tbl.jp))))
     del left, m
     for name, rs in rows.items():
         for r in rs:
@@ -2046,8 +2057,11 @@ def dist_full(g, dev):
         for fuse in (False, True):
             label = f"{_dist_label(mode, gf)}{' fused' if fuse else ''}"
             f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
             f(cols)  # warm: the kernels' first launches and the allocator's blocks
             torch.cuda.synchronize()
+            warm_peak = torch.cuda.max_memory_allocated(dev)
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
@@ -2073,7 +2087,10 @@ def dist_full(g, dev):
                     f"({split['busy_share']:.1%}); top {split['top_kernels'][:4]}")
             for k, v in _predicted_launches(plan, f.node_modes, fuse, calls).items():
                 launches_want[k] += v
+            # the four thread ranks' peaks coincide in some calls and not in
+            # others: phase 15 (c) reads the larger of the two calls'
             results[label] = {"ms_per_coloring": dt * 1e3 / DIST_BATCH, "peak_bytes": peak,
+                              "peak_warm_and_timed_bytes": max(peak, warm_peak),
                               "allocated_before_bytes": base,
                               "bitwise_equal_single": bool(torch.equal(got, want)),
                               "max_rel_err": rel,
@@ -2106,11 +2123,16 @@ def _free_port() -> int:
 
 def dist_nccl(dev, also=()):
     """(c): an NCCL group of world size 1 on the card (a TCPStore on
-    localhost): every mode on (a)'s graphs == LocalMesh P = 1; then
-    calibrate on LocalMesh P = 4.  ``also``: checks of later phases that
-    need the same NCCL world, each called as ``check(mesh, local)`` inside
-    it, their results returned beside."""
+    localhost): every mode on (a)'s graphs == LocalMesh P = 1, each call's
+    max_memory_allocated growth over the plan's resident arrays recorded
+    (phase 15 (b) holds the dry-run's model to it); then calibrate on
+    LocalMesh P = 4.  ``also``: checks of later phases that need the same
+    NCCL world, each called as ``check(mesh, local)`` inside it, their
+    results returned beside.  Also returns each plan on ``meta``."""
+    import gc
+
     import numpy as np
+    import torch
     import torch.distributed as dist
     from repro_torch.comm import LocalMesh, ProcessGroupComm, ProcessMesh, SoloGroup, calibrate
     from repro_torch.core import prng
@@ -2122,18 +2144,30 @@ def dist_nccl(dev, also=()):
     store = dist.TCPStore("localhost", _free_port(), 1, is_master=True)
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     checked = 0
+    growth, metas = [], {}
     try:
         mesh = ProcessMesh(ProcessGroupComm(), SoloGroup(), dev)
         local = LocalMesh(1, device=dev)
         for g in (erdos_renyi(97, 5.0, seed=7), rmat(*DIST_EXACT_RMAT, skew=8, seed=2)):
             for tree in (path_tree(4), template("u5-2"), template("cycle4")):
                 plan = build_distributed_plan(g, tree, 1, device=dev)
+                plan.shard_arrays(0, dev)  # resident before the calls, as after a first one
+                metas[(g.name, tree.name)] = plan.to("meta")
                 col = np.random.default_rng(3).integers(0, plan.k, g.n).astype(np.int32)
                 cols = np.broadcast_to(shard_coloring(plan, col)[None], (2, 1, plan.n_loc_pad))
                 for mode, gf in DIST_MODES:
                     for fuse in (False, True):
                         kw = dict(mode=mode, group_factor=gf, fuse=fuse)
-                        got = make_count_fn(plan, mesh, **kw)(cols)
+                        f = make_count_fn(plan, mesh, **kw)
+                        gc.collect()  # earlier count fns' cycles hold device bytes
+                        torch.cuda.synchronize(dev)
+                        base = torch.cuda.memory_allocated(dev)
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        got = f(cols)
+                        torch.cuda.synchronize(dev)
+                        growth.append(dict(graph=g.name, tree=tree.name, mode=mode,
+                                           group_factor=gf, fuse=fuse, growth_bytes=(
+                                               torch.cuda.max_memory_allocated(dev) - base)))
                         want = make_count_fn(plan, local, **kw)(cols)
                         checked += 1
                         if got.tolist() != want.tolist():
@@ -2154,7 +2188,7 @@ def dist_nccl(dev, also=()):
     log(f"phase 12 (c) calibrate on LocalMesh P=4 ({cal['card']}): alpha {model.alpha:.3e} s, "
         f"beta {model.beta:.3e} s/B ({1 / model.beta / 1e9:.1f} GB/s), matmul "
         f"{model.flops_per_s:.3e} flop/s, in {cal['seconds']:.1f}s")
-    return {"nccl_count_calls": checked, "calibrate": cal}, later
+    return {"nccl_count_calls": checked, "calibrate": cal, "growth": growth}, later, metas
 
 
 def dist_launch():
@@ -2184,18 +2218,22 @@ def dist_launch():
 def phase_distributed(g, dev):
     """Phase 12: (a)-(d), and phase 13 (c) on (b)'s plan and (d)'s NCCL
     check in (c)'s world; returns the path's launches, the kernel rows, a
-    summary, and phase 13's (c) and (d) NCCL results."""
+    summary, phase 13's (c) and (d) NCCL results, and what phase 15 holds
+    its model to: (b)'s u12-2 plan and (c)'s plans on ``meta``, and (c)'s
+    growths."""
     t0 = time.perf_counter()
     exact = dist_exact(dev)
     launches, rows, full, u12 = dist_full(g, dev)
     saturation = compact_saturation(*u12)
+    u12_meta = u12[0].to("meta")
     del u12
-    nccl, (narrow_nccl,) = dist_nccl(dev, also=(compact_nccl,))
+    nccl, (narrow_nccl,), metas = dist_nccl(dev, also=(compact_nccl,))
     launch = dist_launch()
     log(f"phase 12 passed in {time.perf_counter() - t0:.1f}s (with phase 13 (c) and the NCCL "
         f"part of (d))")
+    model_inputs = {"u12": u12_meta, "nccl": metas, "growth": nccl["growth"]}
     return launches, rows, {"exact": exact, "full": full, "nccl": nccl, "launcher": launch}, \
-        (saturation, narrow_nccl)
+        (saturation, narrow_nccl), model_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -2518,24 +2556,14 @@ def phase_compact(dev, saturation, narrow_nccl):
                             "nccl": narrow_nccl, "launcher": launcher}
 
 
-def attention_pairs(l: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask allows in self-attention over ``l`` tokens."""
-    import torch
-
-    i = torch.arange(l, dtype=torch.int64)
-    hi = i + 1 if causal else torch.full_like(i, l)
-    lo = (i - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(i)
-    return int((hi - lo).clamp(min=0).sum())
-
-
 def flash_bound(q, k, causal: bool, window: int):
     """The larger of q, k, v and o moved once at the HBM rate and the masked
     pairs' 4 D flops each at the bf16 tensor-core rate."""
+    from repro_torch.kernels import work
+
     b, hq, l, d = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * b * hq * attention_pairs(l, causal, window) * d / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(work.flash_attention(b, hq, k.shape[1], l, d, q.element_size(), causal,
+                                         window))
 
 
 def sdpa(q, k, v, causal: bool):
@@ -3403,6 +3431,201 @@ def phase_serve(g, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the counting dry-run and the roofline
+# ---------------------------------------------------------------------------
+
+DRYRUN_PROCS = 8  # dry-run CLI processes at once (the host's cores)
+DRYRUN_MODES = ("alltoall", "pipeline", "ring")  # (a): rmat500-u12-2 side by side
+MODEL_RTOL_WS1 = 0.05  # (b): predicted rank growth vs NCCL at world size 1
+MODEL_RTOL_LOCAL = 0.15  # (c): predicted peak vs LocalMesh P = 4
+MODEL_RTOL_RATIO = 0.10  # (c): alltoall / pipeline peak ratio, model vs measured
+
+
+def dryrun_rows():
+    """(a): the dry-run CLI for every COUNTING_CONFIGS row at its production
+    mesh, single- and multi-pod, and rmat500-u12-2 at each mode, in
+    processes that see no card (the dry-run touches none); the roofline of
+    each record against this card's memory."""
+    import os
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+    from repro_torch.roofline.analysis import analyze_record, device_memory_bytes
+
+    jobs = [(row, mp, None) for row in sorted(COUNTING_CONFIGS) for mp in (False, True)]
+    jobs += [("rmat500-u12-2", False, m) for m in DRYRUN_MODES
+             if m != COUNTING_CONFIGS["rmat500-u12-2"].mode]
+    # one thread a process: meta ops compute nothing, and eight processes share the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    running, records = {}, {}
+    pending = list(jobs)
+    t0 = time.perf_counter()
+    while pending or running:
+        while pending and len(running) < DRYRUN_PROCS:
+            row, mp, mode = job = pending.pop(0)
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--counting", row]
+            argv += ["--multi-pod"] * mp + (["--counting-mode", mode] if mode else [])
+            running[job] = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)
+        job, proc = next(iter(running.items()))
+        out, err = proc.communicate(timeout=600)
+        del running[job]
+        lines = out.strip().splitlines()
+        rec = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+        if proc.returncode != 0 or rec is None or rec["status"] != "ok":
+            raise AssertionError(f"phase 15 (a) dry-run {job}: rc {proc.returncode}, "
+                                 f"{(rec or {}).get('error')}\n{err[-2000:]}")
+        records[job] = rec
+    hbm = device_memory_bytes()
+    summary = {}
+    for (row, mp, mode), rec in sorted(records.items(), key=lambda kv: str(kv[0])):
+        t = analyze_record(rec, hbm_bytes=hbm)
+        mem = rec["memory"]
+        key = f"{row} {rec['mesh']} {rec['mode']}"
+        summary[key] = {"argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+                        "output_bytes": mem["output_bytes"], "fits": t.fits,
+                        "dominant": t.dominant, "compute_s": t.compute_s,
+                        "memory_s": t.memory_s, "collective_s": t.collective_s,
+                        "collective_bytes": sum(v for k, v in rec["collectives"].items()
+                                                if k != "ops"),
+                        "launches": rec["launches"], "analysis_s": rec["analysis_s"]}
+        log(f"phase 15 (a) {key}: rank arguments {mem['argument_bytes']} B, temp "
+            f"{mem['temp_bytes']} B, fits {t.fits} ({hbm:.4g} B), dominant {t.dominant} "
+            f"(compute {t.compute_s:.4g} s, memory {t.memory_s:.4g} s, collective "
+            f"{t.collective_s:.4g} s)")
+    side = {m: summary[f"rmat500-u12-2 16x16 {m}"] for m in DRYRUN_MODES}
+    log("phase 15 (a) rmat500-u12-2 at 16x16, alltoall / pipeline / ring: rank bytes "
+        + " / ".join(str(side[m]["argument_bytes"] + side[m]["temp_bytes"]
+                         + side[m]["output_bytes"]) for m in DRYRUN_MODES)
+        + ", collective bytes " + " / ".join(f"{side[m]['collective_bytes']:.4g}"
+                                               for m in DRYRUN_MODES)
+        + f"; {len(records)} records in {time.perf_counter() - t0:.1f}s")
+    return {"records": summary, "rmat500_u12_2_modes": side, "hbm_bytes": hbm}
+
+
+def dryrun_world_size_1(metas, growth):
+    """(b): the model of each phase 12 (c) NCCL call at world size 1 (the
+    plan moved to meta, B = 2): temporaries, output and the colorings it
+    copies in, against the call's max_memory_allocated growth."""
+    from repro_torch.comm import AbstractMesh
+    from repro_torch.launch.dryrun import measure_rank
+
+    out, worst = [], 0.0
+    for g in growth:
+        mem = measure_rank(metas[(g["graph"], g["tree"])], AbstractMesh(1), batch=2,
+                           mode=g["mode"], group_factor=g["group_factor"],
+                           fuse=g["fuse"])["memory"]
+        pred = mem["temp_bytes"] + mem["output_bytes"] + mem["colorings_bytes"]
+        rel = abs(pred - g["growth_bytes"]) / max(g["growth_bytes"], 1)
+        worst = max(worst, rel)
+        out.append(dict(g, predicted_bytes=pred, rel_err=rel))
+        log(f"phase 15 (b) {g['graph']} {g['tree']} {g['mode']}-g{g['group_factor']}"
+            f"{' fused' if g['fuse'] else ''}: predicted growth {pred} B, measured "
+            f"{g['growth_bytes']} B (rel {rel:.4f})")
+    missed = [c for c in out if c["rel_err"] > MODEL_RTOL_WS1]
+    if missed:
+        raise AssertionError(f"phase 15 (b): the model misses {len(missed)} of {len(out)} "
+                             f"calls beyond {MODEL_RTOL_WS1}: {missed}")
+    log(f"phase 15 (b): {len(out)} NCCL calls at world size 1, predicted growth within "
+        f"{worst:.4f} of max_memory_allocated's (limit {MODEL_RTOL_WS1})")
+    return {"calls": out, "worst_rel_err": worst}
+
+
+def dryrun_local_mesh(plan, full):
+    """(c): phase 12 (b)'s LocalMesh P = 4 u12-2 cell (B = 2), every mode x
+    fuse: the model of the process, the split tables once, each rank's
+    arguments and settled bytes (what it holds between its ops) and the
+    largest one rank's excess over them (the thread ranks run their ops
+    one at a time), against the measured peak; and the alltoall / pipeline
+    ratio."""
+    from repro_torch.comm import AbstractMesh
+    from repro_torch.launch.dryrun import measure_rank
+
+    P = plan.num_shards
+    got, worst = {}, 0.0
+    for mode, gf in DIST_MODES:
+        for fuse in (False, True):
+            label = f"{_dist_label(mode, gf)}{' fused' if fuse else ''}"
+            ranks = [measure_rank(plan, AbstractMesh(P, rank=p), batch=DIST_BATCH, mode=mode,
+                                  group_factor=gf, fuse=fuse)["memory"] for p in range(P)]
+            shared = ranks[0]["shared_bytes"]
+            pred = shared + sum(r["argument_bytes"] - shared + r["settled_bytes"]
+                                for r in ranks) + max(
+                r["temp_bytes"] + r["output_bytes"] - r["settled_bytes"] for r in ranks)
+            meas = full["modes"][label]["peak_warm_and_timed_bytes"]
+            rel = abs(pred - meas) / meas
+            worst = max(worst, rel)
+            got[label] = {"predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+                          "rel_err": rel, "predicted_plan_bytes": shared + sum(
+                              r["argument_bytes"] - shared - r["colorings_bytes"] for r in ranks),
+                          "measured_before_bytes": full["modes"][label]["allocated_before_bytes"],
+                          "rank_temp_bytes": [r["temp_bytes"] for r in ranks],
+                          "rank_settled_bytes": [r["settled_bytes"] for r in ranks],
+                          "aligned_peak_bytes": shared + sum(
+                              r["argument_bytes"] - shared + r["temp_bytes"]
+                              + r["output_bytes"] for r in ranks)}
+            log(f"phase 15 (c) {label}: predicted peak {pred} B, measured {meas} B "
+                f"(rel {rel:.4f}; every rank at its peak at once {got[label]['aligned_peak_bytes']}"
+                f" B); plan bytes predicted {got[label]['predicted_plan_bytes']}, allocated "
+                f"before the call {got[label]['measured_before_bytes']}")
+    ratios, missed = {}, [(k, v["rel_err"]) for k, v in got.items()
+                          if v["rel_err"] > MODEL_RTOL_LOCAL]
+    for suffix in ("", " fused"):
+        a, p = got["alltoall" + suffix], got["pipeline-g1" + suffix]
+        model = a["predicted_peak_bytes"] / p["predicted_peak_bytes"]
+        meas = a["measured_peak_bytes"] / p["measured_peak_bytes"]
+        rel = abs(model - meas) / meas
+        ratios["unfused" if not suffix else "fused"] = {"model": model, "measured": meas,
+                                                        "rel_err": rel}
+        log(f"phase 15 (c) alltoall / pipeline peak{suffix or ' unfused'}: model {model:.4f}, "
+            f"measured {meas:.4f} (rel {rel:.4f})")
+        if rel > MODEL_RTOL_RATIO:
+            missed.append((f"alltoall / pipeline{suffix}", rel))
+    if missed:
+        raise AssertionError(f"phase 15 (c): the model misses beyond {MODEL_RTOL_LOCAL} (peaks) "
+                             f"or {MODEL_RTOL_RATIO} (ratios): {missed}")
+    return {"modes": got, "ratio": ratios, "worst_rel_err": worst}
+
+
+def timed_rows(kernel_rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, flash):
+    """Every (kernel, row) that phases 2-14 timed beside a bound."""
+    out = [(k, r) for k, rs in kernel_rows.items() for r in rs]
+    out += [("spmm_block", r) for r in dense_rows]
+    for d_rows, _ in dags.values():
+        out += [(k, r) for k, rs in d_rows.items() for r in rs]
+    for group in (sparse_rows, dist_rows, compact_rows):
+        out += [(k, r) for k, rs in group.items() for r in rs]
+    return out + [("flash_attention", flash[0]), ("flash_attention_fp32", flash[1])]
+
+
+def dryrun_bounds(rows):
+    """(d): no kernel time of phases 2-14 below the bound its work count
+    gives (it would mean the count is wrong)."""
+    low = [(k, r["shape"], r["ms"], r["bound"][0]) for k, r in rows if r["ms"] < r["bound"][0]]
+    if low:
+        raise AssertionError(f"phase 15 (d) times below their bound: {low}")
+    tight = min(rows, key=lambda kr: kr[1]["ms"] / kr[1]["bound"][0])
+    log(f"phase 15 (d): {len(rows)} kernel times at or above their bounds; the tightest "
+        f"{tight[0]} {tight[1]['shape']}: {tight[1]['ms']:.4g} ms against "
+        f"{tight[1]['bound'][0]:.4g}")
+    return {"rows_checked": len(rows), "tightest": {
+        "kernel": tight[0], "shape": tight[1]["shape"], "ms": tight[1]["ms"],
+        "bound_ms": tight[1]["bound"][0]}}
+
+
+def phase_dryrun(model_inputs, full, rows):
+    """Phase 15: (a)-(d)."""
+    t0 = time.perf_counter()
+    cells = dryrun_rows()
+    ws1 = dryrun_world_size_1(model_inputs["nccl"], model_inputs["growth"])
+    local = dryrun_local_mesh(model_inputs["u12"], full)
+    bounds = dryrun_bounds(rows)
+    dt = time.perf_counter() - t0
+    log(f"phase 15 passed in {dt:.1f}s")
+    return {"cells": cells, "world_size_1": ws1, "local_mesh": local, "bounds": bounds,
+            "seconds": dt}
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the redesigned count-table kernels' designs, and where the times of the
@@ -3437,7 +3660,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, dist, compact, card):
+                 sparse, dist, compact, dryrun, card):
     flash, flash32, sass = flash
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
@@ -3566,6 +3789,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "family_path": dags["family"][1], "tw2_path": dags["tw2"][1],
             "sparse_path": sparse[1], "distributed_path": dist[1],
             "distributed_compact_path": compact[1], "serve_path": dags["serve"][1],
+            "dryrun": dryrun,
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
@@ -3590,7 +3814,8 @@ def run_phases(dev):
     torch.cuda.empty_cache()
     family_launches, family_rows, family = phase_family(g, dev)
     torch.cuda.empty_cache()
-    dist_launches, dist_rows, dist, (saturation, narrow_nccl) = phase_distributed(g, dev)
+    dist_launches, dist_rows, dist, (saturation, narrow_nccl), model_inputs = \
+        phase_distributed(g, dev)
     torch.cuda.empty_cache()
     serve_launches, serve_rows, serve = phase_serve(g, dev)
     del g
@@ -3626,8 +3851,11 @@ def run_phases(dev):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
     dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2), "serve": (serve_rows, serve)}
+    dryrun = phase_dryrun(model_inputs, dist["full"], timed_rows(
+        rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, (flash, flash32)))
     return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide, dags, (sparse_rows, sparse), (dist_rows, dist), (compact_rows, compact))
+            wide, dags, (sparse_rows, sparse), (dist_rows, dist), (compact_rows, compact),
+            dryrun)
 
 
 def main() -> int:

@@ -1,8 +1,10 @@
 """Adaptive-Group communication (the paper's §3.2) over the port's own
 transport: the :class:`~.group.Group` interface, ring relays, the grouped
 direct-send exchange, the Hockney router and the exact narrow wire
-(:mod:`.compress`)."""
+(:mod:`.compress`); and an abstract rank on ``meta`` tensors for the
+dry-run (:mod:`.abstract`)."""
 
+from .abstract import AbstractGroup, AbstractMesh, CollectiveBytes  # noqa: F401
 from .adaptive import (  # noqa: F401
     V5E_DCI,
     V5E_ICI,

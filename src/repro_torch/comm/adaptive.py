@@ -150,13 +150,14 @@ def calibrate(mesh, *, payload_bytes: Tuple[int, ...] = (1 << 16, 1 << 19, 1 << 
     ``[512, 512]`` float32 matmul gives ``flops_per_s``.  On a
     ``LocalMesh`` the shift is a copy on the device, so alpha and beta
     describe the thread exchange, not a link.  Cached per device kind,
-    rank count and payloads; a mesh with one data rank returns ``base``
-    (there is no link to measure).
+    rank count and payloads; a mesh with one data rank, or an abstract
+    one (``meta``, the dry-run's), returns ``base``: there is no link to
+    measure.
     """
     import torch
 
     P = mesh.data_size
-    if P <= 1:
+    if P <= 1 or mesh.device.type == "meta":
         return base
     dev = mesh.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

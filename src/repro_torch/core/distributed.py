@@ -57,8 +57,9 @@ collapse all-reduces the ``[x, W]`` sums), so they take weight 0 there.
 Families (one shared-DAG pass per coloring) and treewidth-2 bag programs
 run as on one device: a bag table ``[n_loc_pad, B, x W]`` crosses the wire
 like any table; its combine runs on ``[rows, B x, W]`` views and never
-fused.  Shape-only plans go with the dry-run (ROADMAP queue 1 item 9) and
-raise ``NotImplementedError``.
+fused.  Shape-only plans at paper scale (:func:`abstract_plan`) hold
+``meta`` tensors, and the dry-run runs one rank's program on them
+(``make_count_fn(..., return_raw=True)``, :mod:`repro_torch.launch.dryrun`).
 
 **Compacted exchange (DESIGN.md §15).**  ``compact=True`` probes each
 node table's density at plan build (:func:`.frontier.distributed_compaction`)
@@ -119,6 +120,7 @@ from .frontier import (
     DEFAULT_CAPACITY_FACTOR,
     DEFAULT_DENSITY_THRESHOLD,
     CompactionSpec,
+    abstract_compaction,
     chunk_slots,
     compact_combine,
     decode_slots,
@@ -201,12 +203,20 @@ class DistributedPlan:
     auts: Tuple[int, ...]
     combine: Dict[int, ops.CombineTables]
     widths: Dict[int, int]  # true widths, per coloring (and per apex vertex x on bag nodes)
-    send_idx: np.ndarray  # [P, P, r_pad] int32: send_idx[q, p] = rows q sends to p
+    #: [P, P, r_pad] int32: send_idx[q, p] = rows q sends to p (a meta
+    #: tensor of that shape in a shape-only plan)
+    send_idx: np.ndarray
     bucket_counts: np.ndarray  # [P, P] edges of bucket (dst shard, src shard)
-    shards: Tuple[ShardArrays, ...]  # on the host
+    shards: Tuple[ShardArrays, ...]  # on the host (on meta in a shape-only plan)
     device: torch.device
     #: active-frontier compaction spec (None = dense; DESIGN.md §15)
     compaction: Optional[CompactionSpec] = None
+    #: a shape-only plan's (:func:`abstract_plan`): the reference's tile
+    #: size, tiles a shard and alltoall slabs a row block, which size its
+    #: CSRs; None on a plan of a graph
+    bucket_tile: Optional[int] = None
+    num_tiles: Optional[int] = None
+    slabs_per_block: Optional[int] = None
     _on_device: Dict[tuple, ShardArrays] = dataclasses.field(default_factory=dict, repr=False,
                                                              compare=False)
 
@@ -234,6 +244,14 @@ class DistributedPlan:
         if got is None:
             got = self._on_device[key] = self.shards[p].to(device)
         return got
+
+    def to(self, device) -> "DistributedPlan":
+        """This plan with its split tables on ``device`` (the shards' arrays
+        move there on first use, as ever).  On ``meta`` it is a real plan's
+        shapes, which the dry-run runs (:mod:`repro_torch.launch.dryrun`)."""
+        dev = torch.device(device)
+        return dataclasses.replace(self, combine={i: t.to(dev) for i, t in self.combine.items()},
+                                   device=dev, _on_device={})
 
 
 def _resolve_program(tree, root: int, n_colors: Optional[int]):
@@ -368,10 +386,108 @@ def build_distributed_plan(
     )
 
 
-def abstract_plan(*args, **kwargs):
-    """The reference's shape-only plan for dry-run lowering
-    (``distributed.py:427``): goes with the dry-run, ROADMAP queue 1 item 9."""
-    raise NotImplementedError("abstract_plan goes with the dry-run: ROADMAP queue 1 item 9")
+def abstract_plan(
+    num_vertices: int,
+    num_edges: int,
+    tree,
+    num_shards: int,
+    *,
+    root: int = 0,
+    skew_headroom: float = 3.0,
+    compact_requests: bool = True,
+    bucket_tile: int = 128,
+    n_colors: Optional[int] = None,
+    compact: bool = False,
+    density_threshold: float = DEFAULT_DENSITY_THRESHOLD,
+    capacity_factor: float = DEFAULT_CAPACITY_FACTOR,
+) -> DistributedPlan:
+    """A shape-only plan at paper scale, where no graph exists (the
+    reference's ``distributed.py:427``), for the dry-run.
+
+    The sizes are the reference's, from the paper's Eq. 5 expectation
+    ``E[bucket] = |E_directed| / P^2`` with ``skew_headroom``:
+    ``shard_size``, ``n_loc_pad``, ``r_pad`` (capped at a shard),
+    ``num_tiles`` (``bucket_tile``-edge tiles a shard) and
+    ``slabs_per_block``.  Every shard's arrays are ``meta`` tensors of one
+    rank's shapes: a bucket CSR holds as many edges as the reference's tiles
+    hold slots (``bucket_counts`` is that capacity per bucket), the
+    alltoall CSR as many as its slabs, ``send_idx`` is ``[P, r_pad]``.  As
+    there, the arrays the mode never reads are kept minimal:
+    ``compact_requests=False`` (ring) gives the request slots, the alltoall
+    CSR and ``send_idx`` one tile and ``r_pad = 128``, and ``True`` the shard
+    rows.
+
+    The split tables are built exactly, on the host, so routes and combine
+    shapes are exact; ``compact=True`` sizes the capacities from them
+    (:func:`.frontier.abstract_compaction`: the exact probe on a sampled
+    same-degree graph).  Then they go to ``meta`` with the rest of the
+    plan; nothing reads their values after plan time.  ``tree`` may be a
+    family or a treewidth-2 template, as for :func:`build_distributed_plan`.
+    """
+    Pn = int(num_shards)
+    if Pn < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    program, templates, k = _resolve_program(tree, root, n_colors)
+    ss = (num_vertices + Pn - 1) // Pn
+    n_loc_pad = ops.pad_to(ss + 1, ops.ROW_BLOCK)
+    e_dev = 2.0 * num_edges / Pn
+    avg_bucket = e_dev / Pn
+    r_pad = ops.pad_to(min(int(avg_bucket * skew_headroom) + 128, ss + 1), 128)
+    tiles_a_bucket = int(avg_bucket * skew_headroom / bucket_tile) + 1
+    num_tiles = Pn * tiles_a_bucket
+    nrb_loc = n_loc_pad // 128
+    spb = int(e_dev * skew_headroom / (nrb_loc * bucket_tile)) + 1
+
+    has_bags = program_has_bags(program)
+    combine, widths = build_node_tables(program, k, device=torch.device("cpu"),
+                                        x_dim=num_vertices if has_bags else None)
+    compaction = None
+    if compact and not has_bags:
+        compaction = abstract_compaction(
+            num_vertices, 2.0 * num_edges / max(num_vertices, 1), program, k, r_pad=r_pad,
+            n_loc_pad=n_loc_pad, threshold=density_threshold, capacity_factor=capacity_factor,
+            combine=combine)
+
+    bucket_edges = tiles_a_bucket * bucket_tile
+    slot_edges = row_edges = num_tiles * bucket_tile
+    a2a_edges = nrb_loc * spb * bucket_tile
+    if compact_requests:
+        row_edges = bucket_tile  # ring-only
+    else:
+        slot_edges = a2a_edges = bucket_tile
+        r_pad, spb = 128, 1
+    meta = torch.device("meta")
+
+    def shape(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=meta)
+
+    arrays = ShardArrays(
+        a2a=ops.RectCsr(shape(n_loc_pad + 1, dtype=torch.int64), shape(a2a_edges), a2a_edges),
+        buckets=ops.BucketCsrs(shape(Pn, n_loc_pad + 1, dtype=torch.int64),
+                               (shape(slot_edges), shape(row_edges)), (bucket_edges,) * Pn),
+        send_idx=shape(Pn, r_pad, dtype=torch.int64),
+        pin_adj=shape(n_loc_pad, num_vertices, dtype=torch.float32) if has_bags else None)
+    return DistributedPlan(
+        templates=tuple(templates),
+        program=program,
+        k=k,
+        n=num_vertices,
+        num_shards=Pn,
+        shard_size=ss,
+        n_loc_pad=n_loc_pad,
+        r_pad=r_pad,
+        auts=tuple(automorphism_count(t) for t in templates),
+        combine={i: t.to(meta) for i, t in combine.items()},
+        widths=widths,
+        send_idx=shape(Pn, Pn, r_pad),
+        bucket_counts=np.full((Pn, Pn), bucket_edges, np.int64),
+        shards=(arrays,) * Pn,
+        device=meta,
+        compaction=compaction,
+        bucket_tile=bucket_tile,
+        num_tiles=num_tiles,
+        slabs_per_block=spb,
+    )
 
 
 def shard_coloring(plan: DistributedPlan, coloring) -> np.ndarray:
@@ -643,7 +759,8 @@ def _bag_fns(plan: DistributedPlan, group, arrays: ShardArrays, leaf: torch.Tens
 
 def make_count_fn(plan: DistributedPlan, mesh, *, mode: str = "adaptive", group_factor: int = 1,
                   fuse: bool = False, hockney: HockneyModel = V5E_ICI,
-                  wire_dtype: str = "float32", adaptive: str = "model", keyed: bool = False):
+                  wire_dtype: str = "float32", adaptive: str = "model", keyed: bool = False,
+                  return_raw: bool = False):
     """The distributed count function on ``mesh`` (``comm.LocalMesh`` or a
     ``launch.mesh.process_mesh``), whose data axis has ``plan.num_shards``
     ranks.
@@ -672,7 +789,22 @@ def make_count_fn(plan: DistributedPlan, mesh, *, mode: str = "adaptive", group_
     float32 twin), each built once and kept.  ``f.rung`` names the rung
     that gave the last call's counts (``"int16 compact"``, ``"float32
     dense"``, ...), ``f.fallbacks`` counts the calls that went up a rung.
+
+    ``return_raw=True`` (the dry-run's; not with ``keyed``) returns
+    ``(program, structs)`` in place of ``f``: ``program(ctx, colorings)`` is
+    one rank's program with no mesh and no host wrapper around it, the
+    reference's raw contract (``distributed.py:708-727``).  ``colorings`` is
+    the rank's int ``[B, n_loc_pad]`` on the mesh's device; the rank reads
+    its shard's arrays (:meth:`DistributedPlan.shard_arrays`) and the split
+    tables from the plan.  It returns the counts on the device, ``[B I,
+    R]`` gathered over the iteration ranks, and on a speculative program
+    the failure column beside them: the first rung only, never copied to
+    the host and never checked there.  ``structs`` is ``(colorings,)``, one
+    coloring a rank (as the reference's raw program takes) on the mesh's
+    device.
     """
+    if keyed and return_raw:
+        raise ValueError("keyed and return_raw are exclusive")
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"wire_dtype={wire_dtype!r}; expected one of {sorted(WIRE_DTYPES)}")
     if mode not in MODES:
@@ -698,30 +830,27 @@ def make_count_fn(plan: DistributedPlan, mesh, *, mode: str = "adaptive", group_
     # bag roots (collapse, join) are replicated by their collapse's
     # all-reduce: summing them over the shards again would count P times;
     # a speculative program's failure count rides the same all-reduce
-    w_root = torch.tensor([0.0 if plan.program.nodes[r].kind in ("bag_collapse", "bag_join")
-                           else 1.0 for r in plan.program.roots] + [1.0] * speculative,
-                          dtype=torch.float64, device=dev)
-    mixed_roots = bool((w_root == 0.0).any())
+    root_w = [0.0 if plan.program.nodes[r].kind in ("bag_collapse", "bag_join") else 1.0
+              for r in plan.program.roots] + [1.0] * speculative
+    w_root = torch.tensor(root_w, dtype=torch.float64, device=dev)
+    mixed_roots = 0.0 in root_w
 
-    def rank_fn(ctx, data: torch.Tensor) -> torch.Tensor:
-        p, i = ctx.data.rank, ctx.iters.rank
-        bl = data.shape[0] // n_iter_ranks
-        arrays = plan.shard_arrays(p, dev)
-        mine = data[i * bl: (i + 1) * bl]
-        if keyed:
-            full = prng.randint_keys(mine, (plan.n,), 0, plan.k, device=dev)  # global_coloring's
-            rows = (p * ss + torch.arange(plan.n_loc_pad, device=dev)).clamp(max=plan.n - 1)
-            colorings = full[:, rows]  # rows past n take a clipped (edgeless) color
+    def gathered_colors(ctx, colorings: torch.Tensor):
+        """The global coloring of a rank's ``[bl, n_loc_pad]`` rows, for the
+        bag collapses' apex filter."""
 
-            def global_colors():
-                return full
-        else:
-            colorings = mine[:, p].to(dev)
+        def global_colors():
+            got = ctx.data.all_gather(colorings[:, :ss].contiguous())  # [P, bl, ss]
+            return got.transpose(0, 1).reshape(colorings.shape[0], -1)[:, : plan.n]
 
-            def global_colors():
-                got = ctx.data.all_gather(colorings[:, :ss].contiguous())  # [P, bl, ss]
-                return got.transpose(0, 1).reshape(bl, -1)[:, : plan.n]
+        return global_colors
 
+    def count_rank(ctx, colorings: torch.Tensor, global_colors) -> torch.Tensor:
+        """One rank's counts of its ``[bl, n_loc_pad]`` colorings, on the
+        device: ``[bl I, R (+ 1)]``, reduced over the data ranks and gathered
+        over the iteration ranks."""
+        bl = colorings.shape[0]
+        arrays = plan.shard_arrays(ctx.data.rank, dev)
         leaf = leaf_table(colorings, plan.k, ss)
         flags: List[torch.Tensor] = []
         node_fn = _node_fn(plan, arrays, ctx.data, node_modes, fuse, group_factor, wire_dtype,
@@ -740,7 +869,29 @@ def make_count_fn(plan: DistributedPlan, mesh, *, mode: str = "adaptive", group_
             counts = ctx.data.all_reduce_sum(partials * w_root) + partials * (1.0 - w_root)
         else:
             counts = ctx.data.all_reduce_sum(partials)
-        return ctx.iters.all_gather(counts).reshape(bl * n_iter_ranks, -1).cpu()
+        return ctx.iters.all_gather(counts).reshape(bl * n_iter_ranks, -1)
+
+    if return_raw:
+        def program(ctx, colorings: torch.Tensor) -> torch.Tensor:
+            return count_rank(ctx, colorings, gathered_colors(ctx, colorings))
+
+        return program, (torch.empty((1, plan.n_loc_pad), dtype=torch.int32, device=dev),)
+
+    def rank_fn(ctx, data: torch.Tensor) -> torch.Tensor:
+        p, i = ctx.data.rank, ctx.iters.rank
+        bl = data.shape[0] // n_iter_ranks
+        mine = data[i * bl: (i + 1) * bl]
+        if keyed:
+            full = prng.randint_keys(mine, (plan.n,), 0, plan.k, device=dev)  # global_coloring's
+            rows = (p * ss + torch.arange(plan.n_loc_pad, device=dev)).clamp(max=plan.n - 1)
+            colorings = full[:, rows]  # rows past n take a clipped (edgeless) color
+
+            def global_colors():
+                return full
+        else:
+            colorings = mine[:, p].to(dev)
+            global_colors = gathered_colors(ctx, colorings)
+        return count_rank(ctx, colorings, global_colors).cpu()
 
     def f(data) -> torch.Tensor:
         data = data if torch.is_tensor(data) else torch.tensor(np.asarray(data))

@@ -37,7 +37,8 @@ active rows of a request chunk, or of a relayed shard, as a slab of its own
 (``cap`` rows beside their slots, the coloring axis inside: ``[cap, B, W +
 1]``), as the reference's ``vmap`` over colorings does: the bytes of a
 batch are B times the reference's per-coloring slab, whatever rows the
-colorings share.
+colorings share.  A shape-only plan (the dry-run's) sizes the same
+capacities without a graph (:func:`abstract_compaction`).
 
 Everything here is exact: compaction never changes a bit of the counts.
 Inactive rows contribute exact zeros in the dense program, and the compact
@@ -71,6 +72,7 @@ __all__ = [
     "single_device_compaction",
     "distributed_compaction",
     "sampled_density",
+    "abstract_compaction",
     "node_exchange_bytes",
     "make_frontier_fn",
     "inverse_map",
@@ -438,6 +440,62 @@ def sampled_density(
     acts = probe_activity(g_s, program, combine, k, probes=probes, seed=seed)
     max_act, _ = _max_counts(acts)
     return {i: c / max(n_s, 1) for i, c in max_act.items()}
+
+
+def abstract_compaction(
+    num_vertices: int,
+    avg_degree: float,
+    program,
+    k: int,
+    *,
+    r_pad: int,
+    n_loc_pad: int,
+    threshold: float,
+    capacity_factor: float,
+    combine=None,
+    sample_vertices: int = 2048,
+    probes: int = 2,
+    seed: int = 0,
+) -> CompactionSpec:
+    """The shape-only plan's spec (the reference's ``frontier.py:416``):
+    nothing of the graph exists.  With ``combine`` (host split tables) the
+    densities are :func:`sampled_density`'s, the exact probe on a sampled
+    same-degree graph; without, :func:`model_density`'s Markov bound.  A
+    node at or below ``threshold`` takes the exchange and ring capacities
+    (right children; multiples of 8) and the combine capacity that its
+    density gives on ``r_pad`` and ``n_loc_pad`` rows."""
+    rights, _ = _child_roles(program)
+    if combine is not None:
+        density = sampled_density(num_vertices, avg_degree, program, combine, k,
+                                  sample_vertices=sample_vertices, probes=probes, seed=seed)
+    else:
+        density = {i: model_density(nd.size, k, avg_degree)
+                   for i, nd in enumerate(program.nodes) if not nd.is_leaf}
+    exchange_caps = {}
+    shard_caps = {}
+    combine_caps = {}
+    for i, rho in density.items():
+        if rho > threshold:
+            continue
+        cap = capacity_for(int(rho * r_pad), capacity_factor, r_pad, multiple=8)
+        if i in rights and cap is not None:
+            exchange_caps[i] = cap
+        cap = capacity_for(int(rho * n_loc_pad), capacity_factor, n_loc_pad, multiple=8)
+        if i in rights and cap is not None:
+            shard_caps[i] = cap
+        cap = capacity_for(int(rho * n_loc_pad), capacity_factor, n_loc_pad)
+        if cap is not None:
+            combine_caps[i] = cap
+    return CompactionSpec(
+        threshold=threshold,
+        capacity_factor=capacity_factor,
+        density=density,
+        gather_density=dict(density),
+        table_caps={},
+        combine_caps=combine_caps,
+        exchange_caps=exchange_caps,
+        shard_caps=shard_caps,
+    )
 
 
 def inverse_map(keep: torch.Tensor, zero_slot: int) -> torch.Tensor:

@@ -46,9 +46,9 @@ import dataclasses
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import color_combine_ref
-from .spmm_edgetile import _check_cuda
+from .spmm_edgetile import _check_args
 
 __all__ = ["color_combine", "color_combine_plain", "plan_tile", "tile_bytes", "chunk_columns",
            "columns_an_item", "check_pairs",
@@ -195,7 +195,10 @@ _smem = {}
 
 
 def device_smem_limits(device: torch.device) -> SmemLimits:
-    """The card's shared memory, read once per device."""
+    """The card's shared memory, read once per device; a shape-only run
+    (``meta``) plans for the H100's, which it does not query."""
+    if device.type == "meta":
+        return H100_SMEM
     limits = _smem.get(device.index)
     if limits is None:
         fn = _build.kernel_fn("color_combine", "combine_smem_limits",
@@ -231,12 +234,15 @@ def color_combine(left: torch.Tensor, m: torch.Tensor, tables) -> torch.Tensor:
     """``left`` ``[n, B, A]``, ``m`` ``[n, B, Bw]`` -> ``[n, B, S]``.
 
     ``tables`` is an ``ops.CombineTables``.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises.
+    version; a CUDA tensor launches the kernel or raises.  A ``meta`` tensor
+    (a shape-only run) checks the same contract, allocates the CUDA
+    branch's output and records the launch and its work
+    (:func:`.work.record`).
     """
     if left.device.type == "cpu":
         return color_combine_plain(left, m, tables)
-    _check_cuda(left)
-    _check_cuda(m)
+    _check_args(left)
+    _check_args(m)
     check_pairs(tables, left.device)
     n, b, a = left.shape
     if m.shape != (n, b, tables.w) or a != tables.a:
@@ -246,6 +252,10 @@ def color_combine(left: torch.Tensor, m: torch.Tensor, tables) -> torch.Tensor:
         )
     tile = plan_tile(a, tables.w, tables.s, tables.jp, device_smem_limits(left.device))
     out = torch.empty((n, b, tables.s), dtype=torch.float32, device=left.device)
+    if left.device.type == "meta":
+        work.record("color_combine", (left, m, out),
+                    work.color_combine(n * b, a, tables.w, tables.s, tables.j, tables.jp))
+        return out
     fn = _build.kernel_fn("color_combine", "color_combine_launch", _ARGTYPES)
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream(left.device).cuda_stream

@@ -34,11 +34,16 @@
 // nodes, and the root (S = 1), are bound by their bytes.  The earlier design
 // (one thread per (row, s), operands read at scattered columns through L1)
 // ran at 6.3x its bound over a u12-2 pass.
+#include <mutex>
+
 #include "combine_tile.cuh"
 
 namespace {
 
 using repro_torch::kTileThreads;
+
+// held from the shared-memory opt-in to the launch (see the launch)
+std::mutex launch_mutex;
 
 template <int kCols>
 __global__ void __launch_bounds__(kTileThreads, 2)
@@ -84,11 +89,15 @@ extern "C" int color_combine_launch(const void* left, const void* m, const void*
   auto kernel = cols == 4   ? color_combine_kernel<4>
                 : cols == 2 ? color_combine_kernel<2>
                             : color_combine_kernel<1>;
+  const long long tiles = (rows + T - 1) / T;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // the opt-in is the kernel's, not the launch's: threads of one process
+  // (a LocalMesh's ranks) must not lower it between another's opt-in and
+  // launch
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (rows + T - 1) / T;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)tiles, kTileThreads, smem, (cudaStream_t)stream>>>(
       (const float*)left, (const float*)m, (const int32_t*)pairs, (float*)out, (int64_t)rows, A, W,
       S, J, Jp, T, SC);

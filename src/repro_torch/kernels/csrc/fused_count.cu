@@ -37,12 +37,17 @@
 // so no gather comes from L2.  The earlier design (one 1024-thread CTA per
 // 64 rows and one coloring, each row's walk one warp's, 32 columns a pass)
 // filled an SM with one CTA at W >= 495 and ran at 53.9x its bound.
+#include <mutex>
+
 #include "combine_tile.cuh"
 
 namespace {
 
 using repro_torch::kTileThreads;
 using repro_torch::kTileWarps;
+
+// held from the shared-memory opt-in to the launch (see the launch)
+std::mutex launch_mutex;
 
 template <bool kVec, int kCols, int kMinBlocks>
 __global__ void __launch_bounds__(kTileThreads, kMinBlocks)
@@ -100,6 +105,10 @@ cudaError_t launch(int per_sm, dim3 grid, size_t smem, cudaStream_t stream,
                    int A, int W, int S, int J, int Jp, int V, int Bt, int SC) {
   auto kernel = per_sm >= 4 ? fused_count_kernel<kVec, kCols, 4>
                             : fused_count_kernel<kVec, kCols, 3>;
+  // the opt-in is the kernel's, not the launch's: threads of one process
+  // (a LocalMesh's ranks) must not lower it between another's opt-in and
+  // launch
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

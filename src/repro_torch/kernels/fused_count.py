@@ -45,13 +45,14 @@ u12-2 pass.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, work
 from .color_combine import check_pairs, device_smem_limits, plan_tile
 from .ref import fused_count_ref
-from .spmm_edgetile import _check_cuda
+from .spmm_edgetile import _check_args
 
 __all__ = ["fused_count", "fused_count_plain"]
 
@@ -65,7 +66,8 @@ def fused_count_plain(indptr, indices, left, right, tables) -> torch.Tensor:
     return fused_count_ref(indptr, indices, left, right, tables.idx1, tables.idx2)
 
 
-def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables) -> torch.Tensor:
+def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables, *,
+                edges: Optional[int] = None) -> torch.Tensor:
     """``left`` ``[rows, B, A]``, ``right`` ``[C, B, W]`` -> ``[rows, B, S]``.
 
     ``indptr`` int64 ``[rows + 1]`` and ``indices`` int32 are the CSR of the
@@ -73,7 +75,11 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
     ``right`` only through them, so a compact source works
     (``ops.fused_count_compact``).  ``tables`` is an ``ops.CombineTables``.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    or raises.  A ``meta`` tensor (a shape-only run) checks the same
+    contract and plans the same tile (for the H100's shared memory),
+    allocates the CUDA branch's output, never ``M``, and records the launch
+    and its work (:func:`.work.record`) with ``edges`` CSR entries, as
+    ``spmm_edge_tile`` does.  No other branch reads ``edges``.
     """
     if left.shape[0] != indptr.numel() - 1 or right.dim() != 3 or right.shape[0] < 1:
         raise ValueError(
@@ -82,8 +88,8 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
         )
     if left.device.type == "cpu":
         return fused_count_plain(indptr, indices, left, right, tables)
-    _check_cuda(left, (indptr, torch.int64), (indices, torch.int32))
-    _check_cuda(right)
+    _check_args(left, (indptr, torch.int64), (indices, torch.int32))
+    _check_args(right)
     check_pairs(tables, left.device)
     rows, b, a = left.shape
     w = right.shape[2]
@@ -95,6 +101,12 @@ def fused_count(indptr, indices, left: torch.Tensor, right: torch.Tensor, tables
     tile = plan_tile(a, w, tables.s, tables.jp, device_smem_limits(left.device), batch=b)
     vec = (b * w) % 4 == 0 and (tile.colorings * w) % 4 == 0 and right.data_ptr() % 16 == 0
     out = torch.empty((rows, b, tables.s), dtype=torch.float32, device=left.device)
+    if left.device.type == "meta":
+        e = indices.numel() if edges is None else edges
+        work.record("fused_count", (indptr, indices, left, right, out),
+                    work.fused_count(rows, right.shape[0], e, b, a, w, tables.s, tables.j,
+                                     tables.jp))
+        return out
     fn = _build.kernel_fn("fused_count", "fused_count_launch", _ARGTYPES)
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream(left.device).cuda_stream

@@ -317,17 +317,20 @@ class RectCsr:
     another shape: the distributed engine's shard over the received
     ``[P r_pad, B, W]`` buffer (the counterpart of the reference's
     ``spmm_slabs`` layout, ``ops.py:419``, without its padded slabs).
-    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32 in destination order."""
+    ``indptr`` int64 ``[rows + 1]``, ``indices`` int32 in destination order.
+    ``edges`` is its edge count, kept on the host: a shape-only (``meta``)
+    CSR cannot be read, and the kernels' work counts need it."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
+    edges: int
 
     @property
     def rows(self) -> int:
         return self.indptr.numel() - 1
 
     def to(self, device) -> "RectCsr":
-        return RectCsr(self.indptr.to(device), self.indices.to(device))
+        return RectCsr(self.indptr.to(device), self.indices.to(device), self.edges)
 
 
 def build_rect_csr(dst: np.ndarray, cols: np.ndarray, rows: int) -> RectCsr:
@@ -339,7 +342,7 @@ def build_rect_csr(dst: np.ndarray, cols: np.ndarray, rows: int) -> RectCsr:
     indptr = np.zeros(rows + 1, np.int64)
     np.cumsum(np.bincount(dst, minlength=rows), out=indptr[1:])
     return RectCsr(torch.from_numpy(indptr),
-                   torch.from_numpy(np.ascontiguousarray(cols, np.int32)))
+                   torch.from_numpy(np.ascontiguousarray(cols, np.int32)), len(dst))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,16 +355,19 @@ class BucketCsrs:
     and shard-local rows).  The counterpart of the reference's tiled
     buckets (``ops.build_bucket_tiles``, ``ops.py:176``): storage is
     ``O(E + Q rows)``, and a bucket is consumed by one kernel launch over
-    its CSR, not a loop over fixed-size tiles."""
+    its CSR, not a loop over fixed-size tiles.  ``edges[q]``, on the host,
+    is bucket ``q``'s edge count (see :class:`RectCsr`)."""
 
     indptr: torch.Tensor
     indices: Tuple[torch.Tensor, ...]
+    edges: Tuple[int, ...]
 
     def csr(self, q: int, view: int = 0) -> RectCsr:
-        return RectCsr(self.indptr[q], self.indices[view])
+        return RectCsr(self.indptr[q], self.indices[view], self.edges[q])
 
     def to(self, device) -> "BucketCsrs":
-        return BucketCsrs(self.indptr.to(device), tuple(t.to(device) for t in self.indices))
+        return BucketCsrs(self.indptr.to(device), tuple(t.to(device) for t in self.indices),
+                          self.edges)
 
 
 def build_bucket_csrs(bucket: np.ndarray, dst: np.ndarray, srcs: Tuple[np.ndarray, ...],
@@ -381,8 +387,10 @@ def build_bucket_csrs(bucket: np.ndarray, dst: np.ndarray, srcs: Tuple[np.ndarra
     # bucket q's rows are entries q*rows .. (q+1)*rows: overlapping windows
     # of one cumulative sum, so each row of [Q, rows + 1] is absolute
     idx = np.arange(num_buckets)[:, None] * rows + np.arange(rows + 1)[None, :]
+    edges = np.bincount(bucket, minlength=num_buckets)
     return BucketCsrs(torch.from_numpy(indptr[idx]),
-                      tuple(torch.from_numpy(np.ascontiguousarray(s, np.int32)) for s in srcs))
+                      tuple(torch.from_numpy(np.ascontiguousarray(s, np.int32)) for s in srcs),
+                      tuple(int(e) for e in edges))
 
 
 def spmm_rect(csr: RectCsr, source: torch.Tensor) -> torch.Tensor:
@@ -390,7 +398,7 @@ def spmm_rect(csr: RectCsr, source: torch.Tensor) -> torch.Tensor:
     CSR: ``source`` ``[C, B, W]`` -> ``[rows, B, W]`` through the edge
     kernel, which adds each row's terms in CSR order (rows without edges
     come out zero)."""
-    return spmm_edge_tile(csr.indptr, csr.indices, source)
+    return spmm_edge_tile(csr.indptr, csr.indices, source, edges=csr.edges)
 
 
 def fused_count_rect(csr: RectCsr, left: torch.Tensor, source: torch.Tensor,
@@ -399,7 +407,7 @@ def fused_count_rect(csr: RectCsr, left: torch.Tensor, source: torch.Tensor,
     reference's ``fused_count_slabs``, ``ops.py:665``): ``left`` ``[rows, B,
     A]`` contracted with the neighbor sum of ``source`` ``[C, B, W]``, which
     never exists whole; returns ``[rows, B, S]``."""
-    return fused_count(csr.indptr, csr.indices, left, source, tables)
+    return fused_count(csr.indptr, csr.indices, left, source, tables, edges=csr.edges)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,6 +429,10 @@ class CombineTables:
     s: int  # output width C(k, t)
     j: int  # split count C(t, t1)
     jp: int  # J padded to a multiple of 4: the row pitch of ``pairs``
+
+    def to(self, device) -> "CombineTables":
+        return dataclasses.replace(self, idx1=self.idx1.to(device), idx2=self.idx2.to(device),
+                                   pairs=self.pairs.to(device))
 
 
 def build_combine_tables(k: int, t1: int, t2: int, *, device: torch.device) -> CombineTables:

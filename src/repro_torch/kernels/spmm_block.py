@@ -58,7 +58,7 @@ import torch
 
 from . import _build
 from .ref import spmm_block_ref
-from .spmm_edgetile import _check_cuda
+from .spmm_edgetile import _check_args
 
 __all__ = ["spmm_block", "spmm_block_plain", "TILE"]
 
@@ -97,9 +97,9 @@ def spmm_block(plan, table: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the plan's unions {tuple(plan.patch_union.shape)}, offsets "
                          f"{tuple(plan.patch_offs.shape)} or bounds do not fit {n_patches} "
                          f"patches of 128x128")
-    _check_cuda(table, (plan.patch_ptr, torch.int32), (plan.patch_col, torch.int32),
+    _check_args(table, (plan.patch_ptr, torch.int32), (plan.patch_col, torch.int32),
                 (plan.patch_union, torch.int32), (plan.patch_offs, torch.int16),
-                (plan.patch_slots, torch.uint8), (plan.patch_slots_ptr, torch.int64))
+                (plan.patch_slots, torch.uint8), (plan.patch_slots_ptr, torch.int64), meta=False)
     if any(t.data_ptr() % 16 for t in (plan.patch_union, plan.patch_offs, plan.patch_slots)):
         raise ValueError("the kernel copies unions, offsets and slots in 16-byte units: all "
                          "three must be 16-byte aligned")

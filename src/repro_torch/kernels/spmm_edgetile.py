@@ -41,10 +41,11 @@ no gather came from L2: half the HBM gather rate on the main cell.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import spmm_segment_ref
 
 __all__ = ["spmm_edge_tile", "spmm_edge_tile_plain"]
@@ -56,24 +57,35 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong, ctype
                                      ctypes.c_void_p]
 
 
-def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor, *,
+                   edges: Optional[int] = None) -> torch.Tensor:
     """``out[v, b, :] = sum_{e in row v} table[indices[e], b, :]``.
 
     ``indptr`` int64 ``[rows + 1]``, ``indices`` int32, ``table`` float32
     ``[C, B, W]``; returns ``[rows, B, W]``.  The source need not be square:
     the kernel addresses it only through ``indices``, which must lie below
     ``C`` (a compact source, ``ops.spmm_compact``).  A CPU table runs the
-    plain version; a CUDA table launches the kernel or raises.
+    plain version; a CUDA table launches the kernel or raises.  A ``meta``
+    table (a shape-only run) checks the same contract, allocates the CUDA
+    branch's output and records the launch and its work
+    (:func:`.work.record`) with ``edges`` CSR entries: the caller's host
+    count where ``indptr`` covers part of ``indices`` (a bucket), else all
+    of them.  No other branch reads ``edges``.
     """
     if table.dim() != 3 or table.shape[0] < 1:
         raise ValueError(f"the source table must be [C >= 1, B, W]; got {tuple(table.shape)}")
     if table.device.type == "cpu":
         return spmm_edge_tile_plain(indptr, indices, table)
-    _check_cuda(table, (indptr, torch.int64), (indices, torch.int32))
+    _check_args(table, (indptr, torch.int64), (indices, torch.int32))
     rows = indptr.numel() - 1
     _, b, w = table.shape
     out = torch.empty((rows, b, w), dtype=torch.float32, device=table.device)
     width = b * w
+    if table.device.type == "meta":
+        e = indices.numel() if edges is None else edges
+        work.record("spmm_edgetile", (indptr, indices, table, out),
+                    work.spmm_edge(rows, table.shape[0], e, width))
+        return out
     vec = width % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = _build.kernel_fn("spmm_edgetile", "spmm_edgetile_launch", _ARGTYPES)
     with torch.cuda.device(table.device):
@@ -89,10 +101,13 @@ def spmm_edge_tile(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Ten
 spmm_edge_tile.launches = 0
 
 
-def _check_cuda(table: torch.Tensor, *index_args) -> None:
-    """The kernels' argument contract; raises on anything they do not take."""
-    if table.device.type != "cuda":
-        raise ValueError(f"kernel tables must be on a CUDA device or the CPU, got {table.device}")
+def _check_args(table: torch.Tensor, *index_args, meta: bool = True) -> None:
+    """The kernels' argument contract, on the card and (for a kernel with a
+    shape-only branch, ``meta=True``) on ``meta`` alike; raises on anything
+    they do not take."""
+    if table.device.type not in (("cuda", "meta") if meta else ("cuda",)):
+        raise ValueError(f"kernel tables must be on a CUDA device{', the meta device' * meta} "
+                         f"or the CPU, got {table.device}")
     if table.dtype != torch.float32 or table.dim() != 3 or not table.is_contiguous():
         raise ValueError(
             f"kernel tables are contiguous float32 [rows, B, W]; got {table.dtype} "

@@ -9,6 +9,8 @@ so importing this module touches no device and no process group.
   reference's tests use it.  This is how P shards run on one card.
 * :func:`process_mesh`: this process's rank of a ``torchrun`` job (or any
   initialized ``torch.distributed`` world), laid out ``iters x data``.
+* :func:`make_production_mesh`: the reference's 256- and 512-chip meshes as
+  abstract meshes on ``meta``, for the dry-run.
 
 NCCL cannot put two ranks of one communicator on one GPU, so on one card
 ``P > 1`` runs as a ``LocalMesh`` and NCCL only at world size 1.
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..comm.abstract import AbstractMesh
 from ..comm.group import LocalMesh, ProcessGroupComm, ProcessMesh, SoloGroup
 
 __all__ = ["make_local_mesh", "process_mesh", "init_process_group", "make_production_mesh"]
@@ -86,7 +89,12 @@ def process_mesh(data: Optional[int] = None, iters: int = 1, *, device=None) -> 
     return ProcessMesh(data_group, iter_group, torch.device(device))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (or 2 x 16 x 16) TPU pod mesh, which only its
-    dry-run uses: ROADMAP queue 1 item 9."""
-    raise NotImplementedError("make_production_mesh goes with the dry-run: ROADMAP queue 1 item 9")
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh (``repro/launch/mesh.py:15-19``) as
+    an abstract mesh on ``meta``, which only the dry-run runs: 16 x 16
+    ``(data, model)``, 256 chips, or 2 x 16 x 16 ``(pod, data, model)``, 512.
+    ``model`` (with ``pod``) is the iteration axis, as the reference's
+    counting cells use it; the graph shards over ``data``."""
+    if multi_pod:
+        return AbstractMesh(16, 32, axes=(("pod", 2), ("data", 16), ("model", 16)))
+    return AbstractMesh(16, 16, axes=(("data", 16), ("model", 16)))

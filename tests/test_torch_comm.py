@@ -302,8 +302,9 @@ def test_aborted_waits_raise_mesh_aborted():
 def test_mesh_arguments():
     with pytest.raises(ValueError, match="data >= 1"):
         LocalMesh(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_production_mesh()
+    mesh = make_production_mesh()
+    assert (mesh.axis_names, mesh.shape, mesh.device.type) == (("data", "model"), (16, 16), "meta")
+    assert make_production_mesh(multi_pod=True).shape == (2, 16, 16)
     assert repr(make_local_mesh(2, device="cpu")) == "LocalMesh(data=2, iters=1, device=cpu)"
 
 

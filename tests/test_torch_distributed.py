@@ -397,8 +397,8 @@ def test_route_report_costs_the_ports_bytes():
 
 def test_unported_surfaces_name_their_items():
     """Compaction and the narrow wire are ported (a plan carries its spec;
-    an unknown wire is the reference's ValueError); shape-only plans name
-    item 9."""
+    an unknown wire is the reference's ValueError); shape-only plans are
+    the reference's (``tests/test_torch_dryrun.py`` holds them row by row)."""
     g = _graphs("er97")[0]
     assert build_distributed_plan(g, path_tree(4), 2, compact=True, device="cpu",
                                   density_threshold=1.0).compaction.enabled
@@ -410,8 +410,12 @@ def test_unported_surfaces_name_their_items():
     assert plan_route_report(plan, wire_dtype="int16")["wire_dtype"] == "int16"
     assert Counter.from_graph(g, "u3-1", backend="distributed", device="cpu",
                               compact=True).plan.compaction is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        abstract_plan(10**6, 10**7, path_tree(4), 8)
+    shape = abstract_plan(10**6, 10**7, path_tree(4), 8)
+    ref = ref_dist.abstract_plan(10**6, 10**7, ref_templates.path_tree(4), 8)
+    assert (shape.shard_size, shape.n_loc_pad, shape.r_pad, shape.num_tiles) == (
+        ref.shard_size, ref.n_loc_pad, ref.r_pad, ref.num_tiles)
+    assert shape.device.type == "meta" and shape.shards[0].send_idx.device.type == "meta"
+    assert tuple(shape.shards[0].send_idx.shape) == tuple(ref.send_idx.shape[1:])
     with pytest.raises(ValueError, match="mode="):
         make_count_fn(plan, LocalMesh(4, device="cpu"), mode="naive")
     with pytest.raises(ValueError, match="4 shards"):

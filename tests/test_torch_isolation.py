@@ -87,6 +87,16 @@ def test_slice_eleven_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_TWELVE_MODULES = ["comm/abstract.py", "kernels/work.py", "launch/dryrun.py",
+                        "roofline/__init__.py", "roofline/analysis.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_TWELVE_MODULES)
+def test_slice_twelve_modules_are_checked(module):
+    """The dry-run slice's modules are among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -99,7 +109,9 @@ def test_engine_import_loads_no_jax():
         "repro_torch.models.convert, repro_torch.testing.numerics, repro_torch.core.frontier, "
         "repro_torch.comm, repro_torch.comm.group, repro_torch.comm.ring, "
         "repro_torch.comm.pipelined, repro_torch.comm.adaptive, repro_torch.launch.mesh, "
-        "repro_torch.core.distributed, repro_torch.serve, repro_torch.launch.serve; "
+        "repro_torch.core.distributed, repro_torch.serve, repro_torch.launch.serve, "
+        "repro_torch.comm.abstract, repro_torch.kernels.work, repro_torch.launch.dryrun, "
+        "repro_torch.roofline, repro_torch.roofline.analysis; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
