@@ -4,12 +4,15 @@ the single-device tree-template estimate, family counting, treewidth-2 bag
 programs, active-frontier compaction, the distributed exchange engine on
 thread ranks sharing the card (dense, compacted and at narrow wires), the
 resident counting service, the counting dry-run's memory model held
-against those runs, and the granite-3-8b serving path (prefill, then
-decode), with every kernel of their paths built from this checkout and
-held against its plain PyTorch version.  Every bound is the roofline of a
-kernel's work count (``repro_torch.kernels.work``).
+against those runs, the granite-3-8b serving path (prefill, then decode)
+and the other six LM rows served at full width (vision cross-attention,
+experts with the distributed expert layer, RWKV6, RG-LRU with local
+attention at head dim 256, the whisper encoder-decoder), with every kernel
+of their paths built from this checkout and held against its plain
+PyTorch version.  Every bound is the roofline of a kernel's work count
+(``repro_torch.kernels.work``).
 
-    python3 chip_smoke.py            # all phases, one card (about 8-10 minutes)
+    python3 chip_smoke.py            # all phases, one card (about 12-15 minutes)
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
@@ -71,7 +74,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              bound; the float32 kernel (CUDA cores) at the same shape within
              1e-5, timed the same way; also B=1, D=64 with window 1024,
              bidirectional, ragged L (1, 127, 128, 1000, 4097) and GQA groups
-             1, 2, 4 and 8;
+             1, 2, 4 and 8; at D = 256 (64-key KV tiles) both kernels at
+             recurrentgemma-2b's local-attention launch (B=2, Hq=10, Hkv=1,
+             L=4096, causal, window 2048) under the same gates, timed beside
+             the plain version, SDPA (the window as a boolean mask) and the
+             bound, and ragged L (1, 127, 1000) and bidirectional;
 8. lm      — granite-3-8b at full width and depth (40 layers, bf16 weights from
              a seed): one warm and two timed prefills of B=4 prompts of 4096
              tokens, then 32 greedy decode steps with finite logits; 40
@@ -207,6 +214,31 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              alltoall / pipeline ratio within 10%.
              (d) no kernel time of phases 2-14 below the bound its work count
              (repro_torch.kernels.work) gives.
+16. lm-rows — the six other rows at full width, bf16 weights from a seed
+             (``xgate`` drawn nonzero), depth cut to fit the card:
+             llama-3.2-vision-90b 5 layers (one pattern group, B=2 x 4096
+             over 1600 image tokens), whisper-base whole (B=4 x 448 over
+             1500 frames), phi3.5-moe 4 layers (B=4 x 4096), mixtral-8x22b 2
+             layers (B=2 x 6144, past its 4096 window: windowed flash and a
+             wrapped cache), rwkv6-3b whole (B=4 x 4096), recurrentgemma-2b
+             whole (B=2 x 4096; local attention at D = 256).  Per row one
+             warm and two timed prefills, 32 greedy decode steps with finite
+             logits, prefill ms and tokens/s, decode ms a step, peak bytes,
+             flash launches per prefill as the pattern predicts
+             (self-attention, local and encoder layers); on a 31-token
+             prompt (MoE at a capacity that drops nothing) the float32
+             decode step over a float32 cache == a forward over 32 tokens
+             within 2e-2 (over the reference's bf16 cache its distance is
+             logged: the cache's rounding alone passes 2e-2 at llama's
+             width) and the bf16 decode step within 1.5x the bf16
+             forward's distance from it; each block kind's first layer (whisper's encoder whole) in
+             float32 on the card == the CPU within 1e-4 relative (path
+             "lm_rows", its checks "lm_rows_float32_checks").  (b)
+             moe_block_manual on LocalMesh P = 4 sharing the card, one
+             full-width float32 layer at the capacity that drops nothing:
+             phi3.5 EP fused, pipelined (grouped_exchange) g1 and g2, the
+             replicated-token fallback at a decode batch of 3, mixtral TP,
+             each == moe_block within 2e-4, timed, with peak bytes.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -253,6 +285,8 @@ LM_CARD_CPU_LEN = 256  # tokens of the 2-layer float32 card-vs-CPU prefill
 LM_CARD_CPU_RTOL = 1e-4  # float32 on both sides, TF32 off: summation order only
 FLASH_F32_TOL = 1e-5  # float32 kernel vs float32 plain version: summation order
 FLASH_BF16_ATOL = 1e-6  # beyond one bf16 step, for the float32 order near zero
+RG_FLASH = (2, 10, 1, 4096, 256)  # recurrentgemma-2b's local-attention prefill (B, Hq, Hkv, L, D)
+RG_WINDOW = 2048  # its local window
 FAMILY_K = 10  # phase 9: the rmat500-family row's largest template, u10-2
 FAMILY_BATCH = 8  # colorings per call (widest table C(10, 5) = 252 columns, 8.5 GB)
 FAMILY_CALLS = 2  # batches per mode
@@ -2566,16 +2600,24 @@ def flash_bound(q, k, causal: bool, window: int):
                                          window))
 
 
-def sdpa(q, k, v, causal: bool):
+def sdpa(q, k, v, causal: bool, window: int = 0):
     """PyTorch's fused attention on the same inputs: the library yardstick,
-    which the port never calls."""
+    which the port never calls.  A window goes in as a boolean mask (the
+    same function; SDPA then picks a backend that takes a mask)."""
+    import torch
     import torch.nn.functional as F
 
+    kw = {"is_causal": causal}
+    if window > 0:
+        l = q.shape[2]
+        pos = torch.arange(l, device=q.device)
+        d = pos[:, None] - pos[None, :]
+        kw = {"attn_mask": (d < window) & (d >= 0 if causal else d > -window)}
     if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
     g = q.shape[1] // k.shape[1]
     kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
-    return lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
+    return lambda: F.scaled_dot_product_attention(q, kr, vr, **kw)
 
 
 def flash_check(q, k, v, causal: bool, window: int):
@@ -2605,7 +2647,8 @@ def flash_check(q, k, v, causal: bool, window: int):
 def phase_flash(dev):
     """The flash kernels against their plain version at granite-3-8b's
     prefill launch, timed: bf16 (wgmma) and float32 (CUDA cores); then other
-    head dims, masks, lengths and GQA groups."""
+    head dims, masks, lengths and GQA groups, and every launch shape of phase
+    16's prefills in bf16."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2657,11 +2700,42 @@ def phase_flash(dev):
             (2, 16, 8, 128, 64, torch.bfloat16, False, 0),  # group 2, one tile
             (1, 32, 8, LM_LEN + 1, 128, torch.bfloat16, True, 0),  # group 4, a key past a tile
             (2, 32, 4, 1, 128, torch.bfloat16, True, 0),  # group 8, one token
-            (1, 8, 1, 1000, 64, torch.bfloat16, True, 300)):  # group 8, window
+            (1, 8, 1, 1000, 64, torch.bfloat16, True, 300),  # group 8, window
+            # D = 256 at GQA group 10 (recurrentgemma): ragged, bidirectional
+            (1, 10, 1, 1, 256, torch.bfloat16, True, 0),
+            (1, 10, 1, 127, 256, torch.bfloat16, True, 0),
+            (2, 10, 1, 1000, 256, torch.bfloat16, True, 0),
+            (2, 10, 1, 1000, 256, torch.bfloat16, False, 0),
+            (2, 10, 1, 1000, 256, torch.float32, False, 0),
+            (1, 10, 1, 1000, 256, torch.float32, True, 300)):
         e = flash_check(*qkv(b, hq, hkv, l, d, dtype), causal, window)
         log(f"phase 7 B={b} Hq={hq} Hkv={hkv} L={l} D={d} {dtype} causal={causal} "
             f"window={window}: == plain, max_abs_err {e:.3g}")
-    return rows[torch.bfloat16], rows[torch.float32]
+    # every self-attention launch of phase 16's prefills, at its own shape
+    for b, hq, hkv, l, d, causal, window in lm_row_flash_shapes():
+        e = flash_check(*qkv(b, hq, hkv, l, d, torch.bfloat16), causal, window)
+        log(f"phase 7 phase-16 launch B={b} Hq={hq} Hkv={hkv} L={l} D={d} bfloat16 "
+            f"causal={causal} window={window}: == plain, max_abs_err {e:.3g}")
+    # D = 256 at recurrentgemma's prefill launch of its local layers
+    d256 = {}
+    b, hq, hkv, l, d = RG_FLASH
+    for dtype, reps in ((torch.bfloat16, 10), (torch.float32, 3)):
+        q, k, v = qkv(b, hq, hkv, l, d, dtype)
+        err = flash_check(q, k, v, True, RG_WINDOW)
+        lib = sdpa(q, k, v, True, RG_WINDOW)
+        row = dict(
+            shape=f"B={b} Hq={hq} Hkv={hkv} L={l} D={d} {str(dtype)[6:]} causal "
+                  f"window={RG_WINDOW}", err=err,
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=RG_WINDOW), reps=reps),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                             window=RG_WINDOW), 1),
+            library_ms=cuda_ms(lib, reps=reps), bound=flash_bound(q, k, True, RG_WINDOW))
+        log(f"phase 7 {row['shape']}: kernel {row['ms']:.3f}ms  plain {row['plain_ms']:.3f}ms  "
+            f"sdpa (mask) {row['library_ms']:.3f}ms  bound {row['bound'][0]:.4f} "
+            f"{row['bound'][1]}; max_abs_err {err:.3g}")
+        d256[dtype] = row
+        del q, k, v, lib
+    return rows[torch.bfloat16], rows[torch.float32], d256[torch.bfloat16], d256[torch.float32]
 
 
 def phase_lm(dev, flash_ms: float):
@@ -3594,7 +3668,9 @@ def timed_rows(kernel_rows, dense_rows, dags, sparse_rows, dist_rows, compact_ro
         out += [(k, r) for k, rs in d_rows.items() for r in rs]
     for group in (sparse_rows, dist_rows, compact_rows):
         out += [(k, r) for k, rs in group.items() for r in rs]
-    return out + [("flash_attention", flash[0]), ("flash_attention_fp32", flash[1])]
+    return out + [(name, row) for name, row in zip(
+        ("flash_attention", "flash_attention_fp32", "flash_attention", "flash_attention_fp32"),
+        flash)]
 
 
 def dryrun_bounds(rows):
@@ -3623,6 +3699,391 @@ def phase_dryrun(model_inputs, full, rows):
     log(f"phase 15 passed in {dt:.1f}s")
     return {"cells": cells, "world_size_1": ws1, "local_mesh": local, "bounds": bounds,
             "seconds": dt}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the other six rows served
+# ---------------------------------------------------------------------------
+
+#: row: (layers kept, or None for full depth; prompts; tokens a prompt).  Depth
+#: is cut where the full row passes the card (llama-3.2-vision-90b keeps one
+#: pattern group of five, phi3.5-moe four layers, mixtral two); widths never.
+LM_ROWS = {
+    "llama-3.2-vision-90b": (5, 2, 4096),
+    "whisper-base": (None, 4, 448),
+    "phi3.5-moe-42b-a6.6b": (4, 4, 4096),
+    "mixtral-8x22b": (2, 2, 6144),  # past the 4096 window: windowed flash, a wrapped cache
+    "rwkv6-3b": (None, 4, 4096),
+    "recurrentgemma-2b": (None, 2, 4096),
+}
+LM_ROWS_CHECK_LEN = 31  # float32 decode-vs-forward prompt: rwkv's forward over 32 is one chunk
+LM_ROWS_CARD_CPU_LEN = 128  # tokens of each block kind's card-vs-CPU prefill
+LM_ROWS_CONTEXT_SCALE = 0.1  # image-patch and frame embeddings, as the reference's tests draw them
+#: (b) moe_block_manual on LocalMesh P = 4, full width, float32: (label, row,
+#: pipeline, group factor, batch shape)
+MOE_MANUAL = (("phi3.5 ep fused", "phi3.5-moe-42b-a6.6b", False, 1, (4, 1024)),
+              ("phi3.5 ep pipeline g1", "phi3.5-moe-42b-a6.6b", True, 1, (4, 1024)),
+              ("phi3.5 ep pipeline g2", "phi3.5-moe-42b-a6.6b", True, 2, (4, 1024)),
+              ("phi3.5 replicated-token fallback", "phi3.5-moe-42b-a6.6b", False, 1, (3, 1)),
+              ("mixtral tp", "mixtral-8x22b", False, 1, (2, 1024)))
+MOE_MANUAL_SHARDS = 4
+MOE_MANUAL_TOL = 2e-4  # the reference's manual-vs-dense tolerance (tests/_dist_worker.py)
+
+
+def lm_row_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    layers = LM_ROWS[name][0]
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor at which no expert can drop a token
+    (E / k: an expert's capacity is then the token count)."""
+    import dataclasses
+
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def flash_layers(cfg) -> int:
+    """Self-attention launches of one prefill: ``attn``, ``local`` and
+    ``attn_cross`` layers, and the encoder's."""
+    from repro_torch.models.transformer import layer_kinds
+
+    return (sum(k in ("attn", "local", "attn_cross") for k in layer_kinds(cfg))
+            + cfg.encoder_layers)
+
+
+def lm_row_flash_shapes():
+    """Each self-attention launch shape of phase 16's prefills, once:
+    ``(B, Hq, Hkv, L, D, causal, window)`` of the ``attn``, ``local`` and
+    ``attn_cross`` layers and of the encoder's (bidirectional, over its
+    frames)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    shapes = []
+    for name, (_, batch, length) in LM_ROWS.items():
+        cfg = lm_row_cfg(name)
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        d = cfg.resolved_head_dim
+        for kind in dict.fromkeys(layer_kinds(cfg)):
+            if kind in ("attn", "local", "attn_cross"):
+                window = cfg.local_window if kind == "local" else cfg.window
+                shapes.append((batch, *heads, length, d, True, window))
+        if cfg.encoder_layers:
+            shapes.append((batch, *heads, cfg.encoder_context, d, False, 0))
+    return list(dict.fromkeys(shapes))
+
+
+def lm_row_inputs(cfg, batch: int, length: int, gen, dev):
+    """A prompt ``[batch, length]`` and the row's context (image patches or
+    frames), drawn from ``gen``."""
+    import torch
+    from repro_torch.models.factory import context_len
+
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, length), generator=gen, device=dev)}
+    lc, needed = context_len(cfg)
+    if needed:
+        out["context"] = torch.randn((batch, lc, cfg.d_model), generator=gen,
+                                     device=dev) * LM_ROWS_CONTEXT_SCALE
+    return out
+
+
+def draw_gates(params, gen):
+    """``xgate`` is zero at init (a cross block starts as a no-op): draw it."""
+    import torch
+
+    for blk in params.blocks:
+        if hasattr(blk, "xgate"):
+            blk.xgate.copy_(torch.randn((), generator=gen, device=blk.xgate.device))
+
+
+def lm_row_decode_check(params, cfg, inputs, dev):
+    """On a short prompt, at the capacity that drops no token: the bf16
+    decode step (over the reference's bf16 cache) and forward, then the
+    same weights in float32 (in place): the float32 decode step == a
+    forward over L + 1 tokens within LM_DECODE_TOL, and the bf16 decode step
+    no more than LM_BF16_RATIO times as far from that float32 forward as the
+    bf16 forward.
+
+    The float32 prefill keeps its keys and values in float32
+    (``cache_dtype``), so the gate reads the decode path's own distance from
+    the forward.  The same step over that cache rounded to bf16 (the served
+    cache) is reported beside and read by no gate: at full width the
+    cache's rounding alone can pass 2e-2 (llama-3.2-vision-90b: 0.024 on the
+    card), so the gate as first set, on the served cache, is not met there
+    (ROADMAP queue 3)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import encode, forward
+
+    cfg = no_drop(cfg)
+    params.cfg = cfg  # the same weights under the no-drop config, which build_model checks
+    n = LM_ROWS_CHECK_LEN
+    toks = inputs["tokens"][:, : n + 1]
+    ctx_in = inputs.get("context")
+    v = cfg.vocab_size
+
+    def rounded(caches):
+        """The caches with their keys and values in bf16, as served."""
+        return [{name: t.to(torch.bfloat16) if name in ("k", "v") else t.clone()
+                 for name, t in c.items()} for c in caches]
+
+    def run(dtype):
+        model = build_model(cfg, dtype=dtype, device=dev, cache_dtype=dtype)
+        batch = {"tokens": toks[:, :n]}
+        if ctx_in is not None:
+            batch["context"] = ctx_in
+        _, caches = model.prefill_fn(params, batch)
+        served = rounded(caches) if dtype == torch.float32 else None
+        step = {"tokens": toks[:, n:], "pos": n}
+        dec, _ = model.decode_fn(params, dict(step, caches=caches))
+        dec_served = None
+        if served is not None:
+            dec_served = model.decode_fn(params, dict(step, caches=served))[0][:, :v]
+        ctx = None
+        if ctx_in is not None:
+            ctx = encode(params, cfg, ctx_in, dtype=dtype) if cfg.family == "audio" \
+                else ctx_in.to(dtype)
+        with torch.no_grad():
+            full, _ = forward(params, cfg, toks, context=ctx, mode="train", dtype=dtype)
+        return dec[:, :v], full[:, -1, :v].clone(), dec_served
+
+    dec16, fwd16, _ = run(torch.bfloat16)
+    params.float()
+    dec32, fwd32, dec32_served = run(torch.float32)
+    err = (dec32 - fwd32).abs().max().item()
+    if not torch.allclose(dec32, fwd32, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL):
+        raise AssertionError(f"{cfg.name}: float32 decode vs forward over {n + 1} tokens: max "
+                             f"abs err {err} beyond {LM_DECODE_TOL}")
+    dist = {"decode_vs_float32_forward": (dec16 - fwd32).abs().max().item(),
+            "forward_vs_float32_forward": (fwd16 - fwd32).abs().max().item(),
+            "float32_decode_bf16_cache_vs_forward": (dec32_served - fwd32).abs().max().item()}
+    ratio = dist["decode_vs_float32_forward"] / dist["forward_vs_float32_forward"]
+    if not ratio <= LM_BF16_RATIO:
+        raise AssertionError(f"{cfg.name}: bf16 decode step is {ratio:.3g}x as far from the "
+                             f"float32 forward as the bf16 forward, beyond {LM_BF16_RATIO}: {dist}")
+    return err, ratio, dist
+
+
+def block_card_vs_cpu(params, cfg, dev, gen):
+    """Each block kind of the row (its first layer of each kind; whisper's
+    encoder whole), full width in float32: its prefill on the card == the
+    CPU's on the same weights within LM_CARD_CPU_RTOL relative."""
+    import copy
+
+    import torch
+    from repro_torch.models.transformer import cache_buffer_len, encode
+
+    cfg = no_drop(cfg)
+    l = LM_ROWS_CARD_CPU_LEN
+    h = torch.randn((1, l, cfg.d_model), generator=gen, device=dev)
+    ctx = None
+    lc = cfg.num_image_tokens or cfg.encoder_context
+    if any(k in ("cross", "attn_cross") for k in cfg.block_pattern):
+        ctx = torch.randn((1, lc, cfg.d_model), generator=gen, device=dev)
+    out = {}
+    seen = set()
+    kinds = [(blk.kind + ("+experts" if cfg.num_experts else ""), blk) for blk in params.blocks]
+    for kind, blk in kinds:
+        if kind in seen:
+            continue
+        seen.add(kind)
+        cpu = copy.deepcopy(blk).to("cpu")
+        kw = dict(mode="prefill", dtype=torch.float32, s_buf=cache_buffer_len(cfg, l))
+        with torch.no_grad():
+            got, _ = blk(h, cfg, context=ctx, **kw)
+            want, _ = cpu(h.cpu(), cfg, context=None if ctx is None else ctx.cpu(), **kw)
+        out[kind] = rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        del cpu
+        if not rel <= LM_CARD_CPU_RTOL:
+            raise AssertionError(f"{cfg.name} {kind} block: card vs CPU relative error {rel}")
+    if params.encoder is not None:
+        frames = torch.randn((1, cfg.encoder_context, cfg.d_model), generator=gen, device=dev)
+        enc_cpu = copy.deepcopy(params).to("cpu")
+        with torch.no_grad():
+            got = encode(params, cfg, frames, dtype=torch.float32)
+            want = encode(enc_cpu, cfg, frames.cpu(), dtype=torch.float32)
+        out["encoder"] = rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        if not rel <= LM_CARD_CPU_RTOL:
+            raise AssertionError(f"{cfg.name} encoder: card vs CPU relative error {rel}")
+    return out
+
+
+def lm_row(name: str, dev, gen):
+    """One row served: weights, one warm and LM_TIMED timed prefills, then
+    LM_DECODE greedy decode steps; the flash launches per prefill; then the
+    float32 checks.  Returns the row's record and its two paths' launches."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+
+    cfg = lm_row_cfg(name)
+    _, batch, length = LM_ROWS[name]
+    model = build_model(cfg, cast_params=True, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_fn(gen)
+    draw_gates(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    init_s = time.perf_counter() - t0
+    inputs = lm_row_inputs(cfg, batch, length, gen, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = read_launches()
+    logits, caches = model.prefill_fn(params, inputs)
+    torch.cuda.synchronize()
+    prefill_s, per_prefill = [], []
+    for _ in range(LM_TIMED):
+        del logits, caches
+        n0 = flash_attention.launches_wgmma
+        t0 = time.perf_counter()
+        logits, caches = model.prefill_fn(params, inputs)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        per_prefill.append(flash_attention.launches_wgmma - n0)
+    if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.padded_vocab):
+        raise AssertionError(f"{name}: bad prefill logits {tuple(logits.shape)}")
+    tok = logits.argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        step, caches = model.decode_fn(params, {"tokens": tok, "pos": length + i, "caches": caches})
+        if not torch.isfinite(step).all():
+            raise AssertionError(f"{name}: decode step {i} gave logits that are not finite")
+        tok = step.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / LM_DECODE * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    served = {k: v - before[k] for k, v in read_launches().items()}
+    want = flash_layers(cfg)
+    if per_prefill != [want] * LM_TIMED or served["flash_attention_fp32"]:
+        raise AssertionError(f"{name}: bf16 flash launches per prefill {per_prefill}, want {want} "
+                             f"on the wgmma route; launches {served}")
+    wrapped = None
+    if cfg.window:
+        slots = caches[0]["k"].shape[2]
+        wrapped = {"cache_slots": slots, "positions": length + LM_DECODE}
+        if slots >= length:
+            raise AssertionError(f"{name}: the windowed cache ({slots} slots) did not wrap")
+    del logits, caches, step
+    torch.cuda.empty_cache()
+    prefill_ms = min(prefill_s) * 1e3
+    log(f"phase 16 {name} ({cfg.num_layers} layers, {n_params} parameters, "
+        f"{weight_bytes / 1e9:.2f} GB drawn in {init_s:.1f}s) B={batch} L={length}: prefill "
+        f"{[round(t * 1e3, 1) for t in prefill_s]} ms ({batch * length / min(prefill_s):.0f} "
+        f"tokens/s); decode {decode_ms:.2f} ms/step; peak {peak / 2 ** 30:.2f} GiB; wgmma flash "
+        f"launches per prefill {per_prefill}" + (f"; wrapped cache {wrapped}" if wrapped else ""))
+    before = read_launches()
+    t0 = time.perf_counter()
+    dec_err, ratio, dist = lm_row_decode_check(params, cfg, inputs, dev)
+    card_cpu = block_card_vs_cpu(params, cfg, dev, gen)
+    checks = {k: v - before[k] for k, v in read_launches().items()}  # bf16 and float32 runs
+    log(f"phase 16 {name}: float32 decode (float32 cache) == forward over "
+        f"{LM_ROWS_CHECK_LEN + 1} tokens within "
+        f"{LM_DECODE_TOL} (max abs err {dec_err:.3g}); bf16 decode {ratio:.3g}x as far from the "
+        f"float32 forward as the bf16 forward (limit {LM_BF16_RATIO}; {dist}); card == CPU per "
+        f"block kind (relative) {card_cpu} ({time.perf_counter() - t0:.1f}s)")
+    del params, model
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, block_pattern=list(cfg.block_pattern), batch=batch,
+                prompt_len=length, n_params=n_params, weight_bytes=weight_bytes,
+                prefill_ms=prefill_ms, prefill_ms_runs=[t * 1e3 for t in prefill_s],
+                tokens_per_s=batch * length / min(prefill_s), decode_ms_per_step=decode_ms,
+                peak_bytes=peak, flash_launches_per_prefill=per_prefill[0],
+                wrapped_cache=wrapped, decode_vs_forward_max_abs_err_float32=dec_err,
+                bf16_decode_over_forward_distance=ratio, bf16_max_abs_distances=dist,
+                card_vs_cpu_rel_err=card_cpu), served, checks
+
+
+def moe_manual(dev, gen):
+    """(b): moe_block_manual on LocalMesh P = 4 thread ranks sharing the
+    card, one full-width layer in float32, each mode == moe_block on the
+    same weights within MOE_MANUAL_TOL; a warm then a timed call, and the
+    peak bytes above the weights."""
+    import torch
+    from repro_torch.comm import LocalMesh
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.moe import moe_block, moe_block_manual, moe_init, shard_expert_weights
+
+    out = {}
+    weights = {}
+    for label, name, pipeline, gf, shape in MOE_MANUAL:
+        cfg = no_drop(get_arch(name))
+        if name not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[name] = moe_init(Initializer(gen, device=dev), cfg)
+        p = weights[name]
+        x = torch.randn((*shape, cfg.d_model), generator=gen, device=dev) * 0.3
+        with torch.no_grad():
+            want, aux_want = moe_block(p, x, cfg, dtype=torch.float32)
+        mesh = LocalMesh(MOE_MANUAL_SHARDS, device=dev)
+
+        def rank(ctx):
+            mine = shard_expert_weights(p, cfg, ctx.data.rank, ctx.data.size)
+            with torch.no_grad():
+                return moe_block_manual(mine, x, cfg, group=ctx.data, pipeline=pipeline,
+                                        group_factor=gf, dtype=torch.float32)
+
+        outs = mesh.run(rank)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        outs = mesh.run(rank)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        err = max((o - want).abs().max().item() for o, _ in outs)
+        if not all(torch.allclose(o, want, rtol=MOE_MANUAL_TOL, atol=MOE_MANUAL_TOL)
+                   for o, _ in outs):
+            raise AssertionError(f"phase 16 (b) {label}: max abs err {err} beyond "
+                                 f"{MOE_MANUAL_TOL} of moe_block")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            moe_block(p, x, cfg, dtype=torch.float32)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        out[label] = dict(tokens=shape[0] * shape[1], ms=ms, dense_ms=dense_ms, peak_bytes=peak,
+                          max_abs_err=err, aux=outs[0][1].item(), dense_aux=aux_want.item())
+        log(f"phase 16 (b) {label} ({shape[0] * shape[1]} tokens, P={MOE_MANUAL_SHARDS}): == "
+            f"moe_block within {MOE_MANUAL_TOL} (max abs err {err:.3g}); {ms:.1f} ms a call "
+            f"(moe_block {dense_ms:.1f}); peak {peak / 2 ** 30:.2f} GiB above the inputs")
+        del outs, want, x
+    weights.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_rows(dev):
+    """Phase 16: every row beyond the dense ones served at full width, and
+    (b) the distributed expert layer."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    t_start = time.perf_counter()
+    rows, served, checks = {}, {}, {}
+    for i, name in enumerate(LM_ROWS):
+        gen.manual_seed(100 + i)
+        rows[name], s, c = lm_row(name, dev, gen)
+        for acc, d in ((served, s), (checks, c)):
+            for k, v in d.items():
+                acc[k] = acc.get(k, 0) + v
+        if name == "recurrentgemma-2b":  # the only row at D = 256
+            d256 = {"lm_rows": s["flash_attention"],
+                    "lm_rows_float32_checks": c["flash_attention_fp32"]}
+    gen.manual_seed(200)
+    manual = moe_manual(dev, gen)
+    dt = time.perf_counter() - t_start
+    log(f"phase 16 passed in {dt:.1f}s; launches served {served}, float32 checks {checks}")
+    return served, checks, d256, {"rows": rows, "moe_manual": manual, "seconds": dt}
 
 
 # ---------------------------------------------------------------------------
@@ -3661,7 +4122,8 @@ DESIGNS = {
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
                  sparse, dist, compact, dryrun, card):
-    flash, flash32, sass = flash
+    flash, flash32, flash256, flash256_32, sass, d256_launches = flash
+    lm, lm_rows = lm
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
                           "src/repro/kernels/spmm_edgetile.py:137"),
@@ -3777,6 +4239,25 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "time_unit": f"ms per launch at {row['shape']}",
             "library": "torch.nn.functional.scaled_dot_product_attention"} | extra)
+    for name, row, src, base in (
+            ("flash_attention_d256", flash256, "flash_attention_wgmma.cu", "flash_attention"),
+            ("flash_attention_fp32_d256", flash256_32, "flash_attention.cu",
+             "flash_attention_fp32")):
+        # the same sources at D = 256 (64-key KV tiles in the bf16 kernel):
+        # recurrentgemma's local layers, phase 16; their launches are part of
+        # the D-agnostic entries' counts above as well
+        path = "lm_rows" if base == "flash_attention" else "lm_rows_float32_checks"
+        out.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": d256_launches[path], "launches_by_path": {path: d256_launches[path]},
+            "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"], "time_unit": f"ms per launch at {row['shape']}",
+            "library": "torch.nn.functional.scaled_dot_product_attention (boolean window mask)",
+            "check": (f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}"
+                      if base == "flash_attention" else f"within {FLASH_F32_TOL} of the plain "
+                      "version"), "cell": "lm_rows (recurrentgemma-2b local layers)"})
     main_path = {("fused" if fuse else "unfused"): {"ms_per_coloring": ms, "peak_bytes": peak}
                  for fuse, (ms, peak) in per.items()}
     main_path["draw_colorings_ms"], main_path["unfused_predrawn_ms_per_coloring"] = draw_ms
@@ -3792,7 +4273,8 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "dryrun": dryrun,
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
-            | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")}}
+            | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")},
+            "lm_rows_path": lm_rows}
 
 
 def run_phases(dev):
@@ -3833,8 +4315,10 @@ def run_phases(dev):
     dense = phase_dense(dense_graph, dev)
     del dense_graph
     phase_launch()
-    flash, flash32 = phase_flash(dev)
+    flash, flash32, flash256, flash256_32 = phase_flash(dev)
     lm = phase_lm(dev, flash["ms"])
+    torch.cuda.empty_cache()
+    rows_served, rows_checks, d256_launches, lm_rows = phase_lm_rows(dev)
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
     sparse_launches, sparse_rows, sparse = phase_sparse(dev)
     torch.cuda.empty_cache()
@@ -3843,6 +4327,7 @@ def run_phases(dev):
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
+                "lm_rows": rows_served, "lm_rows_float32_checks": rows_checks,
                 "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
                 "distributed": dist_launches, "distributed_compact": compact_launches,
                 "serve": serve_launches}
@@ -3851,11 +4336,12 @@ def run_phases(dev):
             raise AssertionError(f"{name} was never launched on a path: {launches}")
     order = {"spmm_edgetile": order_main, "spmm_block": order_dense, "fused_count": order_main}
     dags = {"family": (family_rows, family), "tw2": (tw2_rows, tw2), "serve": (serve_rows, serve)}
+    flash_rows = (flash, flash32, flash256, flash256_32)
     dryrun = phase_dryrun(model_inputs, dist["full"], timed_rows(
-        rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, (flash, flash32)))
-    return (rows, dense_rows, launches, per, draw_ms, dense, (flash, flash32, sass), lm, order,
-            wide, dags, (sparse_rows, sparse), (dist_rows, dist), (compact_rows, compact),
-            dryrun)
+        rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, flash_rows))
+    return (rows, dense_rows, launches, per, draw_ms, dense, (*flash_rows, sass, d256_launches),
+            (lm, lm_rows), order, wide, dags, (sparse_rows, sparse), (dist_rows, dist),
+            (compact_rows, compact), dryrun)
 
 
 def main() -> int:

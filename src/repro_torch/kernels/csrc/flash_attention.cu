@@ -20,7 +20,8 @@
 //     so no load is issued for it;
 //   * K is staged transposed and V as it is in dynamic shared memory (64 KB
 //     at D = 128), beside the query tile (transposed, 32 KB) and the
-//     probabilities of the current tile (16 KB);
+//     probabilities of the current tile (16 KB); 208 KB at D = 256, under
+//     the 227 KB a CTA may opt into (one CTA an SM);
 //   * GQA: query head h reads KV head h / (Hq / Hkv);
 //   * masked logits are the TPU kernel's finite -1e30, probabilities are zeroed
 //     where masked, and a row whose denominator is 0 gives 0 (the guard at the
@@ -255,7 +256,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
 }  // namespace
 
 // q and o [b, hq, L, d], k and v [b, hkv, L, d], float32, contiguous and
-// 16-byte aligned; d is 64 or 128, hq a multiple of hkv; the logits are
+// 16-byte aligned; d is 64, 128 or 256, hq a multiple of hkv; the logits are
 // q.k * d**-0.5.  causal != 0 masks keys after the query; window > 0 masks
 // keys at or before query - window.  Returns cudaGetLastError() after
 // the launch (or the error of setting the kernel's shared-memory size).
@@ -265,6 +266,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (b <= 0 || hq <= 0 || L <= 0) return (int)cudaGetLastError();
   if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (d == 256) return launch<256>(q, k, v, o, b, hq, hkv, L, causal, window, s);
   if (d == 128) return launch<128>(q, k, v, o, b, hq, hkv, L, causal, window, s);
   if (d == 64) return launch<64>(q, k, v, o, b, hq, hkv, L, causal, window, s);
   return (int)cudaErrorInvalidValue;

@@ -46,7 +46,13 @@
 //     issues P V of one tile, waits for it and issues S of the next, so one
 //     warpgroup's softmax overlaps the other's products, and P (96
 //     registers) and S (64) are never live at once beside O (D / 2);
-//   * epilogue: acc / l rounded to bf16, rows at or past L not stored.
+//   * epilogue: acc / l rounded to bf16, rows at or past L not stored;
+//   * D = 256 (recurrentgemma's local attention): KV tiles of 64 keys
+//     (boxes of 64 rows).  Q (64 KB) and a two-stage ring of 128-key K and
+//     V tiles (256 KB) would pass the 227 KB a CTA may opt into; with 64
+//     keys the ring is 128 KB, 197 KB in all.  A consumer thread holds O's
+//     128 float32 (P V as two m64n128k16 per term, one a 128-column half),
+//     S's 32 and P's 48: 176 live at most, as D = 128 holds 160.
 //
 // The host computes the grid and the tensor maps' geometry
 // (kernels/flash_attention.py); the entry checks them against the shapes.
@@ -73,22 +79,32 @@ using repro_torch::mbar_wait;
 using repro_torch::smem_addr;
 
 constexpr int kBlockM = 128;  // query rows per CTA: two consumer warpgroups of 64
-constexpr int kBlockN = 128;  // keys per KV tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kThreads = 384;
-constexpr int kBoxCols = 64;                      // bf16 columns of one 128-byte box
-constexpr int kBoxBytes = kBlockN * kBoxCols * 2;  // 16 KB: 128 rows of 128 bytes
+constexpr int kBoxCols = 64;  // bf16 columns of one 128-byte box
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// keys per KV tile: 128, or 64 at D = 256, where a 128-key ring (2 x 2 x 64 KB)
+// beside Q (64 KB) passes the 227 KB a CTA may opt into, and a 128-key S (64
+// registers) beside P (96) and O (128) passes the 240 a consumer thread holds
+template <int D>
+constexpr int block_n() {
+  return D == 256 ? 64 : 128;
+}
 
 // shared memory: Q, then K stages, then V stages, then the mbarriers
 template <int D>
 struct Smem {
-  static constexpr int kTile = kBlockN * D * 2;  // bytes of one Q, K or V tile
+  static constexpr int kN = block_n<D>();
+  static constexpr int kQBox = kBlockM * kBoxCols * 2;  // 16 KB: 128 rows of 128 bytes
+  static constexpr int kKVBox = kN * kBoxCols * 2;      // kN rows of 128 bytes
+  static constexpr int kQTile = kBlockM * D * 2;        // bytes of the Q tile
+  static constexpr int kKVTile = kN * D * 2;            // bytes of one K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQTile;
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;
   // q_full, k_full[kStages], v_full[kStages], kv_empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
 };
@@ -174,6 +190,32 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d[0..32) += A[64 x 16] B[16 x 64]: A and B from shared memory (both K-major);
+// scale_d == 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_ss_n128(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_ss_n64(d, a, b, scale_d);
+}
+
 // d[0..64) += A[64 x 16] B[16 x 128]: A from registers (a[0..4), bf16 pairs), B from
 // shared memory, MN-major (the descriptor's transpose bit).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
@@ -218,43 +260,44 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
 }
 
 
-// The KV tiles query tile qt visits, and whether a tile needs the mask code:
-// kv_tiles and tile_needs_mask of kernels/flash_attention.py, which the CPU
-// tests hold against a brute-force mask.
+// The KV tiles of kN keys query tile qt visits, and whether a tile needs the
+// mask code: kv_tiles and tile_needs_mask of kernels/flash_attention.py, which
+// the CPU tests hold against a brute-force mask.
+template <int kN>
 __device__ __forceinline__ void kv_tiles(int qt, int L, int causal, int window, int* begin,
                                          int* end) {
   const int m0 = qt * kBlockM;
   const int q_last = min(m0 + kBlockM, L) - 1;
-  *end = causal ? q_last / kBlockN + 1 : (L + kBlockN - 1) / kBlockN;
-  *begin = window > 0 ? max(0, m0 - window + 1) / kBlockN : 0;
+  *end = causal ? q_last / kN + 1 : (L + kN - 1) / kN;
+  *begin = window > 0 ? max(0, m0 - window + 1) / kN : 0;
 }
 
+template <int kN>
 __device__ __forceinline__ bool tile_needs_mask(int qt, int kt, int L, int causal, int window) {
-  const int m0 = qt * kBlockM, n0 = kt * kBlockN;
+  const int m0 = qt * kBlockM, n0 = kt * kN;
   const int q_last = min(m0 + kBlockM, L) - 1;
-  return n0 + kBlockN > L || (causal && n0 + kBlockN - 1 > m0) ||
-         (window > 0 && n0 <= q_last - window);
+  return n0 + kN > L || (causal && n0 + kN - 1 > m0) || (window > 0 && n0 <= q_last - window);
 }
 
 __device__ __forceinline__ bool allowed(int row, int key, int L, int causal, int window) {
   return key < L && (!causal || key <= row) && (window <= 0 || key > row - window);
 }
 
-// Online softmax of one KV tile on the accumulator layout.  s[4 j + 2 i + c]
-// is the logit of row `row + 8 i` against key `key0 + 8 j + c`.  On return
+// Online softmax of one KV tile of kN keys on the accumulator layout.
+// s[4 j + 2 i + c] is the logit of row `row + 8 i` against key `key0 + 8 j + c`.  On return
 // s holds exp2(logit * scale_log2 - m) (zero where masked), m (the running
 // max of logit * scale_log2) and l are updated, and alpha holds each row's
 // factor exp2(m_old - m_new).  l is this thread's share of the row sum; the
 // quad adds its four at the end.  Maxima and sums run four chains a row:
 // while one warpgroup is in its softmax, its warp is often the only one an
 // SM sub-partition can issue from, so the latency of a single chain shows.
-template <bool kMasked>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <bool kMasked, int kN>
+__device__ __forceinline__ void softmax_tile(float (&s)[kN / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int row, int key0, int L,
                                              int causal, int window, float scale_log2) {
   if (kMasked) {
 #pragma unroll
-    for (int e = 0; e < 64; ++e)
+    for (int e = 0; e < kN / 2; ++e)
       if (!allowed(row + 8 * ((e >> 1) & 1), key0 + 8 * (e >> 2) + (e & 1), L, causal, window))
         s[e] = kNeg;
   }
@@ -264,7 +307,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       const float x = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
       part[i][j & 3] = j < 4 ? x : fmaxf(part[i][j & 3], x);
     }
@@ -280,7 +323,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     neg_m[i] = -m_new;
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -316,6 +359,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  __nv_bfloat16* __restrict__ o, int hq, int hkv, int L,
                                  float scale_log2, int causal, int window) {
   using S = Smem<D>;
+  constexpr int kN = S::kN;
   constexpr int kBoxes = D / kBoxCols;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
@@ -329,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / (hq / hkv);
   int kt_begin, kt_end;
-  kv_tiles(qt, L, causal, window, &kt_begin, &kt_end);
+  kv_tiles<kN>(qt, L, causal, window, &kt_begin, &kt_end);
   const int n_kv = kt_end - kt_begin;
   const int wg = threadIdx.x / 128;
 
@@ -351,23 +395,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)&qmap) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)&kmap) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)&vmap) : "memory");
-    mbar_expect_tx(q_full, S::kTile);
+    mbar_expect_tx(q_full, S::kQTile);
 #pragma unroll
     for (int c = 0; c < kBoxes; ++c)
-      tma_load(base + S::kQ + c * kBoxBytes, &qmap, q_full, c * kBoxCols, qt * kBlockM, b * hq + h);
+      tma_load(base + S::kQ + c * S::kQBox, &qmap, q_full, c * kBoxCols, qt * kBlockM, b * hq + h);
     for (int i = 0; i < n_kv; ++i) {
       const int st = i % kStages;
       if (i >= kStages) mbar_wait(kv_empty + 8 * st, (i / kStages - 1) & 1);
-      const int n0 = (kt_begin + i) * kBlockN;
-      mbar_expect_tx(k_full + 8 * st, S::kTile);
+      const int n0 = (kt_begin + i) * kN;
+      mbar_expect_tx(k_full + 8 * st, S::kKVTile);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c)
-        tma_load(base + S::kK + st * S::kTile + c * kBoxBytes, &kmap, k_full + 8 * st,
+        tma_load(base + S::kK + st * S::kKVTile + c * S::kKVBox, &kmap, k_full + 8 * st,
                  c * kBoxCols, n0, b * hkv + kh);
-      mbar_expect_tx(v_full + 8 * st, S::kTile);
+      mbar_expect_tx(v_full + 8 * st, S::kKVTile);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c)
-        tma_load(base + S::kV + st * S::kTile + c * kBoxBytes, &vmap, v_full + 8 * st,
+        tma_load(base + S::kV + st * S::kKVTile + c * S::kKVBox, &vmap, v_full + 8 * st,
                  c * kBoxCols, n0, b * hkv + kh);
     }
     return;
@@ -379,15 +423,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int row = qt * kBlockM + 64 * w + 16 * warp + lane / 4;  // and row + 8
   const int col = 2 * (lane % 4);                                // and col + 1, of each 8
-  float acc[D / 2], s[64];
+  // acc[4 j + 2 i + c] is row `row + 8 i`, column 8 j + c + col of the output
+  // (at D = 256 the two 128-column halves of P V accumulate into acc[0, 64)
+  // and acc[64, 128), which keeps that layout)
+  float acc[D / 2], s[kN / 2];
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f}, alpha[2];
-  uint32_t p0[32], p1[32], p2[32];
+  uint32_t p0[kN / 4], p1[kN / 4], p2[kN / 4];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
 #pragma unroll
-  for (int e = 0; e < 64; ++e) s[e] = 0.0f;
+  for (int e = 0; e < kN / 2; ++e) s[e] = 0.0f;
 #pragma unroll
-  for (int r = 0; r < 32; ++r) p0[r] = p1[r] = p2[r] = 0u;
+  for (int r = 0; r < kN / 4; ++r) p0[r] = p1[r] = p2[r] = 0u;
 
   const uint32_t q_base = base + S::kQ + w * 64 * 128;  // 64 rows of 128 bytes into each box
   mbar_wait(q_full, 0);
@@ -404,13 +451,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       // keys, so B is MN-major: 8 keys of 128 bytes per 1024-byte group
       // (SBO), the next 64 columns of D one box further (LBO)
       const int st = (i - 1) % kStages;
-      const uint32_t v_base = base + S::kV + st * S::kTile;
+      const uint32_t v_base = base + S::kV + st * S::kKVTile;
       mbar_wait(v_full + 8 * st, ((i - 1) / kStages) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kBlockN / 16; ++ks) {
-        const uint64_t vd = smem_desc(v_base + ks * 16 * 128, kBoxBytes, 1024);
-        if constexpr (D == 128) {
+      for (int ks = 0; ks < kN / 16; ++ks) {
+        const uint64_t vd = smem_desc(v_base + ks * 16 * 128, S::kKVBox, 1024);
+        if constexpr (D == 256) {
+          // columns 0-127 from boxes 0 and 1, 128-255 from boxes 2 and 3
+          float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+          float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&acc[64]);
+          const uint64_t vd_hi = smem_desc(v_base + 2 * S::kKVBox + ks * 16 * 128, S::kKVBox, 1024);
+          wgmma_rs_n128(lo, &p0[4 * ks], vd);
+          wgmma_rs_n128(hi, &p0[4 * ks], vd_hi);
+          wgmma_rs_n128(lo, &p1[4 * ks], vd);
+          wgmma_rs_n128(hi, &p1[4 * ks], vd_hi);
+          wgmma_rs_n128(lo, &p2[4 * ks], vd);
+          wgmma_rs_n128(hi, &p2[4 * ks], vd_hi);
+        } else if constexpr (D == 128) {
           wgmma_rs_n128(acc, &p0[4 * ks], vd);
           wgmma_rs_n128(acc, &p1[4 * ks], vd);
           wgmma_rs_n128(acc, &p2[4 * ks], vd);
@@ -435,24 +493,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // S = Q K^T: 16 columns of D per wgmma, four per 128-byte box
     const int st = i % kStages, kt = kt_begin + i;
-    const uint32_t k_base = base + S::kK + st * S::kTile;
+    const uint32_t k_base = base + S::kK + st * S::kKVTile;
     mbar_wait(k_full + 8 * st, (i / kStages) & 1);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
-      wgmma_ss_n128(s, smem_desc(q_base + off, 16, 1024), smem_desc(k_base + off, 16, 1024),
-                    ks > 0);
+      const uint32_t col = (ks % 4) * 32;
+      wgmma_ss(s, smem_desc(q_base + (ks / 4) * S::kQBox + col, 16, 1024),
+               smem_desc(k_base + (ks / 4) * S::kKVBox + col, 16, 1024), ks > 0);
     }
     wgmma_commit();
     bar_arrive(2 - w);
     wgmma_wait_all();
     pin(s);
 
-    if (tile_needs_mask(qt, kt, L, causal, window))
-      softmax_tile<true>(s, m, l, alpha, row, kt * kBlockN + col, L, causal, window, scale_log2);
+    if (tile_needs_mask<kN>(qt, kt, L, causal, window))
+      softmax_tile<true, kN>(s, m, l, alpha, row, kt * kN + col, L, causal, window, scale_log2);
     else
-      softmax_tile<false>(s, m, l, alpha, row, kt * kBlockN + col, L, causal, window, scale_log2);
+      softmax_tile<false, kN>(s, m, l, alpha, row, kt * kN + col, L, causal, window, scale_log2);
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
     // P = P_0 + P_1 + P_2, each term the bf16 truncation of what the ones
@@ -460,7 +518,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // hold P exactly (integer permutes and float32 subtractions, no
     // conversion instructions)
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {
+    for (int r = 0; r < kN / 4; ++r) {
       float x = s[2 * r], y = s[2 * r + 1];
       p0[r] = high_halves(x, y);
       x = low_part(x);
@@ -503,8 +561,8 @@ EncodeTiled encode_tiled() {
 }
 
 // geo: dims[3] (innermost first), byte strides of dims 1 and 2, box[3]
-bool geometry_ok(const long long* geo, int d, int L, long long heads) {
-  const long long want[8] = {d, L, heads, 2LL * d, 2LL * d * L, kBoxCols, kBlockN, 1};
+bool geometry_ok(const long long* geo, int d, int L, long long heads, int rows) {
+  const long long want[8] = {d, L, heads, 2LL * d, 2LL * d * L, kBoxCols, rows, 1};
   for (int i = 0; i < 8; ++i)
     if (geo[i] != want[i]) return false;
   return true;
@@ -551,11 +609,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int hq, int hkv
 }  // namespace
 
 // q and o [b, hq, L, d], k and v [b, hkv, L, d], bf16, contiguous and
-// 16-byte aligned; d is 64 or 128, hq a multiple of hkv; the logits are
+// 16-byte aligned; d is 64, 128 or 256, hq a multiple of hkv; the logits are
 // q.k * d**-0.5.  causal != 0 masks keys after the query; window > 0 masks
 // keys at or before query - window.  grid is (hq, b, ceil(L / 128)); q_geo
 // and kv_geo are the tensor maps' dims, byte strides and boxes
-// ({d, L, b * heads}, {2 d, 2 d L}, {64, 128, 1}), checked here.  Returns
+// ({d, L, b * heads}, {2 d, 2 d L}, {64, rows, 1}; rows 128, and 64 for
+// kv_geo at d = 256), checked here.  Returns
 // cudaGetLastError() after the launch, or the error that kept it from
 // launching.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
@@ -564,15 +623,17 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                                             const long long* q_geo, const long long* kv_geo,
                                             void* stream) {
   if (b <= 0 || hq <= 0 || L <= 0) return (int)cudaGetLastError();
-  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || (d != 64 && d != 128))
+  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || (d != 64 && d != 128 && d != 256))
     return (int)cudaErrorInvalidValue;
   if (grid[0] != (unsigned)hq || grid[1] != (unsigned)b ||
       grid[2] != (unsigned)((L + kBlockM - 1) / kBlockM) || grid[2] > 65535u)
     return (int)cudaErrorInvalidValue;
-  if (!geometry_ok(q_geo, d, L, (long long)b * hq) ||
-      !geometry_ok(kv_geo, d, L, (long long)b * hkv))
+  const int kv_rows = d == 256 ? block_n<256>() : block_n<128>();
+  if (!geometry_ok(q_geo, d, L, (long long)b * hq, kBlockM) ||
+      !geometry_ok(kv_geo, d, L, (long long)b * hkv, kv_rows))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (d == 256) return launch<256>(q, k, v, o, hq, hkv, L, causal, window, grid, q_geo, kv_geo, s);
   return d == 128 ? launch<128>(q, k, v, o, hq, hkv, L, causal, window, grid, q_geo, kv_geo, s)
                   : launch<64>(q, k, v, o, hq, hkv, L, causal, window, grid, q_geo, kv_geo, s);
 }

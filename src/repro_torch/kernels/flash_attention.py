@@ -8,7 +8,7 @@ the innermost KV dimension.  On the card the CTAs run in no order, so the KV
 sweep is a loop inside one CTA.  Both kernels compute
 :func:`~repro_torch.kernels.ref.flash_attention_ref`: the finite ``-1e30``
 mask, probabilities zeroed where masked, a zero denominator read as 1, any
-``L``, D in {64, 128}.
+``L``, D in {64, 128, 256}.
 
 - **bf16** (``csrc/flash_attention_wgmma.cu``): one CTA per (128-row query
   tile, query head, batch), a producer warp that stages Q once and K and V
@@ -18,7 +18,9 @@ mask, probabilities zeroed where masked, a zero denominator read as 1, any
   P is split into three bf16 terms, each the bf16 truncation of what the
   terms before it leave, which hold float32 P exactly, and all three go
   through ``P V``, so the products keep the reference's float32 P: P rounded
-  to bf16 alone, or split in two, misses the one-bf16-step gate.  Bound on the H100:
+  to bf16 alone, or split in two, misses the one-bf16-step gate.  At D = 256
+  the KV tiles hold 64 keys (:func:`kv_tile`), so Q and the ring fit the
+  shared memory a CTA may opt into and O, S and P the registers.  Bound on the H100:
   operations, ``4 B Hq pairs D`` flops at 989e12 bf16 flop/s; the split does
   ``8 D`` a pair.
 - **float32** (``csrc/flash_attention.cu``): one CTA per (64-row query tile,
@@ -44,16 +46,16 @@ from .ref import flash_attention_ref
 
 __all__ = [
     "flash_attention", "flash_attention_plain", "HEAD_DIMS", "TILE", "BOX_COLS", "query_tiles",
-    "kv_tiles", "tile_needs_mask", "launch_grid", "tensor_map_geometry",
+    "kv_tile", "kv_tiles", "tile_needs_mask", "launch_grid", "tensor_map_geometry",
 ]
 
 #: the plain version the wrapper takes for a CPU tensor
 flash_attention_plain = flash_attention_ref
 
 #: head dimensions the kernels are built for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
-#: query rows per CTA and keys per KV tile of the bf16 kernel
+#: query rows per CTA of the bf16 kernel, and keys per KV tile below D = 256
 TILE = 128
 
 #: bf16 columns of one 128-byte-swizzled TMA box
@@ -70,22 +72,31 @@ def query_tiles(length: int) -> int:
     return -(-length // TILE)
 
 
-def kv_tiles(qt: int, length: int, causal: bool, window: int) -> range:
-    """The KV tiles query tile ``qt`` visits: every tile holding a key that
-    some row of the tile may attend, in ascending order."""
+def kv_tile(d: int) -> int:
+    """Keys per KV tile of the bf16 kernel at head dim ``d``: ``TILE``, and 64
+    at D = 256 (a 128-key ring beside Q would need 320 KB of shared memory)."""
+    return 64 if d == 256 else TILE
+
+
+def kv_tiles(qt: int, length: int, causal: bool, window: int, block_n: int = TILE) -> range:
+    """The KV tiles of ``block_n`` keys query tile ``qt`` (``TILE`` rows)
+    visits: every tile holding a key that some row of the tile may attend, in
+    ascending order."""
     m0 = qt * TILE
     q_last = min(m0 + TILE, length) - 1
-    end = q_last // TILE + 1 if causal else query_tiles(length)
-    begin = max(0, m0 - window + 1) // TILE if window > 0 else 0
+    end = q_last // block_n + 1 if causal else -(-length // block_n)
+    begin = max(0, m0 - window + 1) // block_n if window > 0 else 0
     return range(begin, end)
 
 
-def tile_needs_mask(qt: int, kt: int, length: int, causal: bool, window: int) -> bool:
-    """Whether some (row < length, key) pair of the tiles is masked (keys past
-    ``length`` included); the kernel skips the mask code on the others."""
-    m0, n0 = qt * TILE, kt * TILE
+def tile_needs_mask(qt: int, kt: int, length: int, causal: bool, window: int,
+                    block_n: int = TILE) -> bool:
+    """Whether some (row < length, key) pair of query tile ``qt`` and KV tile
+    ``kt`` (of ``block_n`` keys) is masked (keys past ``length`` included);
+    the kernel skips the mask code on the others."""
+    m0, n0 = qt * TILE, kt * block_n
     q_last = min(m0 + TILE, length) - 1
-    return (n0 + TILE > length or (causal and n0 + TILE - 1 > m0)
+    return (n0 + block_n > length or (causal and n0 + block_n - 1 > m0)
             or (window > 0 and n0 <= q_last - window))
 
 
@@ -95,12 +106,14 @@ def launch_grid(b: int, hq: int, length: int) -> Tuple[int, int, int]:
     return hq, b, query_tiles(length)
 
 
-def tensor_map_geometry(batch_heads: int, length: int, d: int) -> Tuple[int, ...]:
+def tensor_map_geometry(batch_heads: int, length: int, d: int,
+                        rows: int = TILE) -> Tuple[int, ...]:
     """One bf16 tensor map over ``[B, H, L, D]`` as 3-D ``(D, L, B H)``: its
     dims (innermost first), the byte strides of dims 1 and 2, and the box of
-    ``BOX_COLS`` columns by ``TILE`` rows of one head (a 128-byte row, the
-    swizzle's width, so D = 128 takes two boxes)."""
-    return (d, length, batch_heads, 2 * d, 2 * d * length, BOX_COLS, TILE, 1)
+    ``BOX_COLS`` columns by ``rows`` rows of one head (a 128-byte row, the
+    swizzle's width, so D = 128 takes two boxes and D = 256 four).  Q's box
+    is ``TILE`` rows, K's and V's ``kv_tile(d)``."""
+    return (d, length, batch_heads, 2 * d, 2 * d * length, BOX_COLS, rows, 1)
 
 
 def flash_attention(
@@ -140,7 +153,7 @@ def flash_attention(
                                   _WGMMA_ARGTYPES)
             grid = (ctypes.c_uint * 3)(*launch_grid(b, hq, lq))
             q_geo = (ctypes.c_longlong * 8)(*tensor_map_geometry(b * hq, lq, d))
-            kv_geo = (ctypes.c_longlong * 8)(*tensor_map_geometry(b * hkv, lq, d))
+            kv_geo = (ctypes.c_longlong * 8)(*tensor_map_geometry(b * hkv, lq, d, kv_tile(d)))
             err = fn(*args, grid, q_geo, kv_geo, stream)
             _build.check(err, "flash_attention_wgmma_launch")
             flash_attention.launches_wgmma += 1

@@ -1,12 +1,14 @@
-"""Self-attention with GQA: prefill through the flash kernel, a circular bf16
-KV cache, and decode over it.
+"""Attention with GQA: self-attention (causal, sliding-window or
+bidirectional) through the flash kernel, cross-attention through the
+chunked path, a circular KV cache (bf16, as the reference's), and decode
+over it.
 
-Counterparts of ``repro/models/attention.py`` for self-attention.  Prefill
-(``Lq == Lk``) goes through ``ops.flash_attention``: the hand-written CUDA
-kernel for a CUDA tensor, its plain version for a CPU tensor.  Decode is
-plain torch over the cache, as it is XLA code in the reference.  The
-reference's XLA ``chunked_attention`` and cross-attention wait for ROADMAP
-queue 1 item 11.
+Counterparts of ``repro/models/attention.py``.  Self-attention (``Lq ==
+Lk``) goes through ``ops.flash_attention``: the hand-written CUDA kernel for
+a CUDA tensor, its plain version for a CPU tensor.  Cross-attention goes
+through :func:`chunked_attention`, plain torch, as the reference's is XLA
+(it never routes cross-attention through Pallas).  Decode is plain torch
+over the cache, as it is XLA code in the reference.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ __all__ = [
     "init_kv_cache",
 ]
 
-#: the reference stores every KV cache in bf16, whatever the compute dtype
+#: the reference stores every KV cache in bf16, whatever the compute dtype;
+#: the port's default, which ``cache_dtype`` may override
 CACHE_DTYPE = torch.bfloat16
 
 
@@ -42,6 +45,9 @@ class Attention(nn.Module):
 
 
 def attn_init(init: Initializer, cfg) -> Attention:
+    """The four projections, for self- and cross-attention alike: a
+    cross-attention's keys and values project the context, of width
+    ``d_model`` too."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     return Attention(
@@ -58,11 +64,67 @@ def _project(p: Dense, x: torch.Tensor, heads: int, hd: int, dtype) -> torch.Ten
     return y.reshape(b, l, heads, hd).transpose(1, 2)  # [B, H, L, D]
 
 
-def chunked_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "chunked_attention (the reference's XLA path) waits for ROADMAP queue 1 item 11; "
-        "self-attention prefill runs ops.flash_attention"
-    )
+def chunked_attention(
+    q: torch.Tensor,  # [B, H, Lq, D]
+    k: torch.Tensor,  # [B, Hkv, Lk, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style online-softmax attention in plain torch, chunk by chunk.
+
+    The reference's XLA path: queries in chunks of ``q_chunk`` against keys
+    in chunks of ``kv_chunk``, ragged lengths padded to whole chunks (padded
+    keys masked, padded query rows dropped), queries aligned to the end of
+    the real keys (``qpos = i + Lk - Lq``), a float32 online softmax with the
+    finite ``-1e30`` mask and probabilities zeroed where masked, and a zero
+    denominator read as 1 (a fully masked row gives 0).  Returns ``[B, H,
+    Lq, D]`` in ``q``'s dtype.
+    """
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_chunk, kv_chunk = min(q_chunk, lq), min(kv_chunk, lk)
+    nq, nk = -(-lq // q_chunk), -(-lk // kv_chunk)
+    scale = d ** -0.5
+    offset = lk - lq
+    dev = q.device
+    qg = q.reshape(b, hkv, g, lq, d)
+    out = torch.empty_like(q).reshape(b, hkv, g, lq, d)
+    for iq in range(nq):
+        q0 = iq * q_chunk
+        q32 = qg[:, :, :, q0 : q0 + q_chunk].float() * scale
+        rows = q32.shape[3]
+        # padded query rows of the last chunk have no row here: their
+        # positions only ever widen the mask of rows that are dropped
+        qpos = offset + q0 + torch.arange(rows, device=dev)[:, None]
+        acc = torch.zeros((b, hkv, g, rows, d), dtype=torch.float32, device=dev)
+        m = torch.full((b, hkv, g, rows, 1), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, g, rows, 1), dtype=torch.float32, device=dev)
+        for ik in range(nk):
+            k0 = ik * kv_chunk
+            kc = k[:, :, k0 : k0 + kv_chunk].float()
+            vc = v[:, :, k0 : k0 + kv_chunk].float()
+            logits = torch.einsum("bkgqd,bkcd->bkgqc", q32, kc)
+            kpos = k0 + torch.arange(kc.shape[2], device=dev)[None, :]
+            mask = kpos < lk
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window > 0:
+                mask = mask & (kpos > qpos - window)
+            logits = torch.where(mask, logits, NEG)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.where(mask, torch.exp(logits - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        out[:, :, :, q0 : q0 + q_chunk] = (acc / l).to(q.dtype)
+    return out.reshape(b, h, lq, d)
 
 
 def decode_attention(
@@ -88,12 +150,12 @@ def decode_attention(
 
 
 def init_kv_cache(batch: int, kv_heads: int, length: int, head_dim: int, *,
-                  device: torch.device) -> dict:
+                  device: torch.device, dtype: torch.dtype = CACHE_DTYPE) -> dict:
     """Circular KV cache; ``slot_pos`` holds the absolute position in each
     slot (-1 where empty), and position ``p`` lives in slot ``p % length``."""
     return {
-        "k": torch.zeros((batch, kv_heads, length, head_dim), dtype=CACHE_DTYPE, device=device),
-        "v": torch.zeros((batch, kv_heads, length, head_dim), dtype=CACHE_DTYPE, device=device),
+        "k": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype, device=device),
+        "v": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype, device=device),
         "slot_pos": torch.full((length,), -1, dtype=torch.int32, device=device),
     }
 
@@ -103,27 +165,40 @@ def attention_block(
     x: torch.Tensor,  # [B, L, D_model]
     cfg,
     *,
+    causal: bool = True,
     window: int = 0,
+    context: Optional[torch.Tensor] = None,  # cross-attention context [B, Lc, D_model]
     cache: Optional[dict] = None,
     pos: Optional[int] = None,
     dtype=torch.bfloat16,
     build_cache_len: Optional[int] = None,
+    cache_dtype: torch.dtype = CACHE_DTYPE,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One self-attention mix (the block owns norm and residual).
+    """One attention mix (the block owns norm and residual).
 
-    Without ``cache`` the tokens attend to each other through
-    ``ops.flash_attention``; with ``build_cache_len`` a cache of that many
-    slots is built from their keys and values (prefill).  With ``cache``
+    With ``context`` the tokens attend to it (cross-attention): keys and
+    values project the context, nothing is roped, and the path is
+    :func:`chunked_attention` without a mask, as in the reference.
+    Otherwise, without ``cache``, the tokens attend to each other through
+    ``ops.flash_attention`` (``causal``, ``window``); with
+    ``build_cache_len`` a cache of that many slots is built from their keys
+    and values, stored in ``cache_dtype`` (prefill).  With ``cache``
     (decode, one token at position ``pos``), the token's key and value are
-    written at slot ``pos % S`` **in place** and the token attends over the
-    cache.  Returns ``(out [B, L, D_model], cache or None)``.
+    written at slot ``pos % S`` **in place**, in the cache's dtype, and the
+    token attends over the cache.  Returns ``(out [B, L, D_model], cache or
+    None)``.
     """
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     b, l, _ = x.shape
     q = _project(p.wq, x, h, hd, dtype)
-    k = _project(p.wk, x, kv, hd, dtype)
-    v = _project(p.wv, x, kv, hd, dtype)
+    kv_src = x if context is None else context
+    k = _project(p.wk, kv_src, kv, hd, dtype)
+    v = _project(p.wv, kv_src, kv, hd, dtype)
+    if context is not None:
+        out = chunked_attention(q, k, v, causal=False, window=0)
+        out = out.transpose(1, 2).reshape(b, l, h * hd)
+        return out @ p.wo.w.to(dtype), None
     if cache is None:
         positions = torch.arange(l, device=x.device)
     else:
@@ -137,24 +212,24 @@ def attention_block(
     if cache is not None:
         s_buf = cache["k"].shape[2]
         slot = pos % s_buf
-        cache["k"][:, :, slot : slot + 1] = k.to(CACHE_DTYPE)
-        cache["v"][:, :, slot : slot + 1] = v.to(CACHE_DTYPE)
+        cache["k"][:, :, slot : slot + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, :, slot : slot + 1] = v.to(cache["v"].dtype)
         cache["slot_pos"][slot] = pos
         new_cache = cache
         out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=window)
     else:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=True, window=window)
+                                  causal=causal, window=window)
         if build_cache_len is not None:
             s_buf = build_cache_len
             keep = min(l, s_buf)
-            new_cache = init_kv_cache(b, kv, s_buf, hd, device=x.device)
+            new_cache = init_kv_cache(b, kv, s_buf, hd, device=x.device, dtype=cache_dtype)
             # the last `keep` positions (a windowed cache may be shorter than
             # the prompt), at slots absolute position % s_buf
             abs_pos = torch.arange(l - keep, l, device=x.device)
             slots = abs_pos % s_buf
-            new_cache["k"][:, :, slots] = k[:, :, l - keep :].to(CACHE_DTYPE)
-            new_cache["v"][:, :, slots] = v[:, :, l - keep :].to(CACHE_DTYPE)
+            new_cache["k"][:, :, slots] = k[:, :, l - keep :].to(cache_dtype)
+            new_cache["v"][:, :, slots] = v[:, :, l - keep :].to(cache_dtype)
             new_cache["slot_pos"][slots] = abs_pos.to(torch.int32)
 
     out = out.transpose(1, 2).reshape(b, l, h * hd)

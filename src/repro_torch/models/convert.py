@@ -2,9 +2,11 @@
 
 The reference keeps each position of the block pattern stacked over depth
 (``{"embed", "final_norm", "lm_head", "groups": {"pos0": [n_full, ...]},
-"tail": [...]}``); the port keeps one :class:`Block` per layer.  Both keep
-dense weights as ``[d_in, d_out]``, so the port computes ``x @ w`` on the
-same matrices.  Arrays come in as numpy (``np.asarray`` of the reference's).
+"tail": [...], "encoder": {"blocks": [...], "final_norm"}}``); the port
+keeps one block module per layer, of its layer's kind.  Both keep dense
+weights as ``[d_in, d_out]`` and experts as ``[E, d_in, d_out]`` stacks, so
+the port computes on the same matrices.  Arrays come in as numpy
+(``np.asarray`` of the reference's).
 """
 
 from __future__ import annotations
@@ -16,7 +18,22 @@ import torch
 
 from .attention import Attention
 from .layers import MLP, Dense
-from .transformer import Block, Transformer, _check_supported, layer_plan
+from .moe import MoE
+from .rglru import RgLru
+from .rwkv6 import RwkvChannel, RwkvTime
+from .transformer import (
+    AttnCrossBlock,
+    Block,
+    CrossBlock,
+    Encoder,
+    EncoderBlock,
+    RglruBlock,
+    RwkvBlock,
+    Transformer,
+    _check_supported,
+    layer_kinds,
+    layer_plan,
+)
 
 __all__ = ["from_reference_params", "from_reference_caches"]
 
@@ -65,25 +82,57 @@ def from_reference_params(params: Mapping, cfg, *, device="cpu",
     def dense(p):
         return Dense(t(p["w"]), t(p["b"]) if "b" in p else None)
 
-    blocks = []
-    for p in _layer_trees(params, cfg):
-        a, f = p["attn"], p["ffn"]
-        blocks.append(Block(
-            ln1=t(p["ln1"]),
-            attn=Attention(dense(a["wq"]), dense(a["wk"]), dense(a["wv"]), dense(a["wo"])),
-            ln2=t(p["ln2"]),
-            ffn=MLP(w_up=t(f["w_up"]), w_down=t(f["w_down"]),
-                    w_gate=t(f["w_gate"]) if "w_gate" in f else None),
-        ))
+    def attn(a):
+        return Attention(dense(a["wq"]), dense(a["wk"]), dense(a["wv"]), dense(a["wo"]))
+
+    def ffn(f):
+        if "router" in f:
+            return MoE(t(f["router"]), t(f["w_gate"]), t(f["w_up"]), t(f["w_down"]))
+        return MLP(w_up=t(f["w_up"]), w_down=t(f["w_down"]),
+                   w_gate=t(f["w_gate"]) if "w_gate" in f else None)
+
+    def block(kind, p):
+        if kind in ("attn", "local"):
+            return Block(ln1=t(p["ln1"]), attn=attn(p["attn"]), ln2=t(p["ln2"]),
+                         ffn=ffn(p["ffn"]), kind=kind)
+        if kind == "cross":
+            return CrossBlock(ln1=t(p["ln1"]), xattn=attn(p["xattn"]), ln2=t(p["ln2"]),
+                              ffn=ffn(p["ffn"]), xgate=t(p["xgate"]))
+        if kind == "attn_cross":
+            return AttnCrossBlock(ln1=t(p["ln1"]), attn=attn(p["attn"]), ln_c=t(p["ln_c"]),
+                                  xattn=attn(p["xattn"]), ln2=t(p["ln2"]), ffn=ffn(p["ffn"]))
+        if kind == "rwkv":
+            tm, ch = p["time"], p["channel"]
+            time = RwkvTime(**{k: t(tm[k]) for k in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w",
+                                                      "w_base", "w_lora_a", "w_lora_b",
+                                                      "u_bonus", "ln_x")},
+                            **{k: dense(tm[k]) for k in ("wr", "wk", "wv", "wg", "wo")})
+            channel = RwkvChannel(t(ch["mix_k"]), dense(ch["wk"]), dense(ch["wv"]))
+            return RwkvBlock(ln1=t(p["ln1"]), time=time, channel=channel, ln2=t(p["ln2"]))
+        r = p["rec"]
+        rec = RgLru(w_in=dense(r["w_in"]), w_gate=dense(r["w_gate"]), conv_w=t(r["conv_w"]),
+                    conv_b=t(r["conv_b"]), lru_a=dense(r["lru_a"]), lru_x=dense(r["lru_x"]),
+                    lambda_raw=t(r["lambda_raw"]), w_out=dense(r["w_out"]))
+        return RglruBlock(ln1=t(p["ln1"]), rec=rec, ln2=t(p["ln2"]), ffn=ffn(p["ffn"]))
+
+    blocks = [block(kind, p) for kind, p in zip(layer_kinds(cfg), _layer_trees(params, cfg))]
+    encoder = None
+    if "encoder" in params:
+        enc = params["encoder"]
+        encoder = Encoder([EncoderBlock(ln1=t(b["ln1"]), attn=attn(b["attn"]), ln2=t(b["ln2"]),
+                                        ffn=ffn(b["ffn"])) for b in enc["blocks"]],
+                          t(enc["final_norm"]))
     head = params.get("lm_head")
     return Transformer(cfg, t(params["embed"]), t(params["final_norm"]),
-                       None if head is None else t(head), blocks)
+                       None if head is None else t(head), blocks, encoder)
 
 
 def from_reference_caches(caches: Mapping, cfg, *, device="cpu") -> List[dict]:
-    """The port's caches (one ``{"k", "v", "slot_pos"}`` per layer) from the
-    reference's (``{"groups": {"pos0": stacked}, "tail": [...]}``)."""
+    """The port's caches, one dict per layer with the reference's keys
+    (``{"k", "v", "slot_pos"}``, ``{"xk", "xv"}``, ``{"wkv", "x_prev_t",
+    "x_prev_c"}``, ``{"h", "conv"}``), from the reference's
+    (``{"groups": {"pos0": stacked}, "tail": [...]}``)."""
     _check_supported(cfg)
     dev = torch.device(device)
-    return [{k: _tensor(layer[k], dev) for k in ("k", "v", "slot_pos")}
+    return [{k: _tensor(v, dev) for k, v in layer.items()}
             for layer in _layer_trees(caches, cfg)]

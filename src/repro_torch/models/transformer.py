@@ -1,57 +1,82 @@
-"""Decoder LM assembled from an ArchConfig: ``"attn"`` blocks with a dense FFN.
+"""Decoder LM assembled from an ArchConfig, every block kind of the
+reference, and the whisper encoder.
 
-Counterpart of ``repro/models/transformer.py`` for the dense rows.  The
-reference stacks each position of the block pattern over depth and scans
-it; here the layers are an ``nn.ModuleList`` walked by a Python loop, and
-caches are a list with one dict per layer.  Other block kinds wait for
-ROADMAP queue 1 items 11-15 (cross-attention 11, experts 12, ``rwkv`` 13,
-``rglru`` 14, the encoder 15); each raises naming its item.
+Counterpart of ``repro/models/transformer.py``.  Block kinds:
+
+  attn        causal self-attention (+ sliding window) and an FFN (dense or experts)
+  local       windowed self-attention and an FFN
+  cross       gated cross-attention over a context (llama-vision's image layers)
+  attn_cross  self-attention, cross-attention and an FFN (a whisper-style decoder layer)
+  rwkv        RWKV6 time-mix and channel-mix
+  rglru       RG-LRU temporal mix and an FFN
+
+The reference stacks each position of the block pattern over depth and
+scans it; here the layers are an ``nn.ModuleList`` walked by a Python loop,
+and caches are a list with one dict per layer: ``{"k", "v", "slot_pos"}``
+for self-attention (``"xk"``, ``"xv"`` added for ``attn_cross``), ``{"xk",
+"xv"}`` for ``cross``, ``{"wkv", "x_prev_t", "x_prev_c"}`` for ``rwkv`` and
+``{"h", "conv"}`` for ``rglru``.  Whisper adds a bidirectional encoder over
+its frame embeddings (:func:`encode`).  The experts' aux loss is computed
+and dropped: it is a training term (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from .attention import Attention, attention_block, attn_init, init_kv_cache
-from .layers import MLP, Initializer, mlp_apply, mlp_init, rmsnorm, weight
+from .attention import (
+    CACHE_DTYPE,
+    Attention,
+    attention_block,
+    attn_init,
+    decode_attention,
+    init_kv_cache,
+)
+from .layers import MLP, Initializer, dense_apply, mlp_apply, mlp_init, rmsnorm, weight
+from .moe import MoE, moe_block, moe_init
+from .rglru import RgLru, init_rglru_state, rglru_block, rglru_init
+from .rwkv6 import (
+    RwkvChannel,
+    RwkvTime,
+    init_rwkv_state,
+    rwkv_block,
+    rwkv_channel_mix,
+    rwkv_init,
+)
 
 __all__ = [
     "Block",
+    "CrossBlock",
+    "AttnCrossBlock",
+    "RwkvBlock",
+    "RglruBlock",
+    "EncoderBlock",
+    "Encoder",
     "Transformer",
+    "BLOCK_KINDS",
     "layer_plan",
+    "layer_kinds",
     "init_params",
     "cache_buffer_len",
     "init_caches",
     "forward",
+    "check_weights",
     "encode",
 ]
 
-#: block kinds and experts the port does not run yet, with their ROADMAP item
-_WAITING = {
-    "local": "item 11 (chunked attention)",
-    "cross": "item 11 (cross-attention)",
-    "attn_cross": "item 11 (cross-attention)",
-    "rwkv": "item 13 (rwkv6)",
-    "rglru": "item 14 (rglru)",
-}
+BLOCK_KINDS = ("attn", "local", "cross", "attn_cross", "rwkv", "rglru")
+#: the block kinds whose prefill builds a self-attention KV cache
+_KV_KINDS = ("attn", "local", "attn_cross")
 
 
 def _check_supported(cfg) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: experts wait for ROADMAP queue 1 item 12 (moe)")
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder waits for ROADMAP queue 1 item 15 (whisper encoder)")
     for kind in cfg.block_pattern:
-        if kind != "attn":
-            what = _WAITING.get(kind)
-            if what is None:
-                raise ValueError(f"unknown block kind {kind!r}")
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} blocks wait for ROADMAP queue 1 {what}")
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
 
 
 def layer_plan(cfg) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
@@ -62,8 +87,225 @@ def layer_plan(cfg) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
     return n_full, pat, tail
 
 
+def layer_kinds(cfg) -> List[str]:
+    """The block kind of each layer, in depth order (the pattern cycled)."""
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype) -> torch.Tensor:
+    """A dense FFN, or the experts on one device (the aux loss is dropped)."""
+    if isinstance(ffn, MoE):
+        return moe_block(ffn, x, cfg, dtype=dtype)[0]
+    return mlp_apply(ffn, x, cfg.act, dtype=dtype)
+
+
+def _project_context(p: Attention, cfg, context: torch.Tensor, dtype) -> dict:
+    """A cross-attention's keys and values of ``context`` ``[B, Lc, D]``, in
+    ``dtype``, for decode: ``{"xk", "xv"}`` ``[B, Hkv, Lc, hd]``."""
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    b, lc, _ = context.shape
+
+    def proj(w):
+        return dense_apply(w, context, dtype).reshape(b, lc, kv, hd).transpose(1, 2)
+
+    return {"xk": proj(p.wk), "xv": proj(p.wv)}
+
+
+def _cross_from_cache(p: Attention, x: torch.Tensor, cfg, xk: torch.Tensor, xv: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """Cross-attention of ``x`` ``[B, L, D]`` over cached keys and values."""
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    b, l, _ = x.shape
+    q = dense_apply(p.wq, x, dtype).reshape(b, l, h, hd).transpose(1, 2)
+    lc = xk.shape[2]
+    slot_pos = torch.arange(lc, device=x.device)
+    out = decode_attention(q, xk, xv, slot_pos, lc, window=0)
+    return out.transpose(1, 2).reshape(b, l, h * hd) @ p.wo.w.to(dtype)
+
+
 class Block(nn.Module):
-    """Pre-norm ``"attn"`` block: attention and a dense FFN, each residual."""
+    """Pre-norm ``"attn"`` or ``"local"`` block: self-attention and an FFN
+    (dense, or experts), each residual."""
+
+    def __init__(self, ln1: torch.Tensor, attn: Attention, ln2: torch.Tensor, ffn,
+                 kind: str = "attn"):
+        super().__init__()
+        if kind not in ("attn", "local"):
+            raise ValueError(f"a Block is 'attn' or 'local', not {kind!r}")
+        self.kind = kind
+        self.ln1 = weight(ln1)
+        self.attn = attn
+        self.ln2 = weight(ln2)
+        self.ffn = ffn
+
+    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
+                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE):
+        """The reference's ``_apply_block``; returns ``(h, cache)``.  Residual
+        adds are in ``h``'s dtype (the compute dtype), as in the reference."""
+        eps = cfg.norm_eps
+        local = self.kind == "local"
+        build = None
+        if mode == "prefill":
+            build = min(s_buf, cfg.local_window + 128) if local else s_buf
+        mix, new_cache = attention_block(
+            self.attn, rmsnorm(self.ln1, h, eps), cfg,
+            causal=True,
+            window=cfg.local_window if local else cfg.window,
+            cache=cache if mode == "decode" else None,
+            pos=pos,
+            dtype=dtype,
+            build_cache_len=build,
+            cache_dtype=cache_dtype,
+        )
+        h = h + mix
+        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        return h, new_cache
+
+
+class CrossBlock(nn.Module):
+    """Pre-norm ``"cross"`` block: cross-attention gated by ``tanh(xgate)``,
+    then an FFN.  ``xgate`` is zero at init (the block starts as a no-op)."""
+
+    kind = "cross"
+
+    def __init__(self, ln1: torch.Tensor, xattn: Attention, ln2: torch.Tensor, ffn,
+                 xgate: torch.Tensor):
+        super().__init__()
+        self.ln1 = weight(ln1)
+        self.xattn = xattn
+        self.ln2 = weight(ln2)
+        self.ffn = ffn
+        self.xgate = weight(xgate)
+
+    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
+                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+        eps = cfg.norm_eps
+        x = rmsnorm(self.ln1, h, eps)
+        new_cache = None
+        if mode == "decode":
+            mix = _cross_from_cache(self.xattn, x, cfg, cache["xk"], cache["xv"], dtype)
+            new_cache = cache
+        else:
+            if context is None:
+                raise ValueError("a cross block needs a context outside decode")
+            mix, _ = attention_block(self.xattn, x, cfg, context=context, dtype=dtype)
+            if mode == "prefill":
+                new_cache = _project_context(self.xattn, cfg, context, dtype)
+        h = h + torch.tanh(self.xgate).to(h.dtype) * mix
+        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        return h, new_cache
+
+
+class AttnCrossBlock(nn.Module):
+    """Pre-norm ``"attn_cross"`` block: causal self-attention, cross-attention
+    over the context, an FFN; its cache is the self-attention's and the
+    context's keys and values."""
+
+    kind = "attn_cross"
+
+    def __init__(self, ln1: torch.Tensor, attn: Attention, ln_c: torch.Tensor,
+                 xattn: Attention, ln2: torch.Tensor, ffn):
+        super().__init__()
+        self.ln1 = weight(ln1)
+        self.attn = attn
+        self.ln_c = weight(ln_c)
+        self.xattn = xattn
+        self.ln2 = weight(ln2)
+        self.ffn = ffn
+
+    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
+                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE):
+        eps = cfg.norm_eps
+        mix, new_kv = attention_block(
+            self.attn, rmsnorm(self.ln1, h, eps), cfg, causal=True,
+            cache=cache if mode == "decode" else None, pos=pos, dtype=dtype,
+            build_cache_len=s_buf if mode == "prefill" else None, cache_dtype=cache_dtype)
+        h = h + mix
+        x = rmsnorm(self.ln_c, h, eps)
+        if mode == "decode":
+            xmix = _cross_from_cache(self.xattn, x, cfg, cache["xk"], cache["xv"], dtype)
+        else:
+            if context is None:
+                raise ValueError("an attn_cross block needs a context outside decode")
+            xmix, _ = attention_block(self.xattn, x, cfg, context=context, dtype=dtype)
+        h = h + xmix
+        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = dict(new_kv, **_project_context(self.xattn, cfg, context, dtype))
+        elif mode == "decode":
+            new_cache = cache  # its k, v and slot_pos were written in place
+        return h, new_cache
+
+
+class RwkvBlock(nn.Module):
+    """Pre-norm ``"rwkv"`` block: the time-mix, then the channel-mix."""
+
+    kind = "rwkv"
+
+    def __init__(self, ln1: torch.Tensor, time: RwkvTime, channel: RwkvChannel,
+                 ln2: torch.Tensor):
+        super().__init__()
+        self.ln1 = weight(ln1)
+        self.time = time
+        self.channel = channel
+        self.ln2 = weight(ln2)
+
+    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
+                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+        eps = cfg.norm_eps
+        state = None
+        if mode == "prefill":
+            hd = cfg.resolved_head_dim
+            state = init_rwkv_state(h.shape[0], cfg.d_model // hd, hd, cfg.d_model,
+                                    device=h.device)
+        elif mode == "decode":
+            state = cache
+        mix, state2 = rwkv_block(self.time, rmsnorm(self.ln1, h, eps), cfg, state=state,
+                                 dtype=dtype)
+        h = h + mix
+        cm, state3 = rwkv_channel_mix(self.channel, rmsnorm(self.ln2, h, eps), state=state2,
+                                      dtype=dtype)
+        h = h + cm
+        if mode == "decode":
+            cache.update(state3)
+            state3 = cache
+        return h, state3
+
+
+class RglruBlock(nn.Module):
+    """Pre-norm ``"rglru"`` block: the RG-LRU temporal mix, then a dense FFN."""
+
+    kind = "rglru"
+
+    def __init__(self, ln1: torch.Tensor, rec: RgLru, ln2: torch.Tensor, ffn: MLP):
+        super().__init__()
+        self.ln1 = weight(ln1)
+        self.rec = rec
+        self.ln2 = weight(ln2)
+        self.ffn = ffn
+
+    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
+                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+        eps = cfg.norm_eps
+        state = None
+        if mode == "prefill":
+            state = init_rglru_state(h.shape[0], cfg.d_model, device=h.device)
+        elif mode == "decode":
+            state = cache
+        mix, new_state = rglru_block(self.rec, rmsnorm(self.ln1, h, eps), cfg, state=state,
+                                     dtype=dtype)
+        h = h + mix
+        h = h + mlp_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg.act, dtype=dtype)
+        if mode == "decode":
+            cache.update(new_state)
+            new_state = cache
+        return h, new_state
+
+
+class EncoderBlock(nn.Module):
+    """Pre-norm encoder block: bidirectional self-attention and a dense FFN."""
 
     def __init__(self, ln1: torch.Tensor, attn: Attention, ln2: torch.Tensor, ffn: MLP):
         super().__init__()
@@ -72,59 +314,88 @@ class Block(nn.Module):
         self.ln2 = weight(ln2)
         self.ffn = ffn
 
-    def forward(self, h, cfg, *, mode="train", cache=None, pos=None, dtype=torch.bfloat16,
-                s_buf: Optional[int] = None):
-        """The reference's ``_apply_block`` for ``"attn"``; returns ``(h, cache)``.
 
-        Residual adds are in ``h``'s dtype (the compute dtype), as in the
-        reference."""
-        eps = cfg.norm_eps
-        mix, new_cache = attention_block(
-            self.attn, rmsnorm(self.ln1, h, eps), cfg,
-            window=cfg.window,
-            cache=cache if mode == "decode" else None,
-            pos=pos,
-            dtype=dtype,
-            build_cache_len=s_buf if mode == "prefill" else None,
-        )
-        h = h + mix
-        h = h + mlp_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg.act, dtype=dtype)
-        return h, new_cache
+class Encoder(nn.Module):
+    """Whisper's encoder: ``blocks`` and ``final_norm``."""
+
+    def __init__(self, blocks: List[EncoderBlock], final_norm: torch.Tensor):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = weight(final_norm)
 
 
-def _block_init(init: Initializer, cfg) -> Block:
-    """One ``"attn"`` block (``_check_supported`` refuses every other kind)."""
+def _block_init(init: Initializer, cfg, kind: str) -> nn.Module:
     d = cfg.d_model
-    return Block(ln1=init.ones((d,)), attn=attn_init(init, cfg), ln2=init.ones((d,)),
-                 ffn=mlp_init(init, cfg.d_model, cfg.d_ff, cfg.act))
+
+    def ffn():
+        if cfg.num_experts:
+            return moe_init(init, cfg)
+        return mlp_init(init, d, cfg.d_ff, cfg.act)
+
+    ln1 = init.ones((d,))
+    if kind in ("attn", "local"):
+        attn = attn_init(init, cfg)
+        return Block(ln1=ln1, attn=attn, ln2=init.ones((d,)), ffn=ffn(), kind=kind)
+    if kind == "cross":
+        xattn = attn_init(init, cfg)
+        ln2 = init.ones((d,))
+        return CrossBlock(ln1=ln1, xattn=xattn, ln2=ln2, ffn=ffn(), xgate=init.zeros(()))
+    if kind == "attn_cross":
+        attn = attn_init(init, cfg)
+        ln_c = init.ones((d,))
+        xattn = attn_init(init, cfg)
+        ln2 = init.ones((d,))
+        return AttnCrossBlock(ln1=ln1, attn=attn, ln_c=ln_c, xattn=xattn, ln2=ln2, ffn=ffn())
+    if kind == "rwkv":
+        time, channel = rwkv_init(init, cfg)
+        return RwkvBlock(ln1=ln1, time=time, channel=channel, ln2=init.ones((d,)))
+    if kind == "rglru":
+        rec = rglru_init(init, cfg)
+        ln2 = init.ones((d,))
+        return RglruBlock(ln1=ln1, rec=rec, ln2=ln2, ffn=mlp_init(init, d, cfg.d_ff, cfg.act))
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 class Transformer(nn.Module):
-    """The weights of one decoder LM, and its forward pass.
+    """The weights of one LM, and its forward pass.
 
     ``embed`` ``[V_pad, d]``, ``final_norm`` ``[d]``, ``lm_head`` ``[d,
-    V_pad]`` (``None`` with tied embeddings) and ``blocks``, one per layer.
+    V_pad]`` (``None`` with tied embeddings), ``blocks``, one per layer of
+    the kind :func:`layer_kinds` gives it, and ``encoder`` for a row with
+    encoder layers (else ``None``).
     """
 
     def __init__(self, cfg, embed: torch.Tensor, final_norm: torch.Tensor,
-                 lm_head: Optional[torch.Tensor], blocks: List[Block]):
+                 lm_head: Optional[torch.Tensor], blocks: List[nn.Module],
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         _check_supported(cfg)
-        if len(blocks) != cfg.num_layers:
-            raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, got {len(blocks)} blocks")
+        kinds = layer_kinds(cfg)
+        got = [blk.kind for blk in blocks]
+        if got != kinds:
+            raise ValueError(f"{cfg.name} has layers {kinds}, got blocks {got}")
+        if (encoder is None) != (not cfg.encoder_layers):
+            raise ValueError(f"{cfg.name} has {cfg.encoder_layers} encoder layers; "
+                             f"encoder {'missing' if encoder is None else 'given'}")
         self.cfg = cfg
         self.embed = weight(embed)
         self.final_norm = weight(final_norm)
         self.lm_head = None if lm_head is None else weight(lm_head)
         self.blocks = nn.ModuleList(blocks)
+        self.encoder = encoder
 
     def forward(self, tokens: torch.Tensor, *, mode: str = "train", caches=None, pos=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+                context: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
+                s_buf: Optional[int] = None, cache_dtype: torch.dtype = CACHE_DTYPE):
         """Returns ``(logits [B, L, V_pad] float32, caches or None)``.
 
-        ``mode="train"`` runs without a cache; ``"prefill"`` builds caches of
-        ``s_buf`` slots; ``"decode"`` runs one token at position ``pos`` and
-        updates ``caches`` in place.  Pad vocab columns get ``-1e30`` added.
+        ``mode="train"`` runs without a cache; ``"prefill"`` builds caches
+        (``s_buf`` self-attention slots of keys and values in
+        ``cache_dtype``, the reference's bf16 by default); ``"decode"`` runs one token at
+        position ``pos`` and updates ``caches`` in place.  ``context``
+        ``[B, Lc, d]`` (in the compute dtype; for whisper, the encoder's
+        output) feeds the cross-attention outside decode, where the caches
+        hold its keys and values.  Pad vocab columns get ``-1e30`` added.
         """
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
@@ -138,8 +409,9 @@ class Transformer(nn.Module):
         h = self.embed[tokens].to(dtype)
         new_caches = []
         for i, blk in enumerate(self.blocks):
+            kv = {"cache_dtype": cache_dtype} if blk.kind in _KV_KINDS else {}
             h, nc = blk(h, cfg, mode=mode, cache=caches[i] if mode == "decode" else None,
-                        pos=pos, dtype=dtype, s_buf=s_buf)
+                        pos=pos, context=context, dtype=dtype, s_buf=s_buf, **kv)
             new_caches.append(nc)
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
         head = self.embed.T if self.lm_head is None else self.lm_head
@@ -155,17 +427,29 @@ def init_params(cfg, generator: torch.Generator, *, device: torch.device,
                 dtype: Optional[torch.dtype] = None) -> Transformer:
     """Random weights with the reference's distributions, drawn from
     ``generator`` on ``device``: normal(0.02) for the embedding and LM head,
-    ``d_in**-0.5`` for dense weights (``d_ff**-0.5`` for ``w_down``), zeros
-    for biases, ones for norms.  With ``dtype``, weights of two or more
-    dimensions are stored in it as they are drawn (``cast_params``)."""
+    ``d_in**-0.5`` for dense weights and experts (``d_ff**-0.5`` for
+    ``w_down``), zeros for biases and ``xgate``, ones for norms, and the
+    reference's own scales for RWKV's mixes, decay and bonus and RG-LRU's
+    conv and decay.  With ``dtype``, weights of two or more dimensions are
+    stored in it as they are drawn (``cast_params``)."""
     _check_supported(cfg)
     init = Initializer(generator, device=device, dtype=dtype)
     d = cfg.d_model
     embed = init.normal((cfg.padded_vocab, d))
     final_norm = init.ones((d,))
     lm_head = None if cfg.tie_embeddings else init.normal((d, cfg.padded_vocab))
-    blocks = [_block_init(init, cfg) for _ in range(cfg.num_layers)]
-    return Transformer(cfg, embed, final_norm, lm_head, blocks)
+    blocks = [_block_init(init, cfg, kind) for kind in layer_kinds(cfg)]
+    encoder = None
+    if cfg.encoder_layers:
+        enc_blocks = []
+        for _ in range(cfg.encoder_layers):
+            ln1 = init.ones((d,))
+            attn = attn_init(init, cfg)
+            ln2 = init.ones((d,))
+            enc_blocks.append(EncoderBlock(ln1=ln1, attn=attn, ln2=ln2,
+                                           ffn=mlp_init(init, d, cfg.d_ff, cfg.act)))
+        encoder = Encoder(enc_blocks, init.ones((d,)))
+    return Transformer(cfg, embed, final_norm, lm_head, blocks, encoder)
 
 
 def cache_buffer_len(cfg, seq_len: int) -> int:
@@ -175,22 +459,75 @@ def cache_buffer_len(cfg, seq_len: int) -> int:
     return seq_len + 128
 
 
-def init_caches(cfg, batch: int, seq_len: int, *, device: torch.device) -> List[dict]:
-    """Empty caches (one dict per layer) for decoding after ``seq_len`` tokens."""
+def _block_cache(cfg, kind: str, batch: int, s_buf: int, context_len: int,
+                 device: torch.device, dtype: torch.dtype) -> dict:
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def ctx_kv(lc):
+        z = lambda: torch.zeros((batch, kvh, lc, hd), dtype=dtype, device=device)  # noqa: E731
+        return {"xk": z(), "xv": z()}
+
+    if kind == "attn":
+        return init_kv_cache(batch, kvh, s_buf, hd, device=device, dtype=dtype)
+    if kind == "local":
+        return init_kv_cache(batch, kvh, min(s_buf, cfg.local_window + 128), hd, device=device,
+                             dtype=dtype)
+    if kind == "cross":
+        return ctx_kv(context_len or cfg.num_image_tokens or cfg.encoder_context)
+    if kind == "attn_cross":
+        return dict(init_kv_cache(batch, kvh, s_buf, hd, device=device, dtype=dtype),
+                    **ctx_kv(context_len or cfg.encoder_context))
+    if kind == "rwkv":
+        return init_rwkv_state(batch, cfg.d_model // hd, hd, cfg.d_model, device=device)
+    if kind == "rglru":
+        return init_rglru_state(batch, cfg.d_model, device=device)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
+                device: torch.device, cache_dtype: torch.dtype = CACHE_DTYPE) -> List[dict]:
+    """Empty caches (keys and values in ``cache_dtype``) and zero float32
+    states, one dict per layer, for decoding after ``seq_len`` tokens; a
+    cross-attention cache holds ``context_len`` context positions (the row's
+    own context length by default)."""
     _check_supported(cfg)
     s_buf = cache_buffer_len(cfg, seq_len)
-    return [init_kv_cache(batch, cfg.num_kv_heads, s_buf, cfg.resolved_head_dim, device=device)
-            for _ in range(cfg.num_layers)]
+    return [_block_cache(cfg, kind, batch, s_buf, context_len, device, cache_dtype)
+            for kind in layer_kinds(cfg)]
 
 
-def forward(params: Transformer, cfg, tokens: torch.Tensor, *, mode: str = "train",
-            caches=None, pos=None, dtype=torch.bfloat16, s_buf: Optional[int] = None):
+def forward(params: Transformer, cfg, tokens: torch.Tensor, *, context=None,
+            mode: str = "train", caches=None, pos=None, dtype=torch.bfloat16,
+            s_buf: Optional[int] = None):
     """The reference's ``forward`` signature over :class:`Transformer` weights;
     returns ``(logits, caches or None)``."""
+    check_weights(params, cfg)
+    return params(tokens, mode=mode, caches=caches, pos=pos, context=context, dtype=dtype,
+                  s_buf=s_buf)
+
+
+def check_weights(params: Transformer, cfg) -> None:
+    """Raise unless ``params`` were drawn for ``cfg``: a :class:`Transformer`
+    runs under the config it carries."""
     if params.cfg != cfg:
-        raise ValueError(f"weights are for {params.cfg.name}, not {cfg.name}")
-    return params(tokens, mode=mode, caches=caches, pos=pos, dtype=dtype, s_buf=s_buf)
+        apart = {f.name: (getattr(params.cfg, f.name), getattr(cfg, f.name))
+                 for f in dataclasses.fields(cfg)
+                 if getattr(params.cfg, f.name) != getattr(cfg, f.name)}
+        raise ValueError(f"weights are for another config than {cfg.name}: (theirs, "
+                         f"given) {apart}")
 
 
-def encode(*args, **kwargs):
-    raise NotImplementedError("encode (the whisper encoder) waits for ROADMAP queue 1 item 15")
+def encode(params: Transformer, cfg, frames: torch.Tensor, *, dtype=torch.bfloat16
+           ) -> torch.Tensor:
+    """The bidirectional encoder over frame embeddings ``[B, T, d]``: each
+    layer's self-attention through ``ops.flash_attention(causal=False)``."""
+    if params.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    eps = cfg.norm_eps
+    h = frames.to(dtype)
+    for blk in params.encoder.blocks:
+        mix, _ = attention_block(blk.attn, rmsnorm(blk.ln1, h, eps), cfg, causal=False,
+                                 dtype=dtype)
+        h = h + mix
+        h = h + mlp_apply(blk.ffn, rmsnorm(blk.ln2, h, eps), cfg.act, dtype=dtype)
+    return rmsnorm(params.encoder.final_norm, h, eps)

@@ -526,6 +526,24 @@ def test_flash_attention_matches_plain(cuda_device, d, dtype, group, causal, win
         assert bf16_excess(got, want, atol=1e-6) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 10])
+@pytest.mark.parametrize("causal,window,l", [(True, 0, 1), (True, 0, 127), (True, 64, 300),
+                                             (False, 0, 1000), (True, 2048, 2200)])
+def test_flash_attention_at_head_dim_256(cuda_device, dtype, group, causal, window, l):
+    """D = 256 (recurrentgemma's local attention, GQA group 10): the kernel of
+    each dtype == its plain version under the same gates; 64-key KV tiles
+    in the bf16 kernel."""
+    q, k, v = _qkv(cuda_device, dtype, 1, group, 1, l, 256, seed=l + group)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bf16_excess(got, want, atol=1e-6) == 0.0
+
+
 def test_flash_library_sass_has_wgmma_and_tma(cuda_device):
     """The bf16 kernel runs its products on the tensor cores (HGMMA) and
     stages its tiles with TMA (UTMALDG)."""
@@ -544,6 +562,10 @@ def test_flash_attention_refuses_bad_tensors(cuda_device):
     with pytest.raises(ValueError):
         flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                         v[..., :32].contiguous())  # head dim 32
+    for d in (96, 512):  # head dims the kernels are not built for
+        q2, k2, v2 = _qkv(cuda_device, torch.bfloat16, 1, 4, 2, 64, d, seed=1)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q2, k2, v2)
     with pytest.raises(ValueError):
         flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
     with pytest.raises(ValueError):

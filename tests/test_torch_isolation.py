@@ -97,6 +97,19 @@ def test_slice_twelve_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_THIRTEEN_MODULES = ["configs/llama3_2_vision_90b.py", "configs/whisper_base.py",
+                          "configs/phi3_5_moe.py", "configs/mixtral_8x22b.py",
+                          "configs/rwkv6_3b.py", "configs/recurrentgemma_2b.py", "models/moe.py",
+                          "models/rwkv6.py", "models/rglru.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_THIRTEEN_MODULES)
+def test_slice_thirteen_modules_are_checked(module):
+    """The modules of the six remaining rows are among the files the import
+    check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -111,7 +124,8 @@ def test_engine_import_loads_no_jax():
         "repro_torch.comm.pipelined, repro_torch.comm.adaptive, repro_torch.launch.mesh, "
         "repro_torch.core.distributed, repro_torch.serve, repro_torch.launch.serve, "
         "repro_torch.comm.abstract, repro_torch.kernels.work, repro_torch.launch.dryrun, "
-        "repro_torch.roofline, repro_torch.roofline.analysis; "
+        "repro_torch.roofline, repro_torch.roofline.analysis, repro_torch.models.moe, "
+        "repro_torch.models.rwkv6, repro_torch.models.rglru; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

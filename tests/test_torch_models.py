@@ -1,5 +1,6 @@
 """The port's LM serving path against the JAX package's, on the reduced
-configurations of the four dense rows.
+configurations of the four dense rows (the other six rows are held in
+tests/test_torch_lm_rows.py), and the registry of all ten.
 
 The reference's weights (random, from a key) go through
 ``from_reference_params``; both sides prefill the same tokens, then decode
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import get_arch as ref_get_arch
 from repro.models import build_model as ref_build_model
 from repro_torch.configs import ARCHS, get_arch
@@ -34,7 +36,9 @@ from repro_torch.models import build_model
 from repro_torch.models.convert import from_reference_caches, from_reference_params
 from repro_torch.models.transformer import forward
 
-DENSE = sorted(ARCHS)
+DENSE = sorted(name for name, cfg in ARCHS.items() if cfg.family == "dense")
+NEW_ROWS = ["rwkv6-3b", "phi3.5-moe-42b-a6.6b", "mixtral-8x22b", "llama-3.2-vision-90b",
+            "whisper-base", "recurrentgemma-2b"]
 B, S = 2, 128
 BF16_STEP = 2.0 ** -7  # the spacing of bf16 values relative to their binade
 
@@ -167,7 +171,7 @@ def test_decode_wraps_a_windowed_cache():
                          "float32")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", sorted(ARCHS))
 def test_full_rows_param_count_equals_reference(name):
     assert get_arch(name).params_count() == ref_get_arch(name).params_count()
     assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(ref_get_arch(name))
@@ -215,15 +219,19 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["rwkv6-3b", "phi3.5-moe-42b-a6.6b", "mixtral-8x22b",
-                                  "llama-3.2-vision-90b", "whisper-base", "recurrentgemma-2b"])
-def test_unported_rows_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1[1-5]"):
-        get_arch(name)
-    ref = ref_get_arch(name).reduced()
-    cfg = get_arch("granite-3-8b").__class__(**dataclasses.asdict(ref))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1[1-5]"):
-        build_model(cfg, device="cpu")
+@pytest.mark.parametrize("name", NEW_ROWS)
+def test_every_row_is_served(name):
+    """The six rows that once waited for ROADMAP queue 1 items 11-15: the
+    registry serves each, equal to the reference's row, and its reduced
+    config builds and initialises on the CPU."""
+    cfg = get_arch(name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_arch(name))
+    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(ref_get_arch(name).reduced())
+    model = build_model(cfg.reduced(), device="cpu")
+    params = model.init_fn(torch.Generator().manual_seed(0))
+    assert [blk.kind for blk in params.blocks] == [
+        cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.reduced().num_layers)]
+    assert list(ARCHS) == list(REF_ARCHS)
 
 
 @pytest.mark.parametrize("name", DENSE)
