@@ -4,15 +4,16 @@ the single-device tree-template estimate, family counting, treewidth-2 bag
 programs, active-frontier compaction, the distributed exchange engine on
 thread ranks sharing the card (dense, compacted and at narrow wires), the
 resident counting service, the counting dry-run's memory model held
-against those runs, the granite-3-8b serving path (prefill, then decode)
-and the other six LM rows served at full width (vision cross-attention,
+against those runs, the granite-3-8b serving path (prefill, then decode),
+the other six LM rows served at full width (vision cross-attention,
 experts with the distributed expert layer, RWKV6, RG-LRU with local
-attention at head dim 256, the whisper encoder-decoder), with every kernel
-of their paths built from this checkout and held against its plain
-PyTorch version.  Every bound is the roofline of a kernel's work count
+attention at head dim 256, the whisper encoder-decoder) and training
+(smollm-360m whole, a phi3.5-moe layer, the int8 gradient ring), with
+every kernel of their paths built from this checkout and held against its
+plain PyTorch version.  Every bound is the roofline of a kernel's work count
 (``repro_torch.kernels.work``).
 
-    python3 chip_smoke.py            # all phases, one card (about 12-15 minutes)
+    python3 chip_smoke.py            # all phases, one card (about 13-16 minutes)
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
@@ -239,6 +240,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              phi3.5 EP fused, pipelined (grouped_exchange) g1 and g2, the
              replicated-token fallback at a decode batch of 3, mixtral TP,
              each == moe_block within 2e-4, timed, with peak bytes.
+17. train  — training, through no kernel (self-attention trains through
+             chunked_attention, as the reference trains through its XLA
+             path; every kernel's launch count stays put).  (a) smollm-360m
+             whole (32 layers, d = 960), B = 8 x 2048 tokens of the
+             synthetic stream, bf16 compute over float32 weights and AdamW
+             state, remat "full": ``train`` for 2 warm and 8 timed steps
+             and 2 more, a checkpoint after the tenth; finite losses whose
+             last four average below the first, a finite gradient norm; ms
+             a step, tokens/s, peak bytes, the model-flops share; one more
+             step under the profiler (device time by kind) and its parts
+             alone (chunked attention, the chunked CE, AdamW); then a fresh
+             ``train`` resumes from the checkpoint and takes the last 2
+             steps: weights == the uninterrupted run's within 1e-6
+             relative.  (b) phi3.5-moe at full width, one layer (1.56B
+             parameters), B = 4 x 2048, 4 steps: every expert-layer call's
+             aux loss finite and positive, every expert's and the router's
+             AdamW moment moved, ms a step, peak bytes.  (c) each row's
+             reduced config and smollm-360m whole (B = 1 x 256), float32:
+             loss and gradients on the card == the CPU's within 1e-4
+             relative.  (d) the int8 gradient ring on LocalMesh P = 4 over
+             64M float32 elements a rank == the same ring on the CPU,
+             bitwise, timed (path "train").
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -2889,15 +2912,18 @@ def phase_lm(dev, flash_ms: float):
                 decode_split=dsplit)
 
 
-def device_split(fn):
+def device_split(fn, host_ops: bool = True):
     """Device time of the kernels ``fn()`` launches, by kind, from a
     torch.profiler trace, beside the host clock around the call (their
-    ratio is the device's busy share)."""
+    ratio is the device's busy share).  ``host_ops=False`` traces the device
+    alone: only kernels are read either way, and a train step's tens of
+    thousands of host ops make the trace take seconds to gather."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2913,7 +2939,7 @@ def device_split(fn):
         name = ev.key.lower()
         kind = ("flash_attention" if "flash_attention_kernel" in name else
                 "matmul" if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
-                else "other")
+                else "optimizer" if "multi_tensor_apply" in name else "other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
         top.append((ev.key, ms, ev.count))
     busy = sum(kinds.values())
@@ -3897,8 +3923,8 @@ def block_card_vs_cpu(params, cfg, dev, gen):
         cpu = copy.deepcopy(blk).to("cpu")
         kw = dict(mode="prefill", dtype=torch.float32, s_buf=cache_buffer_len(cfg, l))
         with torch.no_grad():
-            got, _ = blk(h, cfg, context=ctx, **kw)
-            want, _ = cpu(h.cpu(), cfg, context=None if ctx is None else ctx.cpu(), **kw)
+            got = blk(h, cfg, context=ctx, **kw)[0]
+            want = cpu(h.cpu(), cfg, context=None if ctx is None else ctx.cpu(), **kw)[0]
         out[kind] = rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
         del cpu
         if not rel <= LM_CARD_CPU_RTOL:
@@ -4087,6 +4113,387 @@ def phase_lm_rows(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_LEN = 8, 2048  # (a): sequences a step, tokens a sequence
+TRAIN_WARM, TRAIN_TIMED, TRAIN_RESUMED = 2, 8, 2  # (a): steps
+#: the reference's peak learning rate after 2 warmup steps (its 200 would
+#: keep the rate near 0 for a dozen steps); 1e-3 made the loss spike
+TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
+TRAIN_RESUME_RTOL = 1e-6  # (a): resumed == uninterrupted, relative, per weight
+TRAIN_MOE = ("phi3.5-moe-42b-a6.6b", 1, 4, 2048, 4)  # (b): row, layers, B, L, steps
+TRAIN_CARD_CPU_RTOL = 1e-4  # (c): float32 on both sides, TF32 off
+TRAIN_CARD_CPU_SHAPE = (2, 64)  # (c): each reduced row's batch
+TRAIN_WHOLE_CPU_SHAPE = (1, 256)  # (c): smollm-360m whole
+RING_SHARDS, RING_ELEMS = 4, 1 << 26  # (d): ranks, float32 gradient elements a rank
+BF16_PEAK = 989e12  # dense bf16 tensor-core flop/s of an H100 SXM (data sheet)
+
+
+def _train_log():
+    """A ``train`` log that stamps each line with the host clock: a step's
+    line comes after ``float(loss)``, a sync, so the gaps are step times."""
+    lines, stamps = [], []
+
+    def log_line(msg):
+        stamps.append(time.perf_counter())
+        lines.append(msg)
+
+    return log_line, lines, stamps
+
+
+def _step_losses(lines):
+    return [float(x.split("loss ")[1].split()[0]) for x in lines if x.startswith("step ")]
+
+
+def _rel_errs(got, want):
+    """Per weight ``|got - want| / |want|`` (0 where both are 0)."""
+    out = {}
+    for k, w in want.items():
+        g = got[k].detach().to(w.device)
+        den = w.norm().item()
+        out[k] = (g - w).norm().item() / den if den else float((g - w).norm().item() != 0)
+    return out
+
+
+def train_split(model, cfg, run, data, step_i, tcfg):
+    """(a)'s step under torch.profiler (device time by kind, busy share; the
+    host's share is the wall time the device was idle), and its parts timed
+    alone with CUDA events: one layer's chunked attention forward and
+    forward+backward (a step runs the layers' attention forward, the remat
+    recompute and the backward), the chunked CE forward and backward, one
+    ``adamw_update``."""
+    import torch
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.factory import chunked_ce_loss
+    from repro_torch.train import adamw_update, make_train_step, synthetic_batch
+
+    step, _ = make_train_step(model, tcfg)
+    batch = synthetic_batch(data, step_i, model.device)
+    st = {"p": run["params"], "o": run["opt"]}
+
+    def one():
+        st["p"], st["o"], m = step(st["p"], st["o"], batch)
+        float(m["loss"])
+
+    split = device_split(one, host_ops=False)
+    if not split["device_busy_ms"]:
+        raise AssertionError(f"phase 17 (a): the profiler saw no kernel of the step: {split}")
+    dev = model.device
+    b, l, hd = TRAIN_BATCH, TRAIN_LEN, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype).requires_grad_(True)
+
+    q, k, v = leaf(b, cfg.num_heads, l, hd), leaf(b, cfg.num_kv_heads, l, hd), \
+        leaf(b, cfg.num_kv_heads, l, hd)
+    r = torch.randn_like(q)
+    attn_fwd = cuda_ms(lambda: chunked_attention(q, k, v, causal=True), reps=2)
+    attn_fb = cuda_ms(lambda: torch.autograd.backward(chunked_attention(q, k, v, causal=True), r),
+                      reps=2)
+    del q, k, v, r
+    h = leaf(b, l - 1, cfg.d_model)
+    head = (st["p"].embed.T if st["p"].lm_head is None else st["p"].lm_head)
+    head = head.detach().clone().requires_grad_(True)
+    labels = batch["tokens"][:, 1:]
+    ce = cuda_ms(lambda: chunked_ce_loss(h, head, labels, vocab_size=cfg.vocab_size).backward(),
+                 reps=2)
+    del h, head
+    weights = dict(st["p"].named_parameters())
+    grads = {n: torch.randn(w.shape, generator=gen, device=dev) * 1e-3 for n, w in weights.items()}
+    opt_ms = cuda_ms(lambda: adamw_update(tcfg.opt, weights, grads, st["o"]), reps=2)
+    del grads, weights, st
+    parts = {"attention_layer_forward_ms": attn_fwd, "attention_layer_forward_backward_ms": attn_fb,
+             "attention_step_ms": cfg.num_layers * (attn_fwd + attn_fb),
+             "chunked_ce_forward_backward_ms": ce, "adamw_update_ms": opt_ms,
+             "host_ms": split["wall_ms"] - split["device_busy_ms"]}
+    return split, parts
+
+
+def train_smollm(dev, tmp):
+    """(a) smollm-360m whole at full width: TRAIN_WARM + TRAIN_TIMED steps of
+    ``train`` and TRAIN_RESUMED more, a checkpoint at TRAIN_WARM +
+    TRAIN_TIMED; the profiled step and its parts; then a fresh ``train``
+    resumes from the checkpoint and takes the last TRAIN_RESUMED steps, whose
+    weights must equal the uninterrupted run's within TRAIN_RESUME_RTOL
+    relative.  The gate is not bitwise: on the card a reduction or scatter
+    with atomics (an embedding's or an index's backward) may sum float32
+    terms in another order from run to run; whether the run was bitwise is
+    recorded."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, DataConfig, TrainConfig, train
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    steps = TRAIN_WARM + TRAIN_TIMED
+    data = DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN, seed=0)
+    tcfg = TrainConfig(steps=steps + TRAIN_RESUMED,
+                       opt=AdamWConfig(total_steps=steps + TRAIN_RESUMED, **TRAIN_OPT),
+                       checkpoint_dir=str(tmp / TRAIN_ARCH), checkpoint_every=steps, log_every=1)
+    log_line, lines, stamps = _train_log()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = read_launches()
+    t0 = time.perf_counter()
+    run = train(model, tcfg, log=log_line, data=data)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in read_launches().items()}
+    losses = _step_losses(lines)
+    step_s = [b - a for a, b in zip(stamps[TRAIN_WARM - 1 : steps - 1], stamps[TRAIN_WARM:steps])]
+    gnorm = float(run["metrics"]["grad_norm"])
+    if not (all(math.isfinite(x) for x in losses) and math.isfinite(gnorm)):
+        raise AssertionError(f"phase 17 (a): losses {losses}, gradient norm {gnorm}")
+    if not sum(losses[steps - 4 : steps]) / 4 < losses[0]:
+        raise AssertionError(f"phase 17 (a): the loss did not fall over {steps} steps (the "
+                             f"mean of the last 4 against the first): {losses}")
+    if any(launched.values()):
+        raise AssertionError(f"phase 17 (a): the train path launched kernels {launched}")
+    ms = sum(step_s) / len(step_s) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    n_params = cfg.params_count()
+    log(f"phase 17 (a) {TRAIN_ARCH} ({cfg.num_layers} layers, {n_params} parameters by "
+        f"params_count) B={TRAIN_BATCH} L={TRAIN_LEN}: {ms:.1f} ms a step over "
+        f"{len(step_s)} timed steps {[round(x * 1e3, 1) for x in step_s]}, "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB, losses {losses}, "
+        f"gnorm {gnorm:.3g} ({time.perf_counter() - t0:.1f}s with the checkpoint)")
+    train_s = time.perf_counter() - t0
+    want = {k: v.detach().clone() for k, v in run["params"].named_parameters()}
+    t0 = time.perf_counter()
+    split, parts = train_split(model, cfg, run, data, steps + TRAIN_RESUMED, tcfg)
+    split_s = time.perf_counter() - t0
+    del run
+    torch.cuda.empty_cache()
+    log(f"phase 17 (a) the step under the profiler: {split}; alone: {parts} ({split_s:.1f}s)")
+    resumed_lines = []
+    t0 = time.perf_counter()
+    resumed = train(model, tcfg, log=resumed_lines.append, data=data)
+    resume_s = time.perf_counter() - t0
+    if resumed_lines[0] != f"restored checkpoint at step {steps}":
+        raise AssertionError(f"phase 17 (a): the resumed run logged {resumed_lines}")
+    errs = _rel_errs(dict(resumed["params"].named_parameters()), want)
+    worst = max(errs, key=errs.get)
+    bitwise = all(torch.equal(v, want[k]) for k, v in resumed["params"].named_parameters())
+    if not errs[worst] <= TRAIN_RESUME_RTOL:
+        raise AssertionError(f"phase 17 (a): resumed weights {worst} {errs[worst]} from the "
+                             f"uninterrupted run's")
+    resumed_losses = _step_losses(resumed_lines)
+    log(f"phase 17 (a) resumed at step {steps}, {TRAIN_RESUMED} more steps ({resume_s:.1f}s with "
+        f"the restore): weights == the uninterrupted run's within {TRAIN_RESUME_RTOL} (worst "
+        f"{worst} {errs[worst]:.3g}; bitwise {bitwise}); losses {resumed_losses} against "
+        f"{losses[steps:]}")
+    del resumed, want
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, layers=cfg.num_layers, n_params=n_params, batch=TRAIN_BATCH,
+                seq_len=TRAIN_LEN, compute="bf16, float32 weights and AdamW state",
+                remat=model.sharding.remat, ms_per_step=ms, step_ms_runs=[x * 1e3 for x in step_s],
+                tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
+                model_flops_share=6 * n_params * tokens / (ms / 1e3 * BF16_PEAK),
+                losses=losses, grad_norm=gnorm, launches=launched, seconds=train_s,
+                profiled_step=split, parts_alone=parts, split_seconds=split_s,
+                resume=dict(step=steps, rel_err_worst=errs[worst], worst_weight=worst,
+                            bitwise=bitwise, losses=resumed_losses, seconds=resume_s))
+
+
+def train_moe(dev):
+    """(b) phi3.5-moe at full width, one layer: TRAIN_MOE's steps; the aux
+    loss of every expert-layer call finite and positive, every expert's and
+    the router's AdamW first moment nonzero after the steps (each took a
+    gradient), a finite loss; ms a step (after the first) and peak bytes."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, init_opt_state,
+                                   make_train_step, synthetic_batch)
+
+    name, layers, b, l, nsteps = TRAIN_MOE
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers)
+    model = build_model(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_fn(torch.Generator(device=dev).manual_seed(17))
+    n_params = sum(p.numel() for p in params.parameters())
+    params.requires_grad_(True)
+    opt = init_opt_state(dict(params.named_parameters()))
+    step, _ = make_train_step(model, TrainConfig(opt=AdamWConfig(total_steps=nsteps, **TRAIN_OPT)))
+    data = DataConfig(cfg.vocab_size, b, l, seed=1)
+    auxes, real = [], transformer.moe_block
+
+    def spy(*args, **kwargs):
+        out, aux = real(*args, **kwargs)
+        auxes.append(float(aux.detach()))
+        return out, aux
+
+    transformer.moe_block = spy
+    before = read_launches()
+    times, losses = [], []
+    try:
+        for i in range(nsteps):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, synthetic_batch(data, i, dev))
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+    finally:
+        transformer.moe_block = real
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in read_launches().items()}
+    moved = {w: int((opt["m"][f"blocks.0.ffn.{w}"].abs().amax(dim=tuple(range(1, 3))) > 0).sum())
+             for w in ("w_gate", "w_up", "w_down")}
+    router_moved = bool(opt["m"]["blocks.0.ffn.router"].abs().amax() > 0)
+    if not (auxes and all(math.isfinite(a) and a > 0 for a in auxes)
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"phase 17 (b): aux {auxes}, losses {losses}")
+    if not (router_moved and all(n == cfg.num_experts for n in moved.values())):
+        raise AssertionError(f"phase 17 (b): experts with a gradient {moved}, router "
+                             f"{router_moved}")
+    if any(launched.values()):
+        raise AssertionError(f"phase 17 (b): the train path launched kernels {launched}")
+    ms = sum(times[1:]) / len(times[1:]) * 1e3
+    log(f"phase 17 (b) {name} (1 layer, {n_params} parameters) B={b} L={l}: {ms:.1f} ms a step "
+        f"{[round(t * 1e3, 1) for t in times]}, {b * l / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak / 2 ** 30:.2f} GiB; losses {losses}; aux per call {[round(a, 4) for a in auxes]}; "
+        f"experts with a gradient {moved} of {cfg.num_experts}")
+    del params, opt, step, model
+    torch.cuda.empty_cache()
+    return dict(arch=name, layers=layers, n_params=n_params, batch=b, seq_len=l, steps=nsteps,
+                ms_per_step=ms, step_ms_runs=[t * 1e3 for t in times], peak_bytes=peak,
+                losses=losses, aux=auxes, experts_with_gradient=moved, launches=launched)
+
+
+def _loss_and_grads(model, params, batch):
+    import torch
+
+    params.requires_grad_(True)
+    loss = model.loss_fn(params, batch)
+    names = [n for n, _ in params.named_parameters()]
+    grads = torch.autograd.grad(loss, [w for _, w in params.named_parameters()])
+    return loss.item(), dict(zip(names, grads))
+
+
+def train_card_vs_cpu(dev):
+    """(c) each row's reduced config and smollm-360m whole, float32: the loss
+    and every gradient on the card == the CPU's on the same weights and
+    batch within TRAIN_CARD_CPU_RTOL relative (a gradient against its own
+    norm)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.factory import context_len
+    from repro_torch.train import DataConfig, synthetic_batch
+
+    cases = [(name, get_arch(name).reduced(), TRAIN_CARD_CPU_SHAPE) for name in ARCHS]
+    cases.append((f"{TRAIN_ARCH} whole", get_arch(TRAIN_ARCH), TRAIN_WHOLE_CPU_SHAPE))
+    out = {}
+    before = read_launches()
+    for i, (name, cfg, (b, l)) in enumerate(cases):
+        gen = torch.Generator().manual_seed(i)
+        batch = synthetic_batch(DataConfig(cfg.vocab_size, b, l, seed=i), 0, "cpu")
+        n_ctx, needed = context_len(cfg)
+        if needed:
+            batch["context"] = torch.randn((b, n_ctx, cfg.d_model), generator=gen) * 0.1
+        cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+        params = cpu_model.init_fn(gen)
+        on_card = copy.deepcopy(params).to(dev)
+        want_loss, want = _loss_and_grads(cpu_model, params, batch)
+        got_loss, got = _loss_and_grads(build_model(cfg, dtype=torch.float32, device=dev),
+                                        on_card, {k: v.to(dev) for k, v in batch.items()})
+        errs = _rel_errs(got, want)
+        worst = max(errs, key=errs.get)
+        loss_err = abs(got_loss - want_loss) / abs(want_loss)
+        out[name] = dict(loss_rel_err=loss_err, grad_rel_err_worst=errs[worst], worst_weight=worst,
+                         batch=[b, l])
+        if not (loss_err <= TRAIN_CARD_CPU_RTOL and errs[worst] <= TRAIN_CARD_CPU_RTOL):
+            raise AssertionError(f"phase 17 (c) {name}: card vs CPU loss {loss_err}, {worst} "
+                                 f"{errs[worst]}")
+        del params, on_card, got, want
+    launched = {k: v - before[k] for k, v in read_launches().items()}
+    if any(launched.values()):
+        raise AssertionError(f"phase 17 (c): the train path launched kernels {launched}")
+    torch.cuda.empty_cache()
+    log(f"phase 17 (c) card == CPU, float32 loss and gradients (relative): "
+        + ", ".join(f"{k} {v['loss_rel_err']:.2g}/{v['grad_rel_err_worst']:.2g}"
+                    for k, v in out.items()))
+    return out
+
+
+def train_ring(dev):
+    """(d) the int8 gradient ring (``compressed_ring_reduce_scatter``) on
+    LocalMesh RING_SHARDS thread ranks sharing the card, RING_ELEMS float32
+    gradient elements a rank: == the same ring on the CPU (its plain
+    simulation, LocalMesh on the CPU), bitwise; a warm then a timed call;
+    the distance from the exact float32 sum."""
+    import torch
+    from repro_torch.comm import LocalMesh, compressed_ring_reduce_scatter
+
+    p = RING_SHARDS
+    chunk = RING_ELEMS // p
+    x = torch.randn((p, p, chunk), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+
+    def ring(src):
+        return lambda ctx: compressed_ring_reduce_scatter(ctx.data, src[ctx.data.rank])
+
+    mesh = LocalMesh(p, device=dev)
+    mesh.run(ring(x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mesh.run(ring(x))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    xc = x.cpu()
+    t0 = time.perf_counter()
+    want = LocalMesh(p, device="cpu").run(ring(xc))
+    cpu_s = time.perf_counter() - t0
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("phase 17 (d): the ring on the card != its CPU simulation")
+    exact = xc.sum(0)
+    err = max((w - exact[r]).abs().max().item() for r, w in enumerate(want))
+    wire = (p - 1) * (chunk + chunk // 256 * 4)  # int8 values and float32 block scales, a rank
+    log(f"phase 17 (d) int8 ring, LocalMesh P={p}, {RING_ELEMS} float32 elements a rank: == the "
+        f"CPU simulation bitwise; {ms:.1f} ms a call on the card ({cpu_s:.1f}s on the CPU); "
+        f"max abs err from the float32 sum {err:.3g}; {wire} bytes sent a rank")
+    del x, got
+    torch.cuda.empty_cache()
+    return dict(shards=p, elements_per_rank=RING_ELEMS, ms=ms, cpu_s=cpu_s, bitwise=True,
+                max_abs_err_vs_float32_sum=err, wire_bytes_per_rank=wire)
+
+
+def phase_train(dev):
+    """Phase 17: training (a)-(d); the train path launches none of the five
+    kernels (self-attention trains through chunked_attention, as the
+    reference trains through its XLA path)."""
+    import shutil
+
+    import torch
+
+    torch.cuda.synchronize(dev)  # a context before the memory statistics are read
+    t_start = time.perf_counter()
+    out, part_s = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        for part, run in (("smollm", lambda: train_smollm(dev, tmp)),
+                          ("moe", lambda: train_moe(dev)),
+                          ("card_vs_cpu", lambda: train_card_vs_cpu(dev)),
+                          ("int8_ring", lambda: train_ring(dev))):
+            t0 = time.perf_counter()
+            out[part] = run()
+            part_s[part] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["part_seconds"] = part_s
+    out["seconds"] = dt = time.perf_counter() - t_start
+    log(f"phase 17 passed in {dt:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in part_s.items())})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the redesigned count-table kernels' designs, and where the times of the
@@ -4121,7 +4528,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, dist, compact, dryrun, card):
+                 sparse, dist, compact, dryrun, train, card):
     flash, flash32, flash256, flash256_32, sass, d256_launches = flash
     lm, lm_rows = lm
     meta = {
@@ -4274,7 +4681,7 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
             | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")},
-            "lm_rows_path": lm_rows}
+            "lm_rows_path": lm_rows, "train_path": train}
 
 
 def run_phases(dev):
@@ -4319,6 +4726,7 @@ def run_phases(dev):
     lm = phase_lm(dev, flash["ms"])
     torch.cuda.empty_cache()
     rows_served, rows_checks, d256_launches, lm_rows = phase_lm_rows(dev)
+    train = phase_train(dev)
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
     sparse_launches, sparse_rows, sparse = phase_sparse(dev)
     torch.cuda.empty_cache()
@@ -4341,7 +4749,7 @@ def run_phases(dev):
         rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, flash_rows))
     return (rows, dense_rows, launches, per, draw_ms, dense, (*flash_rows, sass, d256_launches),
             (lm, lm_rows), order, wide, dags, (sparse_rows, sparse), (dist_rows, dist),
-            (compact_rows, compact), dryrun)
+            (compact_rows, compact), dryrun, train)
 
 
 def main() -> int:

@@ -1,8 +1,8 @@
 """Adaptive-Group communication (the paper's §3.2) over the port's own
 transport: the :class:`~.group.Group` interface, ring relays, the grouped
-direct-send exchange, the Hockney router and the exact narrow wire
-(:mod:`.compress`); and an abstract rank on ``meta`` tensors for the
-dry-run (:mod:`.abstract`)."""
+direct-send exchange, the Hockney router, the exact narrow wire and the
+lossy int8 gradient ring (:mod:`.compress`); and an abstract rank on
+``meta`` tensors for the dry-run (:mod:`.abstract`)."""
 
 from .abstract import AbstractGroup, AbstractMesh, CollectiveBytes  # noqa: F401
 from .adaptive import (  # noqa: F401
@@ -19,6 +19,9 @@ from .adaptive import (  # noqa: F401
 from .compress import (  # noqa: F401
     WIRE_DTYPES,
     WIRE_ESCALATION,
+    compressed_ring_reduce_scatter,
+    int8_compress,
+    int8_decompress,
     mask_column_count,
     mask_columns,
     mask_from_columns,

@@ -2,7 +2,7 @@
 workloads (``subgraph``) and the language-model architectures
 (``get_arch``)."""
 
-from .base import SHAPES, ArchConfig, ShapeSpec  # noqa: F401
+from .base import SHAPES, ArchConfig, ShapeSpec, ShardingConfig  # noqa: F401
 from . import (
     granite_3_8b,
     internlm2_1_8b,
@@ -16,7 +16,7 @@ from . import (
     whisper_base,
 )
 
-__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeSpec", "get_arch"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeSpec", "ShardingConfig", "get_arch"]
 
 #: every reference row, in the reference registry's order
 ARCHS = {

@@ -1,10 +1,11 @@
 """Architecture configuration schema: a copy of the reference's
-``ArchConfig``, ``ShapeSpec`` and ``SHAPES`` (``repro/configs/base.py``).
+``ArchConfig``, ``ShardingConfig``, ``ShapeSpec`` and ``SHAPES``
+(``repro/configs/base.py``).
 
 Every architecture is a frozen :class:`ArchConfig`; ``reduced()`` derives
-the CPU test configuration (same family and topology, tiny widths).  The
-reference's ``ShardingConfig`` waits for the distributed engine (ROADMAP
-queue 1 item 17).
+the CPU test configuration (same family and topology, tiny widths).
+``ShardingConfig`` holds the reference's ``remat`` and ``attn_chunk``; its
+mesh fields wait for the sharding specs (ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["ArchConfig", "SHAPES", "ShapeSpec"]
+__all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "ShardingConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,17 @@ class ArchConfig:
             encoder_context=16,
             num_image_tokens=min(self.num_image_tokens, 8),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """How a model runs: the two fields of the reference's ``ShardingConfig``
+    that apply on one device.  Its mesh fields (batch and model axes, FSDP,
+    ZeRO-1, the sequence axis, the MoE pipeline, gradient compression, the
+    head anchors) come with the sharding specs (ROADMAP queue 1 item 17)."""
+
+    remat: str = "full"  # full | dots | none
+    attn_chunk: int = 1024  # chunked-attention tile (q and kv)
 
 
 @dataclasses.dataclass(frozen=True)

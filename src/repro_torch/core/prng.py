@@ -20,7 +20,11 @@ What is copied (``jax/_src/prng.py`` and ``jax/_src/random.py``):
 * ``randint(key, shape, minval, maxval)``: split the key in two, draw 32
   random bits per element from each (``bits1 ^ bits2`` of the hash of the
   element's flat index), and fold the pair into ``[minval, maxval)`` with
-  the reference's double-width remainder.
+  the reference's double-width remainder;
+* ``uniform(key, shape, minval, maxval)``: 32 random bits per element from
+  the key itself (no split), the top 23 as the mantissa of a float32 in
+  ``[1, 2)``, minus 1, scaled and shifted into ``[minval, maxval)`` and
+  clamped below at ``minval``: the training data stream's draws.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["key", "PRNGKey", "key_data", "fold_in", "split", "randint", "randint_keys",
-           "threefry_2x32"]
+           "uniform", "threefry_2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -174,3 +178,30 @@ def randint_keys(
 
     return _randint_from_bits(bits(a[:, 0], b[:, 0]), bits(a[:, 1], b[:, 1]), minval, maxval,
                               dtype)
+
+
+def uniform(
+    k: Key,
+    shape: Sequence[int],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)`` on ``device``.
+
+    As the reference computes it: ``bits >> 9 | 0x3F800000`` bitcast to a
+    float32 in ``[1, 2)``, minus 1, times ``maxval - minval`` (both bounds
+    rounded to float32 first), plus ``minval``, then ``max(minval, .)``.
+    XLA fuses the multiply and the add into one FMA, rounded once; here
+    they run in float64, where the product of two 24-bit significands and
+    the sum stay exact for ``[0, 1)``-scale bounds, and the one rounding is
+    the cast back to float32.
+    """
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    bits = _random_bits32(k, shape, device)
+    words = (bits >> 9) | 0x3F800000  # < 2^31: an int32 holds it as is
+    floats = words.to(torch.int32).view(torch.float32) - 1.0
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)

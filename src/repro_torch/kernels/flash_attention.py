@@ -131,7 +131,10 @@ def flash_attention(
     the logits are scaled by ``D**-0.5``.  Returns ``[B, Hq, L, D]`` in ``q``'s
     dtype.  A CPU tensor runs the plain version (which also takes ``Lq !=
     Lk``); a CUDA tensor launches the bf16 (wgmma) or the float32 (CUDA-core)
-    kernel, or raises.
+    kernel, or raises.  Neither the kernels nor the reference's Pallas kernel
+    has a backward, so a tensor that requires a gradient (with grad mode on)
+    raises on either device: training attends through
+    ``models.attention.chunked_attention``, as the reference trains.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q [B, Hq, L, D], k and v [B, Hkv, L, D]; got {tuple(q.shape)}, "
@@ -140,6 +143,9 @@ def flash_attention(
     hkv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit k and v {tuple(k.shape)}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention has no backward: a tensor that requires a gradient "
+                           "attends through models.attention.chunked_attention")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check_cuda(q, k, v)

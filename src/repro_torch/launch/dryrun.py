@@ -41,8 +41,8 @@ The reference's production mesh lays 16 shards on its data axis.  Its
 asserts the data axis equals the shard count); here their 8 shards take the
 data axis and the rest of the chips the iteration axis.  The LM half of the
 reference's dry-run (``run_cell``: ``train_step``, prefill and decode under
-sharding specs) waits for training and sharding specs, ROADMAP items 16
-and 17.
+sharding specs) waits for the sharding specs, ROADMAP item 17 (training,
+item 16, is ported).
 
 Usage::
 
@@ -324,7 +324,7 @@ def main(argv=None) -> int:
     if args.all or args.arch:
         raise NotImplementedError(
             "the LM dry-run (--arch, --all) lowers train_step, prefill and decode under "
-            "sharding specs: ROADMAP queue 1 items 16 (training) and 17 (sharding specs)")
+            "sharding specs: ROADMAP queue 1 item 17 (sharding specs)")
     ap.error("give --counting ROW")
     return 2
 

@@ -3,12 +3,15 @@ bidirectional) through the flash kernel, cross-attention through the
 chunked path, a circular KV cache (bf16, as the reference's), and decode
 over it.
 
-Counterparts of ``repro/models/attention.py``.  Self-attention (``Lq ==
-Lk``) goes through ``ops.flash_attention``: the hand-written CUDA kernel for
-a CUDA tensor, its plain version for a CPU tensor.  Cross-attention goes
-through :func:`chunked_attention`, plain torch, as the reference's is XLA
-(it never routes cross-attention through Pallas).  Decode is plain torch
-over the cache, as it is XLA code in the reference.
+Counterparts of ``repro/models/attention.py``.  Served self-attention
+(``Lq == Lk``) goes through ``ops.flash_attention``: the hand-written CUDA
+kernel for a CUDA tensor, its plain version for a CPU tensor.  Under
+autograd (training) it goes through :func:`chunked_attention` instead, as
+the reference trains through its XLA path: neither flash kernel has a
+backward.  Cross-attention goes through
+:func:`chunked_attention`, plain torch, as the reference's is XLA (it never
+routes cross-attention through Pallas).  Decode is plain torch over the
+cache, as it is XLA code in the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.ref import NEG
@@ -64,6 +68,26 @@ def _project(p: Dense, x: torch.Tensor, heads: int, hd: int, dtype) -> torch.Ten
     return y.reshape(b, l, heads, hd).transpose(1, 2)  # [B, H, L, D]
 
 
+def _kv_step(q32, kc, vc, acc, m, l, qpos, k0: int, lk: int, causal: bool, window: int):
+    """One KV chunk of the online softmax: ``(acc, m, l)`` after it."""
+    kc, vc = kc.float(), vc.float()
+    logits = torch.einsum("bkgqd,bkcd->bkgqc", q32, kc)
+    kpos = k0 + torch.arange(kc.shape[2], device=q32.device)[None, :]
+    mask = kpos < lk
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask, logits, NEG)
+    m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+    # masked logits are NEG, so logits - m_new <= 0 and the exp stays finite
+    p = torch.where(mask, torch.exp(logits - m_new), 0.0)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1, keepdim=True)
+    acc = acc * alpha + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
+    return acc, m_new, l
+
+
 def chunked_attention(
     q: torch.Tensor,  # [B, H, Lq, D]
     k: torch.Tensor,  # [B, Hkv, Lk, D]
@@ -83,6 +107,11 @@ def chunked_attention(
     finite ``-1e30`` mask and probabilities zeroed where masked, and a zero
     denominator read as 1 (a fully masked row gives 0).  Returns ``[B, H,
     Lq, D]`` in ``q``'s dtype.
+
+    Under autograd each KV step runs under ``torch.utils.checkpoint``, as
+    the reference wraps it in ``jax.checkpoint``: the backward recomputes
+    a step's ``[.., q_chunk, kv_chunk]`` logits from the running ``(acc, m,
+    l)``, so the saved residuals stay O(L), not O(L^2).
     """
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -92,8 +121,9 @@ def chunked_attention(
     scale = d ** -0.5
     offset = lk - lq
     dev = q.device
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     qg = q.reshape(b, hkv, g, lq, d)
-    out = torch.empty_like(q).reshape(b, hkv, g, lq, d)
+    outs = []
     for iq in range(nq):
         q0 = iq * q_chunk
         q32 = qg[:, :, :, q0 : q0 + q_chunk].float() * scale
@@ -106,25 +136,15 @@ def chunked_attention(
         l = torch.zeros((b, hkv, g, rows, 1), dtype=torch.float32, device=dev)
         for ik in range(nk):
             k0 = ik * kv_chunk
-            kc = k[:, :, k0 : k0 + kv_chunk].float()
-            vc = v[:, :, k0 : k0 + kv_chunk].float()
-            logits = torch.einsum("bkgqd,bkcd->bkgqc", q32, kc)
-            kpos = k0 + torch.arange(kc.shape[2], device=dev)[None, :]
-            mask = kpos < lk
-            if causal:
-                mask = mask & (kpos <= qpos)
-            if window > 0:
-                mask = mask & (kpos > qpos - window)
-            logits = torch.where(mask, logits, NEG)
-            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
-            p = torch.where(mask, torch.exp(logits - m_new), 0.0)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
-            m = m_new
+            args = (q32, k[:, :, k0 : k0 + kv_chunk], v[:, :, k0 : k0 + kv_chunk], acc, m, l,
+                    qpos, k0, lk, causal, window)
+            if grad:
+                acc, m, l = checkpoint(_kv_step, *args, use_reentrant=False)
+            else:
+                acc, m, l = _kv_step(*args)
         l = torch.where(l == 0.0, 1.0, l)
-        out[:, :, :, q0 : q0 + q_chunk] = (acc / l).to(q.dtype)
-    return out.reshape(b, h, lq, d)
+        outs.append((acc / l).to(q.dtype))
+    return torch.cat(outs, 3).reshape(b, h, lq, d)
 
 
 def decode_attention(
@@ -173,6 +193,7 @@ def attention_block(
     dtype=torch.bfloat16,
     build_cache_len: Optional[int] = None,
     cache_dtype: torch.dtype = CACHE_DTYPE,
+    attn_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One attention mix (the block owns norm and residual).
 
@@ -180,7 +201,10 @@ def attention_block(
     values project the context, nothing is roped, and the path is
     :func:`chunked_attention` without a mask, as in the reference.
     Otherwise, without ``cache``, the tokens attend to each other through
-    ``ops.flash_attention`` (``causal``, ``window``); with
+    ``ops.flash_attention`` (``causal``, ``window``), or, where autograd
+    needs a backward (``q``, ``k`` or ``v`` requires a gradient; training),
+    through :func:`chunked_attention` in ``attn_chunk`` tiles (the
+    reference's ``ShardingConfig.attn_chunk``); with
     ``build_cache_len`` a cache of that many slots is built from their keys
     and values, stored in ``cache_dtype`` (prefill).  With ``cache``
     (decode, one token at position ``pos``), the token's key and value are
@@ -217,20 +241,23 @@ def attention_block(
         cache["slot_pos"][slot] = pos
         new_cache = cache
         out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=window)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = chunked_attention(q, k, v, causal=causal, window=window, q_chunk=attn_chunk,
+                                kv_chunk=attn_chunk)
     else:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=window)
-        if build_cache_len is not None:
-            s_buf = build_cache_len
-            keep = min(l, s_buf)
-            new_cache = init_kv_cache(b, kv, s_buf, hd, device=x.device, dtype=cache_dtype)
-            # the last `keep` positions (a windowed cache may be shorter than
-            # the prompt), at slots absolute position % s_buf
-            abs_pos = torch.arange(l - keep, l, device=x.device)
-            slots = abs_pos % s_buf
-            new_cache["k"][:, :, slots] = k[:, :, l - keep :].to(cache_dtype)
-            new_cache["v"][:, :, slots] = v[:, :, l - keep :].to(cache_dtype)
-            new_cache["slot_pos"][slots] = abs_pos.to(torch.int32)
+    if cache is None and build_cache_len is not None:
+        s_buf = build_cache_len
+        keep = min(l, s_buf)
+        new_cache = init_kv_cache(b, kv, s_buf, hd, device=x.device, dtype=cache_dtype)
+        # the last `keep` positions (a windowed cache may be shorter than the
+        # prompt), at slots absolute position % s_buf
+        abs_pos = torch.arange(l - keep, l, device=x.device)
+        slots = abs_pos % s_buf
+        new_cache["k"][:, :, slots] = k[:, :, l - keep :].to(cache_dtype)
+        new_cache["v"][:, :, slots] = v[:, :, l - keep :].to(cache_dtype)
+        new_cache["slot_pos"][slots] = abs_pos.to(torch.int32)
 
     out = out.transpose(1, 2).reshape(b, l, h * hd)
     return out @ p.wo.w.to(dtype), new_cache

@@ -6,7 +6,9 @@ The reference keeps each position of the block pattern stacked over depth
 keeps one block module per layer, of its layer's kind.  Both keep dense
 weights as ``[d_in, d_out]`` and experts as ``[E, d_in, d_out]`` stacks, so
 the port computes on the same matrices.  Arrays come in as numpy
-(``np.asarray`` of the reference's).
+(``np.asarray`` of the reference's).  A tree shaped like the weights (the
+gradients, AdamW's ``m`` and ``v``) maps by the same rule onto the port's
+weight names (:func:`from_reference_named`, :func:`from_reference_opt_state`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from .transformer import (
     layer_plan,
 )
 
-__all__ = ["from_reference_params", "from_reference_caches"]
+__all__ = ["from_reference_params", "from_reference_named", "from_reference_opt_state",
+           "from_reference_caches"]
 
 
 def _tensor(x, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -125,6 +128,23 @@ def from_reference_params(params: Mapping, cfg, *, device="cpu",
     head = params.get("lm_head")
     return Transformer(cfg, t(params["embed"]), t(params["final_norm"]),
                        None if head is None else t(head), blocks, encoder)
+
+
+def from_reference_named(tree: Mapping, cfg, *, device="cpu") -> dict:
+    """A tree shaped like the reference's weights (its gradients, say) as
+    ``{port weight name: tensor}``, the names of
+    ``from_reference_params(...).named_parameters()``; no dtype cast."""
+    return {k: v.detach() for k, v in from_reference_params(tree, cfg, device=device)
+            .named_parameters()}
+
+
+def from_reference_opt_state(state: Mapping, cfg, *, device="cpu") -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` as the port's:
+    ``m`` and ``v`` by weight name (:func:`from_reference_named`), ``step``
+    an int32 scalar on the CPU (``train/optimizer.py``)."""
+    return {"m": from_reference_named(state["m"], cfg, device=device),
+            "v": from_reference_named(state["v"], cfg, device=device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}
 
 
 def from_reference_caches(caches: Mapping, cfg, *, device="cpu") -> List[dict]:

@@ -1,8 +1,9 @@
 """Shared layer primitives: norms, RoPE, dense layers, MLPs, init helpers.
 
 Counterparts of ``repro/models/layers.py``.  Weights live in small
-``nn.Module`` containers (inference only: no parameter needs a gradient);
-every layer is ``*_apply(module, x, ...)``.  The compute dtype is bf16 by
+``nn.Module`` containers, drawn frozen (serving needs no gradient; the
+train step makes them trainable with ``requires_grad_()``); every layer is
+``*_apply(module, x, ...)``.  The compute dtype is bf16 by
 default: a weight is cast to it where it is used, as the reference does, so
 float32 weights and weights stored in the compute dtype give the same
 result.  Weights of two or more dimensions may be stored in the compute
@@ -62,7 +63,8 @@ class Initializer:
 
 
 def weight(x: torch.Tensor) -> nn.Parameter:
-    """A weight that takes no gradient (nothing in the port trains yet)."""
+    """A weight, drawn frozen: serving takes no gradient, and the train step
+    makes the weights trainable (``params.requires_grad_()``)."""
     return nn.Parameter(x, requires_grad=False)
 
 

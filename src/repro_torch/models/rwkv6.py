@@ -159,7 +159,9 @@ def wkv_chunked(r, k, v, logw, u, s0, *, chunk: int = CHUNK):
     for n0 in range(0, n, g):
         sl = slice(n0, n0 + g)
         diff = lw_ex[:, :, sl, :, None, :] - lw_cum[:, :, sl, None, :, :]  # [b, h, g, c, c, d]
-        dec = torch.where(lower[:, :, None], torch.exp(diff), 0.0)
+        # masked before the exp: for j >= i the difference is positive and its
+        # exp may overflow, and 0 * inf in the backward would be NaN
+        dec = torch.exp(torch.where(lower[:, :, None], diff, float("-inf")))
         a = torch.einsum("bhnid,bhnijd,bhnjd->bhnij", rr[:, :, sl], dec, kk[:, :, sl])
         o[:, :, sl] += a @ vv[:, :, sl]
     bonus = torch.einsum("bhncd,hd->bhnc", rr * kk, u)  # the current token's bonus

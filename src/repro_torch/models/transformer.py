@@ -16,17 +16,32 @@ and caches are a list with one dict per layer: ``{"k", "v", "slot_pos"}``
 for self-attention (``"xk"``, ``"xv"`` added for ``attn_cross``), ``{"xk",
 "xv"}`` for ``cross``, ``{"wkv", "x_prev_t", "x_prev_c"}`` for ``rwkv`` and
 ``{"h", "conv"}`` for ``rglru``.  Whisper adds a bidirectional encoder over
-its frame embeddings (:func:`encode`).  The experts' aux loss is computed
-and dropped: it is a training term (ROADMAP queue 1 item 16).
+its frame embeddings (:func:`encode`).
+
+Training runs ``mode="train"`` under autograd with self-attention through
+``chunked_attention`` (chosen by ``attention_block`` where autograd needs
+a backward) and the reference's ``remat``: ``"full"`` recomputes each
+layer in the backward (``torch.utils.checkpoint``), ``"dots"`` keeps the
+outputs of the plain matmuls (the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+keeps everything.  The reference remats a
+group of the block pattern, here each layer: the same values.  The
+experts' load-balancing aux losses are summed over the layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .attention import (
     CACHE_DTYPE,
@@ -58,6 +73,7 @@ __all__ = [
     "Encoder",
     "Transformer",
     "BLOCK_KINDS",
+    "REMAT_MODES",
     "layer_plan",
     "layer_kinds",
     "init_params",
@@ -71,6 +87,22 @@ __all__ = [
 BLOCK_KINDS = ("attn", "local", "cross", "attn_cross", "rwkv", "rglru")
 #: the block kinds whose prefill builds a self-attention KV cache
 _KV_KINDS = ("attn", "local", "attn_cross")
+#: the reference's ``ShardingConfig.remat`` values
+REMAT_MODES = ("full", "dots", "none")
+#: what ``remat="dots"`` keeps: the plain matmuls (a batched one, as the
+#: attention and expert einsums are, is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(remat: str) -> dict:
+    if remat == "dots":
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+    return {}
 
 
 def _check_supported(cfg) -> None:
@@ -93,11 +125,11 @@ def layer_kinds(cfg) -> List[str]:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
-def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype) -> torch.Tensor:
-    """A dense FFN, or the experts on one device (the aux loss is dropped)."""
+def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype):
+    """A dense FFN, or the experts on one device: ``(out, aux loss or None)``."""
     if isinstance(ffn, MoE):
-        return moe_block(ffn, x, cfg, dtype=dtype)[0]
-    return mlp_apply(ffn, x, cfg.act, dtype=dtype)
+        return moe_block(ffn, x, cfg, dtype=dtype)
+    return mlp_apply(ffn, x, cfg.act, dtype=dtype), None
 
 
 def _project_context(p: Attention, cfg, context: torch.Tensor, dtype) -> dict:
@@ -140,9 +172,12 @@ class Block(nn.Module):
         self.ffn = ffn
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE):
-        """The reference's ``_apply_block``; returns ``(h, cache)``.  Residual
-        adds are in ``h``'s dtype (the compute dtype), as in the reference."""
+                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE,
+                attn_chunk: int = 1024):
+        """The reference's ``_apply_block``; returns ``(h, cache, aux)`` (aux:
+        the experts' loss, or None).  Residual adds are in ``h``'s dtype (the
+        compute dtype), as in the reference; ``attn_chunk`` tiles the
+        self-attention under autograd (``attention_block``)."""
         eps = cfg.norm_eps
         local = self.kind == "local"
         build = None
@@ -157,10 +192,11 @@ class Block(nn.Module):
             dtype=dtype,
             build_cache_len=build,
             cache_dtype=cache_dtype,
+            attn_chunk=attn_chunk,
         )
         h = h + mix
-        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
-        return h, new_cache
+        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        return h + ff, new_cache, aux
 
 
 class CrossBlock(nn.Module):
@@ -193,8 +229,8 @@ class CrossBlock(nn.Module):
             if mode == "prefill":
                 new_cache = _project_context(self.xattn, cfg, context, dtype)
         h = h + torch.tanh(self.xgate).to(h.dtype) * mix
-        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
-        return h, new_cache
+        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        return h + ff, new_cache, aux
 
 
 class AttnCrossBlock(nn.Module):
@@ -215,12 +251,14 @@ class AttnCrossBlock(nn.Module):
         self.ffn = ffn
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE):
+                dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE,
+                attn_chunk: int = 1024):
         eps = cfg.norm_eps
         mix, new_kv = attention_block(
             self.attn, rmsnorm(self.ln1, h, eps), cfg, causal=True,
             cache=cache if mode == "decode" else None, pos=pos, dtype=dtype,
-            build_cache_len=s_buf if mode == "prefill" else None, cache_dtype=cache_dtype)
+            build_cache_len=s_buf if mode == "prefill" else None, cache_dtype=cache_dtype,
+            attn_chunk=attn_chunk)
         h = h + mix
         x = rmsnorm(self.ln_c, h, eps)
         if mode == "decode":
@@ -230,13 +268,14 @@ class AttnCrossBlock(nn.Module):
                 raise ValueError("an attn_cross block needs a context outside decode")
             xmix, _ = attention_block(self.xattn, x, cfg, context=context, dtype=dtype)
         h = h + xmix
-        h = h + _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        h = h + ff
         new_cache = None
         if mode == "prefill":
             new_cache = dict(new_kv, **_project_context(self.xattn, cfg, context, dtype))
         elif mode == "decode":
             new_cache = cache  # its k, v and slot_pos were written in place
-        return h, new_cache
+        return h, new_cache, aux
 
 
 class RwkvBlock(nn.Module):
@@ -271,7 +310,7 @@ class RwkvBlock(nn.Module):
         if mode == "decode":
             cache.update(state3)
             state3 = cache
-        return h, state3
+        return h, state3, None
 
 
 class RglruBlock(nn.Module):
@@ -301,7 +340,7 @@ class RglruBlock(nn.Module):
         if mode == "decode":
             cache.update(new_state)
             new_state = cache
-        return h, new_state
+        return h, new_state, None
 
 
 class EncoderBlock(nn.Module):
@@ -386,8 +425,10 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *, mode: str = "train", caches=None, pos=None,
                 context: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
-                s_buf: Optional[int] = None, cache_dtype: torch.dtype = CACHE_DTYPE):
-        """Returns ``(logits [B, L, V_pad] float32, caches or None)``.
+                s_buf: Optional[int] = None, cache_dtype: torch.dtype = CACHE_DTYPE,
+                remat: str = "none", attn_chunk: int = 1024,
+                return_hidden: bool = False):
+        """Returns ``(logits [B, L, V_pad] float32, caches or None, aux)``.
 
         ``mode="train"`` runs without a cache; ``"prefill"`` builds caches
         (``s_buf`` self-attention slots of keys and values in
@@ -396,10 +437,20 @@ class Transformer(nn.Module):
         ``[B, Lc, d]`` (in the compute dtype; for whisper, the encoder's
         output) feeds the cross-attention outside decode, where the caches
         hold its keys and values.  Pad vocab columns get ``-1e30`` added.
+        Under autograd self-attention runs in ``attn_chunk`` tiles
+        (``attention_block``).
+        ``remat`` (one of
+        :data:`REMAT_MODES`) applies in train mode with grad enabled.
+        ``return_hidden`` returns the final-normed hidden state ``[B, L, d]``
+        in place of the logits (the loss chunks the head itself).  ``aux`` is
+        the experts' aux losses summed over the layers (float32; 0 without
+        experts).
         """
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat {remat!r}; one of {REMAT_MODES}")
         if mode == "decode":
             if caches is None or pos is None:
                 raise ValueError("decode needs caches and pos")
@@ -407,20 +458,39 @@ class Transformer(nn.Module):
         if mode == "prefill" and s_buf is None:
             s_buf = cache_buffer_len(cfg, tokens.shape[1])
         h = self.embed[tokens].to(dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        remat_on = remat != "none" and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for i, blk in enumerate(self.blocks):
-            kv = {"cache_dtype": cache_dtype} if blk.kind in _KV_KINDS else {}
-            h, nc = blk(h, cfg, mode=mode, cache=caches[i] if mode == "decode" else None,
-                        pos=pos, context=context, dtype=dtype, s_buf=s_buf, **kv)
+            kw = ({"cache_dtype": cache_dtype, "attn_chunk": attn_chunk}
+                  if blk.kind in _KV_KINDS else {})
+            if remat_on:
+                h, a = checkpoint(_train_layer, blk, h, cfg, context, dtype, kw,
+                                  use_reentrant=False, **_remat_kwargs(remat))
+                nc = None
+            else:
+                h, nc, a = blk(h, cfg, mode=mode, cache=caches[i] if mode == "decode" else None,
+                               pos=pos, context=context, dtype=dtype, s_buf=s_buf, **kw)
+            if a is not None:
+                aux = aux + a
             new_caches.append(nc)
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
+        caches_out = new_caches if mode != "train" else None
+        if return_hidden:
+            return h, caches_out, aux
         head = self.embed.T if self.lm_head is None else self.lm_head
         logits = h.float() @ head.float()
         if cfg.padded_vocab != cfg.vocab_size:
             pad = torch.where(torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size,
                               0.0, -1e30)
             logits.add_(pad)
-        return logits, (new_caches if mode != "train" else None)
+        return logits, caches_out, aux
+
+
+def _train_layer(blk, h, cfg, context, dtype, kw):
+    """One layer of a train-mode forward, as remat recomputes it: ``(h, aux)``."""
+    h, _, aux = blk(h, cfg, mode="train", context=context, dtype=dtype, **kw)
+    return h, (torch.zeros((), dtype=torch.float32, device=h.device) if aux is None else aux)
 
 
 def init_params(cfg, generator: torch.Generator, *, device: torch.device,
@@ -499,11 +569,13 @@ def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
 def forward(params: Transformer, cfg, tokens: torch.Tensor, *, context=None,
             mode: str = "train", caches=None, pos=None, dtype=torch.bfloat16,
             s_buf: Optional[int] = None):
-    """The reference's ``forward`` signature over :class:`Transformer` weights;
-    returns ``(logits, caches or None)``."""
+    """The reference's ``forward`` signature over :class:`Transformer` weights,
+    served (self-attention through flash); returns ``(logits, caches or
+    None)``."""
     check_weights(params, cfg)
-    return params(tokens, mode=mode, caches=caches, pos=pos, context=context, dtype=dtype,
-                  s_buf=s_buf)
+    logits, caches, _ = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
+                               dtype=dtype, s_buf=s_buf)
+    return logits, caches
 
 
 def check_weights(params: Transformer, cfg) -> None:
@@ -517,17 +589,18 @@ def check_weights(params: Transformer, cfg) -> None:
                          f"given) {apart}")
 
 
-def encode(params: Transformer, cfg, frames: torch.Tensor, *, dtype=torch.bfloat16
-           ) -> torch.Tensor:
+def encode(params: Transformer, cfg, frames: torch.Tensor, *, dtype=torch.bfloat16,
+           attn_chunk: int = 1024) -> torch.Tensor:
     """The bidirectional encoder over frame embeddings ``[B, T, d]``: each
-    layer's self-attention through ``ops.flash_attention(causal=False)``."""
+    layer's self-attention through ``ops.flash_attention(causal=False)``, or
+    under autograd ``chunked_attention`` (``attention_block``)."""
     if params.encoder is None:
         raise ValueError(f"{cfg.name} has no encoder")
     eps = cfg.norm_eps
     h = frames.to(dtype)
     for blk in params.encoder.blocks:
         mix, _ = attention_block(blk.attn, rmsnorm(blk.ln1, h, eps), cfg, causal=False,
-                                 dtype=dtype)
+                                 dtype=dtype, attn_chunk=attn_chunk)
         h = h + mix
         h = h + mlp_apply(blk.ffn, rmsnorm(blk.ln2, h, eps), cfg.act, dtype=dtype)
     return rmsnorm(params.encoder.final_norm, h, eps)

@@ -1,20 +1,29 @@
-"""Atomic, checksummed checkpoints of dicts of numpy arrays.
+"""Atomic, checksummed, asynchronous checkpoints of dicts of arrays.
 
-The port's counterpart of the parts of ``repro/train/checkpoint.py`` that
-the counting API's checkpoint and resume use (DESIGN.md §7, §16):
+Counterpart of ``repro/train/checkpoint.py`` (DESIGN.md §7, §16):
 
 * **atomic** — writes go to ``step_XXXX.tmp/`` and are renamed only after a
   manifest with content checksums is fsynced; a crash mid-save never
   corrupts the latest checkpoint (the ``checkpoint.write_crash`` fault site
   kills the writer between the two);
-* **synchronous** — estimator state is a few kilobytes, so ``save``
-  returns once the checkpoint is on disk: "killed after the save at call
-  N" is then a well-defined resume point;
+* **async** — with ``async_save=True`` ``save`` copies the tensors to the
+  host, then a writer thread writes them while the caller goes on
+  (``save(..., block=True)`` writes before returning).  The train loop asks
+  for it, as the reference's gets it from its default.  The port's default
+  is synchronous, where the reference's is async: its counting callers
+  (which pass ``async_save=False`` in the reference) and their tests build
+  the manager bare, and "killed after the save at call N" must stay a
+  well-defined resume point;
 * **bounded** — keeps the last ``keep`` checkpoints, never the one a run
   was restored from.
 
-Storage is one ``.npz`` per named dict.  The reference's pytree
-``restore`` onto a mesh waits for the distributed slice.
+A tree is a nested dict of tensors or numpy arrays (``{"params": {...},
+"opt": {"m": {...}, "v": {...}, "step": ...}}``); each named tree is one
+``.npz``, flattened by path (``"m/blocks.0.ln1"``).  ``restore`` loads a
+checkpoint onto tensors shaped like templates, on their devices, checking
+shapes and checksums; ``load_latest`` returns the newest readable one raw.
+Re-sharding onto a mesh waits for the sharding specs (ROADMAP queue 1
+item 17).
 """
 
 from __future__ import annotations
@@ -23,40 +32,90 @@ import hashlib
 import json
 import os
 import shutil
+import threading
 import time
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..testing import faults
 
 __all__ = ["CheckpointManager"]
 
 
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of tensors or arrays as ``{"a/b": host array}``, each a
+    copy: the caller may update its tensors in place (a train step does)
+    while the writer thread writes."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, key + "/"))
+        elif isinstance(v, torch.Tensor):
+            flat[key] = v.detach().to("cpu", copy=True).numpy()
+        else:
+            flat[key] = np.array(v)
+    return flat
+
+
+def _unflatten(template: Mapping, flat, name: str, prefix: str = "") -> Dict[str, Any]:
+    """Tensors shaped like ``template``'s leaves, on their devices and in
+    their dtypes, from the flat arrays; a shape mismatch raises."""
+    out = {}
+    for k, leaf in template.items():
+        key = f"{prefix}{k}"
+        if isinstance(leaf, Mapping):
+            out[k] = _unflatten(leaf, flat, name, key + "/")
+            continue
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}:{key} shape {arr.shape} != template {tuple(leaf.shape)}")
+        out[k] = torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype)
+    return out
+
+
+def _digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, async_save: bool = False):
         self.dir = directory
         self.keep = keep
-        #: the step load_latest() last read: keep-pruning never
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        #: the step load_latest()/restore() last read: keep-pruning never
         #: deletes the checkpoint a live run was restored from
         self._protected: Optional[int] = None
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, trees: Mapping[str, Mapping[str, np.ndarray]]):
-        """``trees``: name -> {array name: array} (e.g. ``{"estimator":
-        state.to_arrays()}``)."""
+    def save(self, step: int, trees: Mapping[str, Mapping], *, block: bool = False):
+        """``trees``: name -> nested dict of tensors or arrays (e.g.
+        ``{"estimator": state.to_arrays()}``, ``{"params": ..., "opt":
+        ...}``).  The host copies are made here; the write runs on the
+        writer thread unless ``block`` or ``async_save=False``."""
+        host = {name: _flatten(t) for name, t in trees.items()}
+        self.wait()
+        if self.async_save and not block:
+            self._thread = threading.Thread(target=self._write, args=(step, host), daemon=True)
+            self._thread.start()
+        else:
+            self._write(step, host)
+
+    def _write(self, step: int, host: Dict[str, Dict[str, np.ndarray]]):
         self._gc_tmp()  # crash residue from a previously killed writer
         tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
         final = os.path.join(self.dir, f"step_{step:08d}")
         os.makedirs(tmp)
         manifest = {"step": step, "time": time.time(), "trees": {}}
-        for name, flat in trees.items():
+        for name, flat in host.items():
             path = os.path.join(tmp, f"{name}.npz")
-            np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
-            with open(path, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()
-            manifest["trees"][name] = {"file": f"{name}.npz", "sha256": digest}
+            np.savez(path, **flat)
+            manifest["trees"][name] = {"file": f"{name}.npz", "sha256": _digest(path)}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -73,6 +132,11 @@ class CheckpointManager:
         os.rename(tmp, final)
         self._gc()
 
+    def wait(self):
+        """Join the writer thread, if one is writing."""
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join()
+
     def _gc(self):
         steps = self.all_steps()
         for s in steps[: -self.keep]:
@@ -82,7 +146,9 @@ class CheckpointManager:
 
     def _gc_tmp(self):
         """Remove ``step_*.tmp`` residue left by a killed writer: its
-        rename never happened, so it can never become a valid checkpoint."""
+        rename never happened, so it can never become a valid checkpoint.
+        Only called with no writer thread in flight (``save`` joins the last
+        writer first, ``load_latest`` waits too)."""
         for d in os.listdir(self.dir):
             if d.startswith("step_") and d.endswith(".tmp"):
                 shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
@@ -114,9 +180,7 @@ class CheckpointManager:
             out: Dict[str, Dict[str, np.ndarray]] = {}
             for name, meta in manifest["trees"].items():
                 path = os.path.join(base, meta["file"])
-                with open(path, "rb") as f:
-                    digest = hashlib.sha256(f.read()).hexdigest()
-                if digest != meta["sha256"]:
+                if _digest(path) != meta["sha256"]:
                     raise IOError(f"checksum mismatch for {name}")
                 with np.load(path, allow_pickle=False) as z:
                     out[name] = {k: np.asarray(z[k]) for k in z.files}
@@ -141,6 +205,7 @@ class CheckpointManager:
         returned step is protected from ``keep``-pruning for this manager's
         lifetime.
         """
+        self.wait()
         self._gc_tmp()
         for step in reversed(self.all_steps()):
             data = self._try_load(step)
@@ -148,3 +213,25 @@ class CheckpointManager:
                 self._protected = step
                 return step, data
         return None
+
+    def restore(self, step: int, templates: Mapping[str, Mapping], *,
+                verify: bool = True) -> Dict[str, Any]:
+        """The trees of checkpoint ``step``, shaped like ``templates`` (name ->
+        nested dict of tensors): each leaf a new tensor on its template's
+        device, in its dtype.  A checksum that does not verify raises
+        ``IOError``, a shape that differs from the template's
+        ``ValueError``."""
+        self.wait()
+        base = os.path.join(self.dir, f"step_{step:08d}")
+        self._protected = step  # keep-pruning must not delete it mid-restore
+        with open(os.path.join(base, "manifest.json")) as f:
+            manifest = json.load(f)
+        out = {}
+        for name, template in templates.items():
+            meta = manifest["trees"][name]
+            path = os.path.join(base, meta["file"])
+            if verify and _digest(path) != meta["sha256"]:
+                raise IOError(f"checksum mismatch for {name} at step {step}")
+            with np.load(path, allow_pickle=False) as z:
+                out[name] = _unflatten(template, z, name)
+        return out

@@ -635,3 +635,43 @@ def test_distributed_counter_on_the_card(cuda_device):
     a = card.estimate(n_iter=8, key=prng.key(1), batch=4).samples
     b = cpu.estimate(n_iter=8, key=prng.key(1), batch=4).samples
     np.testing.assert_array_equal(a, b)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of a reduced row in float32 (TF32 off) on the card ==
+    the same step on the CPU: the loss, the gradient norm and the updated
+    weights within 1e-4 relative; the train path launches no flash kernel."""
+    from repro_torch.train import AdamWConfig, TrainConfig, init_opt_state, make_train_step
+    from repro_torch.train.data import DataConfig, synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("phi3.5-moe-42b-a6.6b").reduced()
+    tcfg = TrainConfig(opt=AdamWConfig(lr_peak=1e-2, warmup_steps=0))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = build_model(cfg, dtype=torch.float32, device=dev)
+        params = model.init_fn(torch.Generator().manual_seed(0)) if dev == "cpu" else \
+            copy.deepcopy(out["cpu_init"]).to(dev)
+        if dev == "cpu":
+            out["cpu_init"] = copy.deepcopy(params)
+        step, _ = make_train_step(model, tcfg)
+        batch = synthetic_batch(DataConfig(cfg.vocab_size, 2, 64, 0), 0, dev)
+        n0 = flash_attention.launches
+        params, _, metrics = step(params, init_opt_state(dict(params.named_parameters())), batch)
+        assert flash_attention.launches == n0
+        out[str(torch.device(dev).type)] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                                            {k: v.detach().cpu() for k, v in
+                                             params.named_parameters()})
+    (l1, g1, p1), (l2, g2, p2) = out["cpu"], out["cuda"]
+    assert abs(l1 - l2) <= 1e-4 * abs(l1) and abs(g1 - g2) <= 1e-4 * abs(g1)
+    for k in p1:
+        assert (p1[k] - p2[k]).norm() <= 1e-4 * p1[k].norm(), k
+
+
+def test_flash_kernel_refuses_tensors_that_need_a_gradient(cuda_device):
+    q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 1, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    n0 = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, k)
+    assert flash_attention.launches == n0

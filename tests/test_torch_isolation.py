@@ -110,6 +110,16 @@ def test_slice_thirteen_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+SLICE_FOURTEEN_MODULES = ["train/__init__.py", "train/optimizer.py", "train/data.py",
+                          "train/train_loop.py", "launch/train.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_FOURTEEN_MODULES)
+def test_slice_fourteen_modules_are_checked(module):
+    """The training slice's modules are among the files the import check reads."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_engine_import_loads_no_jax():
     code = (
         "import sys, repro_torch.core.count_engine, repro_torch.core.estimator, "
@@ -125,7 +135,9 @@ def test_engine_import_loads_no_jax():
         "repro_torch.core.distributed, repro_torch.serve, repro_torch.launch.serve, "
         "repro_torch.comm.abstract, repro_torch.kernels.work, repro_torch.launch.dryrun, "
         "repro_torch.roofline, repro_torch.roofline.analysis, repro_torch.models.moe, "
-        "repro_torch.models.rwkv6, repro_torch.models.rglru; "
+        "repro_torch.models.rwkv6, repro_torch.models.rglru, repro_torch.train, "
+        "repro_torch.train.optimizer, repro_torch.train.data, repro_torch.train.train_loop, "
+        "repro_torch.launch.train; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
