@@ -8,7 +8,8 @@ against those runs, the granite-3-8b serving path (prefill, then decode),
 the other six LM rows served at full width (vision cross-attention,
 experts with the distributed expert layer, RWKV6, RG-LRU with local
 attention at head dim 256, the whisper encoder-decoder) and training
-(smollm-360m whole, a phi3.5-moe layer, the int8 gradient ring), with
+(smollm-360m whole, a phi3.5-moe layer, the int8 gradient ring) and the
+LM on a data x model mesh (training, serving, experts, torchrun), with
 every kernel of their paths built from this checkout and held against its
 plain PyTorch version.  Every bound is the roofline of a kernel's work count
 (``repro_torch.kernels.work``).
@@ -130,7 +131,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 12. distributed — the exchange engine (repro_torch.core.distributed) on
              LocalMesh thread ranks sharing the card.  (a) exact: the
              reference worker's ER(97, 5) and a skew-8 R-MAT (4096 / 1200),
-             p4, sp21 and u5-2, LocalMesh P in {4, 8} x I in {1, 2}, every
+             p4, sp21 and u5-2, LocalMesh 4 x 1 and 8 x 2, every
              mode (alltoall, pipeline g 1 and 3, adaptive, ring) x fuse ==
              brute force; the families u3-1/u5-2/u7-2, cycle4, diamond and a
              mixed one == the single-device port; keyed samples P = 1 ==
@@ -150,8 +151,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              single;
 13. compact — the compacted exchange and the narrow wire of the same
              engine.  (a) exact: phase 12 (a)'s graphs and trees on LocalMesh
-             P = 4 (floors forced down, threshold 1.0), every mode x fuse x
-             wire (float32, int16, int8) x {dense, compact} == brute force on
+             P = 4 (floors forced down, threshold 1.0), alltoall, pipeline
+             g1 and ring x fuse x wire (float32, int16, int8) x {dense,
+             compact} == brute force on
              its own rung; storms of compression.saturate and
              compaction.overflow give the same counts.  (b) full width:
              phase 11's two rows at 2^22 (u10-2), P = 4, B = 2, alltoall,
@@ -202,8 +204,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 15. dryrun — the counting dry-run (repro_torch.launch.dryrun: one rank's
              program on meta tensors at paper scale) and the roofline
              (repro_torch.roofline.analysis).  (a) the dry-run CLI for every
-             COUNTING_CONFIGS row at its production mesh, single- and
-             multi-pod, and rmat500-u12-2 at alltoall, pipeline and ring, in
+             COUNTING_CONFIGS row at its production mesh (friendster-u12-1
+             multi-pod too), and rmat500-u12-2 at
+             alltoall, pipeline and ring, in
              processes that see no card: per-rank argument and temp bytes,
              fits on this card, the dominant roofline term; any error record
              fails.  (b) the model of each phase 12 (c) NCCL call at world
@@ -245,13 +248,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              path; every kernel's launch count stays put).  (a) smollm-360m
              whole (32 layers, d = 960), B = 8 x 2048 tokens of the
              synthetic stream, bf16 compute over float32 weights and AdamW
-             state, remat "full": ``train`` for 2 warm and 8 timed steps
-             and 2 more, a checkpoint after the tenth; finite losses whose
-             last four average below the first, a finite gradient norm; ms
-             a step, tokens/s, peak bytes, the model-flops share; one more
-             step under the profiler (device time by kind) and its parts
-             alone (chunked attention, the chunked CE, AdamW); then a fresh
-             ``train`` resumes from the checkpoint and takes the last 2
+             state, remat "full": ``train`` for 2 warm and 4 timed steps
+             and 2 more; finite losses whose last four average below the
+             first, a finite gradient norm; ms a step, tokens/s, peak
+             bytes, the model-flops share; one more step under the
+             profiler (device time by kind) and its parts alone (chunked
+             attention, the chunked CE, AdamW); then at full width cut to
+             4 layers, the same 8 steps with a checkpoint after the sixth,
+             and a fresh ``train`` resumes from it and takes the last 2
              steps: weights == the uninterrupted run's within 1e-6
              relative.  (b) phi3.5-moe at full width, one layer (1.56B
              parameters), B = 4 x 2048, 4 steps: every expert-layer call's
@@ -262,6 +266,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              relative.  (d) the int8 gradient ring on LocalMesh P = 4 over
              64M float32 elements a rank == the same ring on the CPU,
              bitwise, timed (path "train").
+18. mesh   — the LM on a data x model mesh of LocalMesh thread ranks
+             sharing the card, taking turns at host code, a wait past
+             120 s failing the phase.  (a) smollm-360m whole on 2 x 2
+             (FSDP, ZeRO-1), bf16, phase 17 (a)'s weights, stream and
+             schedule, 2 warm and 4 timed steps: losses within 1e-3
+             relative of phase 17 (a)'s; each rank's weight, gradient, m
+             and v elements == the specs' arithmetic; ms a step, tokens/s,
+             peak bytes, the last warm step under the profiler (busy share;
+             the backward of four thread ranks completes); float32 at 2
+             layers: loss and gradient norm == one device's within 1e-5,
+             each gathered gradient leaf within 1e-4 of its largest entry.
+             (b) granite-3-8b whole on 1 x 4 (tensor-parallel), phase 8's
+             weights and prompts: prefill (the bf16 flash kernel once a
+             layer a rank on the rank's 8 q and 2 KV heads, 160 launches a
+             prefill, path "lm_mesh") and 32 decode steps on the
+             sequence-sharded bf16 cache; the bf16 decode step after phase
+             8's first token within 1.5x the bf16 forward's distance from
+             phase 8's float32 forward; at 4 layers, float32 over a
+             float32 cache, the meshed decode step == a forward within
+             2e-2 ("lm_mesh_float32_checks"); a rank's flash launch ==
+             its plain version under the flash gate, timed; prefill ms,
+             tokens/s, decode ms a step, each rank's weight elements ==
+             the specs'.  (c) phi3.5-moe at full width cut to 1 layer on
+             2 x 2 (FSDP, EP), bf16, fused and pipelined: every rank's
+             expert weights its specs' share, aux finite, ms a step,
+             peak; the six mesh rows reduced, float32 on 2 x 2: card ==
+             the CPU's meshed run within 1e-4.  (d) launch/train.py
+             --distributed under torchrun at world size 1 (NCCL) == the
+             same training on a 1 x 1 LocalMesh, bitwise.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -1695,7 +1728,7 @@ def sparse_combine_rows(plan, i: int, masks, gen, rows, ops_ms, tag: str):
     torch.cuda.empty_cache()
 
 
-def sparse_cell(name: str, dev):
+def sparse_cell(name: str, dev, g):
     """One compacted row at 2^22 vertices: its compact and dense plans, the
     spec and the probe's seconds; the compact routes' kernels against their
     plain versions at an engaged node each; count_fn compact and dense,
@@ -1714,7 +1747,6 @@ def sparse_cell(name: str, dev):
 
     tag = f"phase 11 {name}"
     row = COUNTING_CONFIGS[name]
-    g = rmat_graph(*SPARSE_GRAPHS[name], skew=row.skew)
     tree = template(row.template)
     times = {}
 
@@ -1850,11 +1882,15 @@ def sparse_cell(name: str, dev):
     return launches, routes_seen, rows, summary
 
 
-def phase_sparse(dev):
-    """Phase 11: both compacted rows; every compact route must have run."""
+def phase_sparse(dev, graphs):
+    """Phase 11: both compacted rows; every compact route must have run.
+    ``graphs`` (name -> R-MAT) is filled here and read again by phase 13."""
+    from repro_torch.configs.subgraph import COUNTING_CONFIGS
+
     launches, routes, rows, cells = None, dict.fromkeys(ROUTES, 0), None, {}
     for name in SPARSE_GRAPHS:
-        l, r, cell_rows, cells[name] = sparse_cell(name, dev)
+        graphs[name] = rmat_graph(*SPARSE_GRAPHS[name], skew=COUNTING_CONFIGS[name].skew)
+        l, r, cell_rows, cells[name] = sparse_cell(name, dev, graphs[name])
         launches = l if launches is None else {k: launches[k] + l[k] for k in l}
         routes = {k: routes[k] + r[k] for k in ROUTES}
         rows = cell_rows if rows is None else {k: rows[k] + cell_rows[k] for k in rows}
@@ -1870,8 +1906,9 @@ def phase_sparse(dev):
 
 #: every exchange mode, the pipeline at group factors 1 and 3
 DIST_MODES = (("alltoall", 1), ("pipeline", 1), ("pipeline", 3), ("adaptive", 1), ("ring", 1))
-#: (a): LocalMesh shapes (data ranks, iteration ranks) on the card
-DIST_EXACT_MESHES = ((4, 1), (4, 2), (8, 1), (8, 2))
+#: (a): LocalMesh shapes (data ranks, iteration ranks) on the card; (4, 2)
+#: and (8, 1) cut for time in PR 25 (the CPU tests hold every P x I)
+DIST_EXACT_MESHES = ((4, 1), (8, 2))
 #: (a): the reference worker's graph, and a skew-8 R-MAT whose u5-2 count
 #: (1,942,968 on the coloring) stays below 2^24 and whose brute force takes
 #: seconds
@@ -2401,8 +2438,9 @@ def compact_nccl(mesh, local):
 
 def compact_exact(dev):
     """13 (a): phase 12 (a)'s graphs and trees on LocalMesh P = 4, two
-    colorings, every mode x fuse x wire x {dense, compact} == brute force on
-    its own rung; storms of compression.saturate and compaction.overflow
+    colorings, alltoall, pipeline g1 and ring (COMPACT_MODES; every mode
+    until PR 25, cut for time) x fuse x wire x {dense, compact} == brute
+    force on its own rung; storms of compression.saturate and compaction.overflow
     give the same counts on the rungs they force."""
     import dataclasses as dc
 
@@ -2431,7 +2469,7 @@ def compact_exact(dev):
             # u5-2 (root 0) reads no internal right child: its plan may engage nothing
             engaged = "compact" if spec.enabled else "dense"
             for plan, tag in ((dc.replace(comp, compaction=None), "dense"), (comp, engaged)):
-                for mode, gf in DIST_MODES:
+                for mode, gf in COMPACT_MODES:
                     for fuse in (False, True):
                         for wire in WIRES:
                             f = make_count_fn(plan, mesh, mode=mode, group_factor=gf, fuse=fuse,
@@ -2461,7 +2499,7 @@ def compact_exact(dev):
     return {"count_calls": calls, "seconds": time.perf_counter() - t0}
 
 
-def compact_full(name: str, dev):
+def compact_full(name: str, dev, g):
     """13 (b): one sparse row at 2^22 vertices (phase 11's cut), u10-2 on
     LocalMesh P = 4, B = 2: the compacted plan and its dense twin, every
     mode of COMPACT_MODES x fuse x COMPACT_SETTINGS, a warm then a timed
@@ -2482,7 +2520,6 @@ def compact_full(name: str, dev):
 
     tag = f"phase 13 (b) {name}"
     row = COUNTING_CONFIGS[name]
-    g = rmat_graph(*SPARSE_GRAPHS[name], skew=row.skew)
     tree = template(row.template)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2592,7 +2629,7 @@ def compact_launch():
     return {"estimates": _estimates(narrow), "caps": caps[0]}
 
 
-def phase_compact(dev, saturation, narrow_nccl):
+def phase_compact(dev, saturation, narrow_nccl, graphs):
     """Phase 13: (a), (b) on both sparse rows, (c) and the NCCL part of (d)
     from phase 12's run, the launcher.  Returns the path's launches, the
     kernel rows and a summary."""
@@ -2600,7 +2637,7 @@ def phase_compact(dev, saturation, narrow_nccl):
     exact = compact_exact(dev)
     launches, rows, cells = None, None, {}
     for name in SPARSE_GRAPHS:
-        cell_launches, cell_rows, cells[name] = compact_full(name, dev)
+        cell_launches, cell_rows, cells[name] = compact_full(name, dev, graphs.pop(name))
         launches = cell_launches if launches is None else {
             k: launches[k] + cell_launches[k] for k in launches}
         rows = cell_rows if rows is None else {k: rows[k] + cell_rows[k] for k in rows}
@@ -2909,7 +2946,8 @@ def phase_lm(dev, flash_ms: float):
                 bf16_decode_over_forward_distance=bf16_ratio,
                 card_vs_cpu_rel_err=rel,
                 n_params=n_params, weight_bytes=weight_bytes, prefill_split=split,
-                decode_split=dsplit)
+                decode_split=dsplit, mesh_refs=dict(first_tok=first_tok.cpu(),
+                                                    fwd32=fwd32.cpu(), dist=bf16_dist))
 
 
 def device_split(fn, host_ops: bool = True):
@@ -3536,6 +3574,10 @@ def phase_serve(g, dev):
 
 DRYRUN_PROCS = 8  # dry-run CLI processes at once (the host's cores)
 DRYRUN_MODES = ("alltoall", "pipeline", "ring")  # (a): rmat500-u12-2 side by side
+#: (a): the rows also dry-run at the 2 x 16 x 16 mesh (every row until PR 25,
+#: cut for time to one: 16 records, two waves of DRYRUN_PROCS;
+#: tests/test_torch_dryrun.py runs them all on the CPU)
+DRYRUN_MULTI_POD = ("friendster-u12-1",)
 MODEL_RTOL_WS1 = 0.05  # (b): predicted rank growth vs NCCL at world size 1
 MODEL_RTOL_LOCAL = 0.15  # (c): predicted peak vs LocalMesh P = 4
 MODEL_RTOL_RATIO = 0.10  # (c): alltoall / pipeline peak ratio, model vs measured
@@ -3543,14 +3585,15 @@ MODEL_RTOL_RATIO = 0.10  # (c): alltoall / pipeline peak ratio, model vs measure
 
 def dryrun_rows():
     """(a): the dry-run CLI for every COUNTING_CONFIGS row at its production
-    mesh, single- and multi-pod, and rmat500-u12-2 at each mode, in
+    mesh (DRYRUN_MULTI_POD's multi-pod too), and rmat500-u12-2 at each mode, in
     processes that see no card (the dry-run touches none); the roofline of
     each record against this card's memory."""
     import os
     from repro_torch.configs.subgraph import COUNTING_CONFIGS
     from repro_torch.roofline.analysis import analyze_record, device_memory_bytes
 
-    jobs = [(row, mp, None) for row in sorted(COUNTING_CONFIGS) for mp in (False, True)]
+    jobs = [(row, mp, None) for row in sorted(COUNTING_CONFIGS)
+            for mp in ((False, True) if row in DRYRUN_MULTI_POD else (False,))]
     jobs += [("rmat500-u12-2", False, m) for m in DRYRUN_MODES
              if m != COUNTING_CONFIGS["rmat500-u12-2"].mode]
     # one thread a process: meta ops compute nothing, and eight processes share the cores
@@ -4118,7 +4161,8 @@ def phase_lm_rows(dev):
 
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_LEN = 8, 2048  # (a): sequences a step, tokens a sequence
-TRAIN_WARM, TRAIN_TIMED, TRAIN_RESUMED = 2, 8, 2  # (a): steps
+TRAIN_WARM, TRAIN_TIMED, TRAIN_RESUMED = 2, 4, 2  # (a): steps
+TRAIN_RESUME_LAYERS = 4  # (a): the resume check's depth (full width)
 #: the reference's peak learning rate after 2 warmup steps (its 200 would
 #: keep the rate near 0 for a dozen steps); 1e-3 made the loss spike
 TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
@@ -4212,28 +4256,76 @@ def train_split(model, cfg, run, data, step_i, tcfg):
     return split, parts
 
 
-def train_smollm(dev, tmp):
-    """(a) smollm-360m whole at full width: TRAIN_WARM + TRAIN_TIMED steps of
-    ``train`` and TRAIN_RESUMED more, a checkpoint at TRAIN_WARM +
-    TRAIN_TIMED; the profiled step and its parts; then a fresh ``train``
-    resumes from the checkpoint and takes the last TRAIN_RESUMED steps, whose
-    weights must equal the uninterrupted run's within TRAIN_RESUME_RTOL
-    relative.  The gate is not bitwise: on the card a reduction or scatter
-    with atomics (an embedding's or an index's backward) may sum float32
-    terms in another order from run to run; whether the run was bitwise is
-    recorded."""
+def train_tcfg(ckpt_dir=None):
+    """(a)'s schedule, which phase 18 (a) shares: TRAIN_WARM + TRAIN_TIMED
+    steps and TRAIN_RESUMED more, a checkpoint after the first part."""
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    steps = TRAIN_WARM + TRAIN_TIMED
+    return TrainConfig(steps=steps + TRAIN_RESUMED,
+                       opt=AdamWConfig(total_steps=steps + TRAIN_RESUMED, **TRAIN_OPT),
+                       checkpoint_dir=ckpt_dir, checkpoint_every=steps, log_every=1)
+
+
+def train_resume(dev, tmp, data):
+    """(a)'s resume check, at full width cut to TRAIN_RESUME_LAYERS layers:
+    ``train`` for all of (a)'s steps with a checkpoint after TRAIN_WARM +
+    TRAIN_TIMED, then a fresh ``train`` resumes from it and takes the last
+    TRAIN_RESUMED steps, whose weights must equal the uninterrupted run's
+    within TRAIN_RESUME_RTOL relative.  The gate is not bitwise: on the card
+    a reduction or scatter with atomics (an embedding's or an index's
+    backward) may sum float32 terms in another order from run to run;
+    whether the run was bitwise is recorded."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
-    from repro_torch.train import AdamWConfig, DataConfig, TrainConfig, train
+    from repro_torch.train import train
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_RESUME_LAYERS)
+    model = build_model(cfg, device=dev)
+    steps = TRAIN_WARM + TRAIN_TIMED
+    tcfg = train_tcfg(str(tmp / TRAIN_ARCH))
+    lines = []
+    t0 = time.perf_counter()
+    run = train(model, tcfg, log=lines.append, data=data)
+    want = {k: v.detach().clone() for k, v in run["params"].named_parameters()}
+    del run
+    resumed_lines = []
+    resumed = train(model, tcfg, log=resumed_lines.append, data=data)
+    resume_s = time.perf_counter() - t0
+    if resumed_lines[0] != f"restored checkpoint at step {steps}":
+        raise AssertionError(f"phase 17 (a): the resumed run logged {resumed_lines}")
+    errs = _rel_errs(dict(resumed["params"].named_parameters()), want)
+    worst = max(errs, key=errs.get)
+    bitwise = all(torch.equal(v, want[k]) for k, v in resumed["params"].named_parameters())
+    if not errs[worst] <= TRAIN_RESUME_RTOL:
+        raise AssertionError(f"phase 17 (a): resumed weights {worst} {errs[worst]} from the "
+                             f"uninterrupted run's")
+    losses, resumed_losses = _step_losses(lines), _step_losses(resumed_lines)
+    log(f"phase 17 (a) resume at {TRAIN_RESUME_LAYERS} layers: resumed at step {steps}, "
+        f"{TRAIN_RESUMED} more steps ({resume_s:.1f}s for both runs): weights == the "
+        f"uninterrupted run's within {TRAIN_RESUME_RTOL} (worst {worst} {errs[worst]:.3g}; "
+        f"bitwise {bitwise}); losses {resumed_losses} against {losses[steps:]}")
+    del resumed, want
+    torch.cuda.empty_cache()
+    return dict(layers=TRAIN_RESUME_LAYERS, step=steps, rel_err_worst=errs[worst],
+                worst_weight=worst, bitwise=bitwise, losses=resumed_losses, seconds=resume_s)
+
+
+def train_smollm(dev, tmp):
+    """(a) smollm-360m whole at full width: TRAIN_WARM + TRAIN_TIMED steps of
+    ``train`` and TRAIN_RESUMED more; the profiled step and its parts; then
+    the resume check at a cut depth (:func:`train_resume`)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import DataConfig, train
 
     cfg = get_arch(TRAIN_ARCH)
     model = build_model(cfg, device=dev)
     steps = TRAIN_WARM + TRAIN_TIMED
     data = DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN, seed=0)
-    tcfg = TrainConfig(steps=steps + TRAIN_RESUMED,
-                       opt=AdamWConfig(total_steps=steps + TRAIN_RESUMED, **TRAIN_OPT),
-                       checkpoint_dir=str(tmp / TRAIN_ARCH), checkpoint_every=steps, log_every=1)
+    tcfg = train_tcfg()
     log_line, lines, stamps = _train_log()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4259,43 +4351,22 @@ def train_smollm(dev, tmp):
         f"params_count) B={TRAIN_BATCH} L={TRAIN_LEN}: {ms:.1f} ms a step over "
         f"{len(step_s)} timed steps {[round(x * 1e3, 1) for x in step_s]}, "
         f"{tokens / ms * 1e3:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB, losses {losses}, "
-        f"gnorm {gnorm:.3g} ({time.perf_counter() - t0:.1f}s with the checkpoint)")
+        f"gnorm {gnorm:.3g} ({time.perf_counter() - t0:.1f}s)")
     train_s = time.perf_counter() - t0
-    want = {k: v.detach().clone() for k, v in run["params"].named_parameters()}
     t0 = time.perf_counter()
     split, parts = train_split(model, cfg, run, data, steps + TRAIN_RESUMED, tcfg)
     split_s = time.perf_counter() - t0
     del run
     torch.cuda.empty_cache()
     log(f"phase 17 (a) the step under the profiler: {split}; alone: {parts} ({split_s:.1f}s)")
-    resumed_lines = []
-    t0 = time.perf_counter()
-    resumed = train(model, tcfg, log=resumed_lines.append, data=data)
-    resume_s = time.perf_counter() - t0
-    if resumed_lines[0] != f"restored checkpoint at step {steps}":
-        raise AssertionError(f"phase 17 (a): the resumed run logged {resumed_lines}")
-    errs = _rel_errs(dict(resumed["params"].named_parameters()), want)
-    worst = max(errs, key=errs.get)
-    bitwise = all(torch.equal(v, want[k]) for k, v in resumed["params"].named_parameters())
-    if not errs[worst] <= TRAIN_RESUME_RTOL:
-        raise AssertionError(f"phase 17 (a): resumed weights {worst} {errs[worst]} from the "
-                             f"uninterrupted run's")
-    resumed_losses = _step_losses(resumed_lines)
-    log(f"phase 17 (a) resumed at step {steps}, {TRAIN_RESUMED} more steps ({resume_s:.1f}s with "
-        f"the restore): weights == the uninterrupted run's within {TRAIN_RESUME_RTOL} (worst "
-        f"{worst} {errs[worst]:.3g}; bitwise {bitwise}); losses {resumed_losses} against "
-        f"{losses[steps:]}")
-    del resumed, want
-    torch.cuda.empty_cache()
+    resume = train_resume(dev, tmp, data)
     return dict(arch=TRAIN_ARCH, layers=cfg.num_layers, n_params=n_params, batch=TRAIN_BATCH,
                 seq_len=TRAIN_LEN, compute="bf16, float32 weights and AdamW state",
                 remat=model.sharding.remat, ms_per_step=ms, step_ms_runs=[x * 1e3 for x in step_s],
                 tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
                 model_flops_share=6 * n_params * tokens / (ms / 1e3 * BF16_PEAK),
                 losses=losses, grad_norm=gnorm, launches=launched, seconds=train_s,
-                profiled_step=split, parts_alone=parts, split_seconds=split_s,
-                resume=dict(step=steps, rel_err_worst=errs[worst], worst_weight=worst,
-                            bitwise=bitwise, losses=resumed_losses, seconds=resume_s))
+                profiled_step=split, parts_alone=parts, split_seconds=split_s, resume=resume)
 
 
 def train_moe(dev):
@@ -4494,6 +4565,604 @@ def phase_train(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the LM on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT = 120.0  # s a LocalMesh rank waits for a peer before the phase fails
+MESH_TRAIN = (2, 2)  # (a): data x model
+MESH_TRAIN_RTOL = 1e-3  # (a): bf16 losses vs phase 17 (a)'s (test_twenty_steps_track_the_reference)
+MESH_F32_LAYERS = 2  # (a): the float32 check's depth (full width)
+MESH_F32_BATCH = 2  # (a): the float32 check's sequences (of TRAIN_LEN tokens)
+MESH_F32_LOSS_RTOL = 1e-5  # (a), (c): float32 loss and gradient norm, relative
+MESH_F32_GRAD_TOL = 1e-4  # (a): each gathered gradient leaf, of its largest entry
+MESH_SERVE = (1, 4)  # (b): data x model
+MESH_SERVE_F32_LAYERS = 4  # (b): the float32 decode-vs-forward check's depth
+MESH_MOE = ("phi3.5-moe-42b-a6.6b", 1, 4, 2048, 2)  # (c): row, layers, B, L, steps a mode
+MESH_ROWS = ("smollm-360m", "qwen1.5-0.5b", "internlm2-1.8b", "granite-3-8b",
+             "phi3.5-moe-42b-a6.6b", "mixtral-8x22b")  # (c): the rows a mesh runs
+MESH_ROWS_SHAPE = (4, 64)  # (c): each reduced row's batch
+MESH_CARD_CPU_RTOL = 1e-4  # (c): card vs CPU, float32, TF32 off
+
+
+def _mesh_model(cfg, shape, dev, **kw):
+    """``(mesh, model)``: ``cfg`` on a LocalMesh of ``shape`` thread ranks
+    sharing ``dev``, taking turns at host code (a wait past MESH_TIMEOUT
+    fails the mesh)."""
+    from repro_torch.comm import LocalMesh
+    from repro_torch.configs import ShardingConfig
+    from repro_torch.models import build_model
+
+    sh = {k: kw.pop(k) for k in ("fsdp", "zero1", "moe_pipeline") if k in kw}
+    mesh = LocalMesh(*shape, device=dev, timeout=MESH_TIMEOUT, turns=True)
+    return mesh, build_model(cfg, ShardingConfig(batch_axes=("data",), **sh), mesh, **kw)
+
+
+def _spec_elements(model, specs_of=None) -> int:
+    """Elements one rank holds of the model's weights (or of the state specs
+    ``specs_of``), by the specs' arithmetic."""
+    from repro_torch.comm.spec import local_shape
+    from repro_torch.models.factory import mesh_axes
+
+    shapes = dict(model.abstract_params().named_parameters())
+    specs = specs_of or model.param_specs(shapes)
+    sizes = mesh_axes(model.mesh, model.sharding)
+    return sum(math.prod(local_shape(t.shape, specs[k], sizes)) for k, t in shapes.items())
+
+
+def _rank_index(ctx) -> int:
+    return ctx.iters.rank * ctx.data.size + ctx.data.rank
+
+
+def mesh_grads(model, whole, tokens):
+    """The meshed loss and gradients of ``whole``'s weights on ``tokens``
+    (global rows): each rank's backward on its own thread, the gradients
+    summed over the data axis where a weight is whole on it and gathered
+    whole; ``(loss, {name: gradient})`` on the CPU, from rank (0, 0)."""
+    import torch
+    from repro_torch.comm.spec import gather_whole, used_axes
+
+    def rank(ctx):
+        p = model.shard_params(whole)
+        b = tokens.shape[0] // ctx.data.size
+        rows = tokens[ctx.data.rank * b : (ctx.data.rank + 1) * b]
+        specs = model.param_specs(p)
+        groups = {"data": ctx.data, "model": ctx.model}
+        p.requires_grad_(True)
+        with torch.autograd.set_multithreading_enabled(False):
+            loss = model.loss_fn(p, {"tokens": rows})
+            grads = torch.autograd.grad(loss, list(p.parameters()))
+        out = {}
+        for (k, _), g in zip(p.named_parameters(), grads):
+            if "data" not in used_axes(specs[k]) and ctx.data.size > 1:
+                g = ctx.data.all_reduce_sum(g)
+            g = gather_whole(g, specs[k], groups)
+            if _rank_index(ctx) == 0:
+                out[k] = g.cpu()
+        return loss.item(), out
+
+    return mesh_run(model.mesh, rank)[0]
+
+
+def mesh_run(mesh, fn):
+    """``mesh.run(fn)`` with the card synchronized after it."""
+    import torch
+
+    out = mesh.run(fn)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return out
+
+
+def _leaf_errs(got, want):
+    """Per gradient leaf ``max |got - want| / max |want|``."""
+    out = {}
+    for k, w in want.items():
+        den = w.abs().max().item()
+        e = (got[k].to(w.device) - w).abs().max().item()
+        out[k] = e / den if den else float(e != 0)
+    return out
+
+
+def mesh_train(dev, single_losses):
+    """(a) smollm-360m whole on LocalMesh 2 x 2 (FSDP and ZeRO-1), bf16,
+    B = 8 x 2048 of the stream, phase 17 (a)'s weights, lr and schedule:
+    TRAIN_WARM + TRAIN_TIMED steps, whose losses track phase 17 (a)'s within
+    MESH_TRAIN_RTOL relative; each rank's weight, gradient, ``m`` and ``v``
+    elements == the specs' arithmetic; ms a step, tokens/s, peak bytes, the
+    last warm step under the profiler (busy share).  Then the float32 check at
+    MESH_F32_LAYERS layers: the meshed loss and gradients == one device's."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import DataConfig, make_train_step, synthetic_batch
+    from repro_torch.train.train_loop import rank_opt_state
+
+    cfg = get_arch(TRAIN_ARCH)
+    mesh, model = _mesh_model(cfg, MESH_TRAIN, dev, fsdp=True, zero1=True)
+    data = DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN, seed=0)
+    step, shardings = make_train_step(model, train_tcfg(), mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = read_launches()
+    t0 = time.perf_counter()
+    whole = [model.init_fn(torch.Generator(device=dev).manual_seed(0))]  # train()'s weights
+    state, stamps = {}, []
+
+    def setup(ctx):
+        p = model.shard_params(whole[0])
+        ctx.data.barrier()
+        ctx.model.barrier()
+        if _rank_index(ctx) == 0:
+            whole.clear()
+        o = rank_opt_state(model, p)
+        state[_rank_index(ctx)] = [p, o]
+        return (sum(t.numel() for t in p.parameters()),
+                sum(t.numel() for t in o["m"].values()), sum(t.numel() for t in o["v"].values()))
+
+    counts = mesh_run(mesh, setup)
+    init_s = time.perf_counter() - t0
+    want_w, want_m = _spec_elements(model), _spec_elements(model, shardings["opt"]["m"])
+    if set(counts) != {(want_w, want_m, want_m)}:
+        raise AssertionError(f"phase 18 (a): rank elements (weights, m, v) {counts}, the specs "
+                             f"give {(want_w, want_m, want_m)}")
+
+    def steps(first, n):
+        def fn(ctx):
+            p, o = state[_rank_index(ctx)]
+            losses = []
+            for i in range(first, first + n):
+                p, o, m = step(p, o, synthetic_batch(data, i, dev))
+                losses.append(float(m["loss"]))
+                if _rank_index(ctx) == 0:
+                    stamps.append(time.perf_counter())
+            state[_rank_index(ctx)] = [p, o]
+            return losses
+        return fn
+
+    nsteps = TRAIN_WARM + TRAIN_TIMED
+    # the warm steps, the last under the profiler (its busy share), then
+    # the timed ones
+    losses = mesh_run(mesh, steps(0, TRAIN_WARM - 1))[0]
+    split = device_split(lambda: losses.extend(mesh_run(mesh, steps(TRAIN_WARM - 1, 1))[0]),
+                         host_ops=False)
+    stamps[:] = [time.perf_counter()]
+    losses += mesh_run(mesh, steps(TRAIN_WARM, TRAIN_TIMED))[0]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in read_launches().items()}
+    grads_elems = sum(p.numel() for p in state[0][0].parameters())  # a gradient per weight
+    state.clear()
+    torch.cuda.empty_cache()
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses[:nsteps])]
+    if not (all(math.isfinite(x) for x in losses) and max(errs) <= MESH_TRAIN_RTOL):
+        raise AssertionError(f"phase 18 (a): meshed losses {losses} against phase 17 (a)'s "
+                             f"{single_losses[:nsteps]} (relative {errs})")
+    if any(launched.values()) or not split["device_busy_ms"]:
+        raise AssertionError(f"phase 18 (a): launches {launched}, profiled {split}")
+    ms = sum(step_s) / len(step_s) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    state_bytes = 4 * (want_w + grads_elems + 2 * want_m)
+    log(f"phase 18 (a) {TRAIN_ARCH} on LocalMesh {MESH_TRAIN[0]} x {MESH_TRAIN[1]} (FSDP, "
+        f"ZeRO-1), B={TRAIN_BATCH} L={TRAIN_LEN}: {ms:.1f} ms a step over {len(step_s)} "
+        f"{[round(x * 1e3, 1) for x in step_s]}, {tokens / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak / 2 ** 30:.2f} GiB; a rank holds {want_w} weight, {grads_elems} gradient and "
+        f"{want_m} m / v elements ({state_bytes / 1e9:.3f} GB float32); losses {losses} vs "
+        f"phase 17 (a) within {max(errs):.3g}; profiled step {split}; setup {init_s:.1f}s")
+    # float32 at MESH_F32_LAYERS layers: meshed loss and gradients == one device's
+    cfg2 = dataclasses.replace(cfg, num_layers=MESH_F32_LAYERS)
+    single = build_model(cfg2, dtype=torch.float32, device=dev)
+    _, model2 = _mesh_model(cfg2, MESH_TRAIN, dev, fsdp=True, dtype=torch.float32)
+    w2 = single.init_fn(torch.Generator(device=dev).manual_seed(4))
+    toks = synthetic_batch(data, 0, dev)["tokens"][:MESH_F32_BATCH]
+    want_loss, want = _loss_and_grads(single, w2, {"tokens": toks})
+    want = {k: v.cpu() for k, v in want.items()}
+    w2.requires_grad_(False)
+    got_loss, got = mesh_grads(model2, w2, toks)
+    gn = lambda g: math.sqrt(sum(float(t.double().square().sum()) for t in g.values()))  # noqa
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    norm_err = abs(gn(got) - gn(want)) / gn(want)
+    errs32 = _leaf_errs(got, want)
+    worst = max(errs32, key=errs32.get)
+    if not (loss_err <= MESH_F32_LOSS_RTOL and norm_err <= MESH_F32_LOSS_RTOL
+            and errs32[worst] <= MESH_F32_GRAD_TOL):
+        raise AssertionError(f"phase 18 (a) float32: loss {loss_err}, norm {norm_err}, "
+                             f"{worst} {errs32[worst]}")
+    log(f"phase 18 (a) float32, {MESH_F32_LAYERS} layers, full width, B={MESH_F32_BATCH}: meshed "
+        f"loss and gradient norm == one device's within {max(loss_err, norm_err):.3g}, each gathered gradient "
+        f"within {errs32[worst]:.3g} of its largest entry ({worst})")
+    del w2, got, want
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, mesh=list(MESH_TRAIN), fsdp=True, zero1=True, batch=TRAIN_BATCH,
+                seq_len=TRAIN_LEN, ms_per_step=ms, step_ms_runs=[x * 1e3 for x in step_s],
+                tokens_per_s=tokens / ms * 1e3, peak_bytes=peak, losses=losses,
+                single_device_losses=single_losses[:nsteps], loss_rel_err_max=max(errs),
+                rank_elements={"weights": want_w, "gradients": grads_elems, "m": want_m,
+                               "v": want_m}, rank_state_bytes=state_bytes,
+                profiled_step=split, setup_seconds=init_s, launches=launched,
+                float32_check={"layers": MESH_F32_LAYERS, "batch": MESH_F32_BATCH,
+                               "loss_rel_err": loss_err,
+                               "grad_norm_rel_err": norm_err, "grad_leaf_err_worst": errs32[worst],
+                               "worst_leaf": worst})
+
+
+def mesh_serve(dev, refs):
+    """(b) granite-3-8b whole on LocalMesh 1 x 4 (tensor-parallel), phase 8's
+    bf16 weights and prompts (B = 4 x 4096): prefill (one warm, LM_TIMED
+    timed) and LM_DECODE greedy decode steps on the sequence-sharded bf16
+    cache.  Every prefill launches the bf16 flash kernel once a layer a rank
+    (on the rank's 8 q and 2 KV heads); one rank's launch == its plain
+    version under the flash gate, timed.  The bf16 decode step after phase
+    8's first token stays within LM_BF16_RATIO of the bf16 forward's
+    distance from phase 8's float32 forward; at MESH_SERVE_F32_LAYERS
+    layers, float32 over a float32 cache, the meshed decode step == a
+    single-device forward within LM_DECODE_TOL."""
+    import torch
+    from repro_torch.comm.spec import PartitionSpec as P
+    from repro_torch.comm.spec import gather_whole
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import forward
+
+    cfg = get_arch(LM_ARCH)
+    mesh, model = _mesh_model(cfg, MESH_SERVE, dev, cast_params=True)
+    gen = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    whole = [model.init_fn(gen.manual_seed(0))]  # phase 8's weights
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_LEN), generator=gen.manual_seed(1),
+                           device=dev)
+    first_tok = refs["first_tok"].to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    times = {"prefill": [], "decode": []}
+    per_prefill = []
+
+    def whole_logits(ctx, lg):
+        return gather_whole(lg, P("data", "model"), {"data": ctx.data, "model": ctx.model})
+
+    def rank(ctx):
+        p = model.shard_params(whole[0])
+        ctx.data.barrier()
+        ctx.model.barrier()
+        lead = _rank_index(ctx) == 0
+        if lead:
+            whole.clear()
+        n = sum(t.numel() for t in p.parameters())
+        nbytes = sum(t.numel() * t.element_size() for t in p.parameters())
+        for i in range(1 + LM_TIMED):
+            ctx.model.barrier()
+            if lead:
+                torch.cuda.synchronize(dev)
+                before, t = flash_attention.launches_wgmma, time.perf_counter()
+            lg, caches = model.prefill_fn(p, {"tokens": prompt})
+            ctx.model.barrier()
+            if lead:
+                torch.cuda.synchronize(dev)
+                per_prefill.append(flash_attention.launches_wgmma - before)
+                if i:
+                    times["prefill"].append(time.perf_counter() - t)
+            if i < LM_TIMED:
+                del lg, caches
+        prefill_logits = whole_logits(ctx, lg)
+        tok, steps = first_tok, []
+        ctx.model.barrier()
+        t = time.perf_counter()
+        for i in range(LM_DECODE):
+            lg, caches = model.decode_fn(p, {"tokens": tok, "pos": LM_LEN + i, "caches": caches})
+            full = whole_logits(ctx, lg)
+            if i == 0:
+                step0 = full.clone()
+            tok = full.argmax(-1, keepdim=True)
+            steps.append(bool(torch.isfinite(full).all()))
+        torch.cuda.synchronize(dev)
+        if lead:
+            times["decode"].append((time.perf_counter() - t) / LM_DECODE)
+        return n, nbytes, prefill_logits.cpu() if lead else None, step0.cpu() if lead else None, \
+            all(steps)
+
+    out = mesh_run(mesh, rank)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = read_launches()
+    n_rank, bytes_rank, prefill_logits, step0, finite = out[0]
+    want_n = _spec_elements(model)
+    if {o[0] for o in out} != {want_n}:
+        raise AssertionError(f"phase 18 (b): rank weight elements {[o[0] for o in out]}, the "
+                             f"specs give {want_n}")
+    if not (all(o[4] for o in out) and torch.isfinite(prefill_logits).all()
+            and prefill_logits.shape == (LM_BATCH, cfg.padded_vocab)):
+        raise AssertionError("phase 18 (b): logits not finite or of the wrong shape")
+    want_launches = cfg.num_layers * MESH_SERVE[1]
+    if per_prefill != [want_launches] * (1 + LM_TIMED) or launches["flash_attention_fp32"]:
+        raise AssertionError(f"phase 18 (b): bf16 flash launches per prefill {per_prefill}, "
+                             f"want {want_launches}; path launches {launches}")
+    v = cfg.vocab_size
+    fwd32 = refs["fwd32"]
+    dist = (step0[:, :v] - fwd32).abs().max().item()
+    ratio = dist / refs["dist"]["forward_vs_float32_forward"]
+    if not ratio <= LM_BF16_RATIO:
+        raise AssertionError(f"phase 18 (b): the meshed bf16 decode step 0 is {ratio:.3g}x as "
+                             f"far from phase 8's float32 forward as the bf16 forward is")
+    prefill_ms = min(times["prefill"]) * 1e3
+    decode_ms = times["decode"][0] * 1e3
+    torch.cuda.empty_cache()
+    # one rank's flash launch at its own shape, against its plain version
+    hq, hkv = cfg.num_heads // MESH_SERVE[1], cfg.num_kv_heads // MESH_SERVE[1]
+    q, k, vv = (torch.randn(s, generator=gen.manual_seed(6), device=dev).to(torch.bfloat16)
+                for s in ((LM_BATCH, hq, LM_LEN, 128), (LM_BATCH, hkv, LM_LEN, 128),
+                          (LM_BATCH, hkv, LM_LEN, 128)))
+    err = flash_check(q, k, vv, True, 0)
+    lib = sdpa(q, k, vv, True)
+    flash_row = dict(shape=f"B={LM_BATCH} Hq={hq} Hkv={hkv} L={LM_LEN} D=128 bfloat16 causal",
+                     err=err, ms=cuda_ms(lambda: flash_attention(q, k, vv, causal=True), reps=10),
+                     plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, vv, causal=True), 1),
+                     library_ms=cuda_ms(lib, reps=10), bound=flash_bound(q, k, True, 0))
+    del q, k, vv, lib
+    log(f"phase 18 (b) {LM_ARCH} on LocalMesh {MESH_SERVE[0]} x {MESH_SERVE[1]}: prefill "
+        f"B={LM_BATCH} L={LM_LEN} {[round(t * 1e3, 1) for t in times['prefill']]} ms "
+        f"({LM_BATCH * LM_LEN / min(times['prefill']):.0f} tokens/s); decode {decode_ms:.2f} "
+        f"ms/step over {LM_DECODE}; peak {peak / 2 ** 30:.2f} GiB; a rank holds {n_rank} weight "
+        f"elements ({bytes_rank / 1e9:.2f} GB); wgmma flash launches per prefill {per_prefill}; "
+        f"bf16 decode step 0 {ratio:.3g}x the bf16 forward's distance from float32 ({dist:.3g}); "
+        f"a rank's flash launch {flash_row['shape']}: {flash_row['ms']:.3f} ms (plain "
+        f"{flash_row['plain_ms']:.2f}, sdpa {flash_row['library_ms']:.3f}, bound "
+        f"{flash_row['bound'][0]:.4f}), max_abs_err {err:.3g}; {run_s:.1f}s")
+    # float32 at MESH_SERVE_F32_LAYERS layers over a float32 cache
+    reset_launches()
+    cfg4 = dataclasses.replace(cfg, num_layers=MESH_SERVE_F32_LAYERS)
+    single = build_model(cfg4, dtype=torch.float32, device=dev)
+    mesh4, model4 = _mesh_model(cfg4, MESH_SERVE, dev, dtype=torch.float32,
+                                cache_dtype=torch.float32)
+    w4 = single.init_fn(gen.manual_seed(2))
+
+    def rank32(ctx):
+        p = model4.shard_params(w4)
+        lg, caches = model4.prefill_fn(p, {"tokens": prompt})
+        tok = whole_logits(ctx, lg).argmax(-1, keepdim=True)
+        lg, _ = model4.decode_fn(p, {"tokens": tok, "pos": LM_LEN, "caches": caches})
+        return tok, whole_logits(ctx, lg)
+
+    tok, dec32 = mesh_run(mesh4, rank32)[0]
+    f32_launches = read_launches()
+    full, _ = forward(w4, cfg4, torch.cat([prompt, tok], 1), mode="train", dtype=torch.float32)
+    fwd = full[:, -1]
+    del full, w4
+    dec_err = (dec32[:, :v] - fwd[:, :v]).abs().max().item()
+    if not torch.allclose(dec32, fwd, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL):
+        raise AssertionError(f"phase 18 (b): float32 meshed decode vs forward at "
+                             f"{MESH_SERVE_F32_LAYERS} layers: max abs err {dec_err}")
+    if f32_launches["flash_attention_fp32"] != MESH_SERVE_F32_LAYERS * MESH_SERVE[1] or \
+            f32_launches["flash_attention"]:
+        raise AssertionError(f"phase 18 (b) float32 checks: launches {f32_launches}")
+    log(f"phase 18 (b) float32, {MESH_SERVE_F32_LAYERS} layers, float32 cache: meshed decode "
+        f"step == forward over {LM_LEN + 1} tokens within {LM_DECODE_TOL} (max abs err "
+        f"{dec_err:.3g}); float32 flash launches {f32_launches['flash_attention_fp32']}")
+    torch.cuda.empty_cache()
+    return dict(arch=LM_ARCH, mesh=list(MESH_SERVE), batch=LM_BATCH, prompt_len=LM_LEN,
+                decode_steps=LM_DECODE, prefill_ms=prefill_ms,
+                prefill_ms_runs=[t * 1e3 for t in times["prefill"]],
+                tokens_per_s=LM_BATCH * LM_LEN / min(times["prefill"]),
+                decode_ms_per_step=decode_ms, peak_bytes=peak, rank_weight_elements=n_rank,
+                rank_weight_bytes=bytes_rank, flash_launches_per_prefill=per_prefill[0],
+                bf16_decode_step0_distance=dist, bf16_over_forward_distance=ratio,
+                float32_check={"layers": MESH_SERVE_F32_LAYERS, "max_abs_err": dec_err},
+                rank_flash_launch=flash_row, seconds=run_s,
+                launches=launches, float32_check_launches=f32_launches)
+
+
+def mesh_moe(dev):
+    """(c) phi3.5-moe at full width cut to one layer on LocalMesh 2 x 2 (FSDP,
+    experts over the model axis), bf16, B = 4 x 2048, fused and pipelined
+    (``grouped_exchange``): each rank holds its specs' share of every expert
+    weight; every expert-layer call's aux finite and positive, finite
+    losses; ms a step (after the first) and peak bytes.  Then the six mesh
+    rows' reduced configs, float32, on 2 x 2: the loss and every gathered
+    gradient on the card == the meshed CPU run's within MESH_CARD_CPU_RTOL."""
+    import torch
+    from repro_torch.comm.spec import local_shape
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.factory import mesh_axes
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, make_train_step,
+                                   synthetic_batch)
+    from repro_torch.train.train_loop import rank_opt_state
+
+    name, layers, b, l, nsteps = MESH_MOE
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers)
+    data = DataConfig(cfg.vocab_size, b, l, seed=1)
+    auxes, real = [], transformer.moe_block_manual
+
+    def spy(*args, **kwargs):
+        out, aux = real(*args, **kwargs)
+        auxes.append(float(aux.detach()))
+        return out, aux
+
+    modes = {}
+    before = read_launches()
+    transformer.moe_block_manual = spy
+    try:
+        for mode, pipeline in (("fused", False), ("pipelined", True)):
+            mesh, model = _mesh_model(cfg, MESH_TRAIN, dev, fsdp=True, moe_pipeline=pipeline)
+            step, shardings = make_train_step(
+                model, TrainConfig(opt=AdamWConfig(total_steps=nsteps, **TRAIN_OPT)), mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            whole = [model.init_fn(torch.Generator(device=dev).manual_seed(17))]
+            sizes = mesh_axes(mesh, model.sharding)
+            times, shares = [], []
+
+            def rank(ctx):
+                p = model.shard_params(whole[0])
+                ctx.data.barrier()
+                ctx.model.barrier()
+                lead = _rank_index(ctx) == 0
+                if lead:
+                    whole.clear()
+                for k, t in p.named_parameters():
+                    if ".ffn." in k:
+                        full = dict(model.abstract_params().named_parameters())[k].shape
+                        if tuple(t.shape) != local_shape(full, shardings["params"][k], sizes):
+                            raise AssertionError(f"phase 18 (c): {k} {tuple(t.shape)}")
+                        if lead:
+                            shares.append((k, tuple(t.shape)))
+                o = rank_opt_state(model, p)
+                losses = []
+                for i in range(nsteps):
+                    t = time.perf_counter()
+                    p, o, m = step(p, o, synthetic_batch(data, i, dev))
+                    losses.append(float(m["loss"]))
+                    if lead:
+                        times.append(time.perf_counter() - t)
+                return losses
+
+            losses = mesh_run(mesh, rank)[0]
+            peak = torch.cuda.max_memory_allocated(dev)
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"phase 18 (c) {mode}: losses {losses}")
+            modes[mode] = dict(ms_per_step=sum(times[1:]) / len(times[1:]) * 1e3,
+                               step_ms_runs=[t * 1e3 for t in times], peak_bytes=peak,
+                               losses=losses, expert_shares=dict(shares))
+            del model, step
+            torch.cuda.empty_cache()
+    finally:
+        transformer.moe_block_manual = real
+    launched = {k: v - before[k] for k, v in read_launches().items()}
+    if not (auxes and all(math.isfinite(a) and a > 0 for a in auxes)) or any(launched.values()):
+        raise AssertionError(f"phase 18 (c): aux {auxes}, launches {launched}")
+    log(f"phase 18 (c) {name} (1 layer, full width) on LocalMesh {MESH_TRAIN[0]} x "
+        f"{MESH_TRAIN[1]}, FSDP, EP, B={b} L={l}: "
+        + "; ".join(f"{m} {r['ms_per_step']:.1f} ms a step "
+                    f"{[round(t, 1) for t in r['step_ms_runs']]}, peak "
+                    f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, losses {r['losses']}"
+                    for m, r in modes.items())
+        + f"; a rank's experts {modes['fused']['expert_shares']}; aux per call "
+        f"{[round(a, 4) for a in auxes]}")
+    # the six mesh rows, reduced, float32: card == CPU on the same mesh
+    rows = {}
+    b_rows, l_rows = MESH_ROWS_SHAPE
+    for i, row in enumerate(MESH_ROWS):
+        rcfg = get_arch(row).reduced()
+        w = build_model(rcfg, dtype=torch.float32, device="cpu").init_fn(
+            torch.Generator().manual_seed(i))
+        toks = synthetic_batch(DataConfig(rcfg.vocab_size, b_rows, l_rows, seed=i), 0,
+                               "cpu")["tokens"]
+        _, m_cpu = _mesh_model(rcfg, MESH_TRAIN, "cpu", fsdp=True, dtype=torch.float32)
+        want_loss, want = mesh_grads(m_cpu, w, toks)
+        _, m_card = _mesh_model(rcfg, MESH_TRAIN, dev, fsdp=True, dtype=torch.float32)
+        import copy
+
+        got_loss, got = mesh_grads(m_card, copy.deepcopy(w).to(dev), toks.to(dev))
+        errs = _leaf_errs(got, want)
+        worst = max(errs, key=errs.get)
+        loss_err = abs(got_loss - want_loss) / abs(want_loss)
+        rows[row] = dict(loss_rel_err=loss_err, grad_leaf_err_worst=errs[worst], worst_leaf=worst)
+        if not (loss_err <= MESH_CARD_CPU_RTOL and errs[worst] <= MESH_CARD_CPU_RTOL):
+            raise AssertionError(f"phase 18 (c) {row}: card vs CPU loss {loss_err}, {worst} "
+                                 f"{errs[worst]}")
+    log("phase 18 (c) the six mesh rows, reduced, float32 on 2 x 2: card == CPU (loss / worst "
+        "gradient leaf, relative): " + ", ".join(
+            f"{k} {v['loss_rel_err']:.2g}/{v['grad_leaf_err_worst']:.2g}" for k, v in rows.items()))
+    return dict(arch=name, layers=layers, batch=b, seq_len=l, steps=nsteps, modes=modes,
+                aux=auxes, launches=launched, card_vs_cpu=rows)
+
+
+_DIST_CHILD = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[2])
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.configs import ShardingConfig, get_arch
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import build_model
+from repro_torch.train import AdamWConfig, TrainConfig, train
+
+steps = int(sys.argv[3])
+if sys.argv[1] == "torchrun":
+    out = launch_train.main(["--arch", "smollm-360m", "--steps", str(steps), "--distributed"])
+else:
+    mesh = make_local_mesh(1, 1)
+    model = build_model(get_arch("smollm-360m").reduced(), ShardingConfig(batch_axes=("data",)),
+                        mesh)
+    out = train(model, TrainConfig(steps=steps, opt=AdamWConfig(total_steps=steps)), mesh)
+if out is not None:
+    weights = sum(float(p.double().sum()) for p in out["params"].parameters())
+    print("RESULT " + json.dumps([float(out["metrics"]["loss"]),
+                                  float(out["metrics"]["grad_norm"]), weights]))
+"""
+MESH_DIST_STEPS = 2  # (d)
+
+
+def mesh_distributed():
+    """(d) ``launch/train.py --distributed`` under torchrun at world size 1
+    (NCCL; smollm-360m reduced, MESH_DIST_STEPS steps) and the same training
+    on a 1 x 1 LocalMesh, each a fresh process with deterministic algorithms
+    on: the final loss, gradient norm and the weights' sum equal, bitwise."""
+    with tempfile.TemporaryDirectory(prefix=".smoke_tmp", dir=ROOT) as tmp:
+        script = Path(tmp) / "dist_child.py"
+        script.write_text(_DIST_CHILD)
+        src = str(ROOT / "src")
+        t0 = time.perf_counter()
+        procs = {
+            "torchrun": subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+                 "--master-addr", "localhost", "--master-port", str(_free_port()), str(script),
+                 "torchrun", src, str(MESH_DIST_STEPS)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp),
+            "local": subprocess.Popen([sys.executable, str(script), "local", src,
+                                       str(MESH_DIST_STEPS)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True, cwd=tmp)}
+        got = {}
+        for k, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            lines = [x for x in out.splitlines() if x.startswith("RESULT ")]
+            if proc.returncode or len(lines) != 1:
+                raise AssertionError(f"phase 18 (d) {k}: exit {proc.returncode}; {err[-2000:]}")
+            got[k] = json.loads(lines[0][7:])
+        secs = time.perf_counter() - t0
+    if got["torchrun"] != got["local"]:
+        raise AssertionError(f"phase 18 (d): torchrun {got['torchrun']} != LocalMesh 1 x 1 "
+                             f"{got['local']}")
+    log(f"phase 18 (d) --distributed under torchrun at world size 1 (NCCL), "
+        f"{MESH_DIST_STEPS} steps: (loss, gradient norm, sum of the weights) {got['torchrun']} "
+        f"== LocalMesh 1 x 1, bitwise ({secs:.1f}s, both processes)")
+    return dict(steps=MESH_DIST_STEPS, torchrun=got["torchrun"], local_mesh=got["local"],
+                bitwise=True, seconds=secs)
+
+
+def phase_mesh(dev, single_losses, lm_refs):
+    """Phase 18: the LM on a mesh, (a)-(d); the meshed prefill launches the
+    bf16 flash kernel on each rank's heads (path "lm_mesh"; its float32
+    checks "lm_mesh_float32_checks"), training none."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    out, part_s = {}, {}
+    for part, run in (("train", lambda: mesh_train(dev, single_losses)),
+                      ("serve", lambda: mesh_serve(dev, lm_refs)),
+                      ("moe", lambda: mesh_moe(dev)),
+                      ("distributed", mesh_distributed)):
+        t0 = time.perf_counter()
+        out[part] = run()
+        part_s[part] = time.perf_counter() - t0
+    out["part_seconds"] = part_s
+    out["seconds"] = dt = time.perf_counter() - t_start
+    log(f"phase 18 passed in {dt:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in part_s.items())})")
+    serve = out["serve"]
+    return (serve.pop("launches"), serve.pop("float32_check_launches"), serve["rank_flash_launch"],
+            out)
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the redesigned count-table kernels' designs, and where the times of the
@@ -4528,9 +5197,10 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, dist, compact, dryrun, train, card):
+                 sparse, dist, compact, dryrun, train, mesh, card):
     flash, flash32, flash256, flash256_32, sass, d256_launches = flash
     lm, lm_rows = lm
+    mesh_flash, mesh = mesh
     meta = {
         "spmm_edgetile": ("src/repro_torch/kernels/csrc/spmm_edgetile.cu",
                           "src/repro/kernels/spmm_edgetile.py:137"),
@@ -4632,7 +5302,11 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
                 "library_bf16_excess": flash["library_bf16_excess"],
                 "library_share_beyond_gate": flash["library_share_beyond_gate"],
                 "check": f"within one bf16 step of the plain version + {FLASH_BF16_ATOL}",
-                "cell": "lm"}),
+                "cell": "lm",
+                # phase 18 (b): a rank's launch of the meshed prefill (1 x 4)
+                "lm_mesh_rank_launch": {k: mesh_flash[k] for k in ("shape", "ms", "plain_ms",
+                                                                   "library_ms", "err")}
+                | {"bound_ms": mesh_flash["bound"][0], "bound_by": mesh_flash["bound"][1]}}),
             ("flash_attention_fp32", flash32, "flash_attention.cu", {
                 "design": "float32 FMAs on the CUDA cores",
                 "check": f"within {FLASH_F32_TOL} of the plain version",
@@ -4680,8 +5354,9 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             "dryrun": dryrun,
             "lm_path": {"arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_LEN,
                         "decode_steps": LM_DECODE}
-            | {k: v for k, v in lm.items() if k not in ("launches", "float32_check_launches")},
-            "lm_rows_path": lm_rows, "train_path": train}
+            | {k: v for k, v in lm.items()
+               if k not in ("launches", "float32_check_launches", "mesh_refs")},
+            "lm_rows_path": lm_rows, "train_path": train, "mesh_path": mesh}
 
 
 def run_phases(dev):
@@ -4727,15 +5402,20 @@ def run_phases(dev):
     torch.cuda.empty_cache()
     rows_served, rows_checks, d256_launches, lm_rows = phase_lm_rows(dev)
     train = phase_train(dev)
+    mesh_launches, mesh_checks, mesh_flash, mesh = phase_mesh(dev, train["smollm"]["losses"],
+                                                              lm.pop("mesh_refs"))
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
-    sparse_launches, sparse_rows, sparse = phase_sparse(dev)
+    sparse_graphs = {}
+    sparse_launches, sparse_rows, sparse = phase_sparse(dev, sparse_graphs)
     torch.cuda.empty_cache()
-    compact_launches, compact_rows, compact = phase_compact(dev, saturation, narrow_nccl)
+    compact_launches, compact_rows, compact = phase_compact(dev, saturation, narrow_nccl,
+                                                            sparse_graphs)
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},
                 "lm": lm["launches"], "lm_float32_checks": lm["float32_check_launches"],
                 "lm_rows": rows_served, "lm_rows_float32_checks": rows_checks,
+                "lm_mesh": mesh_launches, "lm_mesh_float32_checks": mesh_checks,
                 "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
                 "distributed": dist_launches, "distributed_compact": compact_launches,
                 "serve": serve_launches}
@@ -4749,7 +5429,7 @@ def run_phases(dev):
         rows, dense_rows, dags, sparse_rows, dist_rows, compact_rows, flash_rows))
     return (rows, dense_rows, launches, per, draw_ms, dense, (*flash_rows, sass, d256_launches),
             (lm, lm_rows), order, wide, dags, (sparse_rows, sparse), (dist_rows, dist),
-            (compact_rows, compact), dryrun, train)
+            (compact_rows, compact), dryrun, train, (mesh_flash, mesh))
 
 
 def main() -> int:

@@ -43,6 +43,7 @@ Every rank of a group must call the same collectives in the same order
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -59,6 +60,7 @@ __all__ = [
     "ProcessMesh",
     "RankContext",
     "MeshAborted",
+    "current_rank",
 ]
 
 #: seconds a LocalMesh rank waits at a slot or barrier before the mesh fails
@@ -161,6 +163,16 @@ class _Hub:
 
     def take(self, key: tuple):
         mesh = self.mesh
+        if mesh.turns:
+            with mesh._lock:
+                if key in self.box:
+                    return self.box.pop(key)
+            with mesh._yielded():  # a rank waiting for a peer lets the others run
+                return self._wait(key)
+        return self._wait(key)
+
+    def _wait(self, key: tuple):
+        mesh = self.mesh
         with mesh._lock:
             self.ready[key[1]].wait_for(lambda: key in self.box or mesh._failed is not None,
                                         timeout=mesh.timeout)
@@ -235,12 +247,41 @@ class LocalGroup(Group):
 
 @dataclasses.dataclass(frozen=True)
 class RankContext:
-    """What a rank function sees: its data-axis group (the graph shards),
-    its iteration-axis group (independent colorings) and its device."""
+    """What a rank function sees: its data-axis group (the graph shards;
+    the LM's batch and FSDP axis), its iteration-axis group (independent
+    colorings; the LM's model axis, :attr:`model`) and its device."""
 
     data: Group
     iters: Group
     device: torch.device
+
+    @property
+    def model(self) -> Group:
+        """The LM's tensor- and expert-parallel axis: the iteration axis, as
+        the reference's ``make_local_mesh(data, model)`` names it."""
+        return self.iters
+
+
+_CURRENT = threading.local()
+
+
+def current_rank() -> RankContext:
+    """The :class:`RankContext` of the rank function running on this thread
+    (inside ``LocalMesh.run`` / ``ProcessMesh.run``); raises outside one."""
+    ctx = getattr(_CURRENT, "ctx", None)
+    if ctx is None:
+        raise RuntimeError("not inside a mesh's rank function (call it from mesh.run)")
+    return ctx
+
+
+def _run_as(ctx: RankContext, fn: Callable[[RankContext], Any]):
+    """``fn(ctx)`` with ``ctx`` as this thread's :func:`current_rank`."""
+    before = getattr(_CURRENT, "ctx", None)
+    _CURRENT.ctx = ctx
+    try:
+        return fn(ctx)
+    finally:
+        _CURRENT.ctx = before
 
 
 class LocalMesh:
@@ -252,10 +293,16 @@ class LocalMesh:
     every rank and returns their results in rank order (``i`` major).  Any
     rank's exception aborts the others' waits and is re-raised here; a wait
     longer than ``timeout`` seconds fails the mesh the same way.
+
+    With ``turns`` one rank at a time runs host code: a rank holds the
+    mesh's turn until it waits for a peer.  Every torch op releases and
+    retakes the interpreter lock, so ranks that all launch many small ops
+    otherwise hand the lock over at each op; taking turns hands it over at
+    each wait.  The device work is the same (one stream either way).
     """
 
     def __init__(self, data: int = 1, iters: int = 1, *, device=None,
-                 timeout: float = DEFAULT_TIMEOUT_S):
+                 timeout: float = DEFAULT_TIMEOUT_S, turns: bool = False):
         from ..device import resolve_device
 
         if data < 1 or iters < 1:
@@ -264,7 +311,10 @@ class LocalMesh:
         self.iter_size = int(iters)
         self.device = resolve_device(device)
         self.timeout = float(timeout)
+        self.turns = bool(turns)
         self._lock = threading.RLock()
+        self._turn = threading.Lock()
+        self._holding = threading.local()
         self._conds: List[threading.Condition] = []
         self._failed: Optional[BaseException] = None
 
@@ -282,6 +332,34 @@ class LocalMesh:
             for cond in self._conds:
                 cond.notify_all()
 
+    @contextlib.contextmanager
+    def _turn_held(self):
+        """With ``turns``, hold the mesh's one turn to run host code."""
+        if not self.turns:
+            yield
+            return
+        self._turn.acquire()
+        self._holding.on = True
+        try:
+            yield
+        finally:
+            self._holding.on = False
+            self._turn.release()
+
+    @contextlib.contextmanager
+    def _yielded(self):
+        """Give the turn up while this rank waits for a peer; take it back."""
+        if not getattr(self._holding, "on", False):
+            yield
+            return
+        self._holding.on = False
+        self._turn.release()
+        try:
+            yield
+        finally:
+            self._turn.acquire()
+            self._holding.on = True
+
     def _group(self, hub: Optional[_Hub], rank: int) -> Group:
         return SoloGroup() if hub is None else LocalGroup(hub, rank)
 
@@ -298,7 +376,8 @@ class LocalMesh:
             ctx = RankContext(self._group(data_hubs[i], p), self._group(iter_hubs[p], i),
                               self.device)
             try:
-                results[i * P + p] = fn(ctx)
+                with self._turn_held():
+                    results[i * P + p] = _run_as(ctx, fn)
             except BaseException as e:  # every failure fails the mesh
                 self._fail(e)
 
@@ -415,7 +494,7 @@ class ProcessMesh:
                 f"rank=({self.iters.rank}, {self.data.rank}), device={self.device})")
 
     def run(self, fn: Callable[[RankContext], Any]) -> List[Any]:
-        return [fn(RankContext(self.data, self.iters, self.device))]
+        return [_run_as(RankContext(self.data, self.iters, self.device), fn)]
 
 
 Mesh = Union[LocalMesh, ProcessMesh]

@@ -4,14 +4,15 @@
 
 Every architecture is a frozen :class:`ArchConfig`; ``reduced()`` derives
 the CPU test configuration (same family and topology, tiny widths).
-``ShardingConfig`` holds the reference's ``remat`` and ``attn_chunk``; its
-mesh fields wait for the sharding specs (ROADMAP queue 1 item 17).
+``ShardingConfig`` holds every field of the reference's; sequence
+parallelism (``seq_axis``, ``sp_dim``) and ``attn_anchor`` wait for
+ROADMAP queue 1 item 17.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 __all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "ShardingConfig"]
 
@@ -143,13 +144,33 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
-    """How a model runs: the two fields of the reference's ``ShardingConfig``
-    that apply on one device.  Its mesh fields (batch and model axes, FSDP,
-    ZeRO-1, the sequence axis, the MoE pipeline, gradient compression, the
-    head anchors) come with the sharding specs (ROADMAP queue 1 item 17)."""
+    """How a model maps onto the mesh: the reference's fields and defaults.
 
+    On one device only ``remat`` and ``attn_chunk`` apply.  On a ``data x
+    model`` mesh the port reads ``batch_axes`` (the data-parallel axes; the
+    subset the mesh has), ``model_axis`` (tensor and expert parallelism),
+    ``fsdp`` (ZeRO-3: weights sharded over ``data`` and gathered where
+    used), ``zero1`` (AdamW's ``m`` and ``v`` sharded over ``data``) and
+    ``moe_pipeline`` (the experts' exchange as ``grouped_exchange``).
+    ``seq_axis`` (with ``sp_dim``, read only with it) and ``attn_anchor``
+    wait for ROADMAP queue 1 item 17: a mesh run with either set raises.
+    ``grad_compression`` is a field the reference's train step never reads,
+    and the port's does not read it either (the int8 ring is a library
+    function, ``comm.compress``)."""
+
+    batch_axes: Tuple[str, ...] = ("pod", "data")  # DP axes (present subset used)
+    model_axis: str = "model"  # TP / EP axis
+    fsdp: bool = False  # shard weights over the data axis (ZeRO-3)
+    zero1: bool = True  # shard optimizer state over the data axis
+    seq_axis: Optional[str] = None  # sequence parallelism axis (long prefill)
     remat: str = "full"  # full | dots | none
+    moe_pipeline: bool = False  # pipelined (grouped) MoE all-to-all
+    grad_compression: Optional[str] = None  # None | 'int8'
+    attn_anchor: bool = False  # explicit head sharding anchors
     attn_chunk: int = 1024  # chunked-attention tile (q and kv)
+    #: which activation dim shards over ``seq_axis``: 1 = sequence
+    #: (Megatron SP), 2 = channels (natural for per-channel recurrent archs)
+    sp_dim: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,8 +41,11 @@ The reference's production mesh lays 16 shards on its data axis.  Its
 asserts the data axis equals the shard count); here their 8 shards take the
 data axis and the rest of the chips the iteration axis.  The LM half of the
 reference's dry-run (``run_cell``: ``train_step``, prefill and decode under
-sharding specs) waits for the sharding specs, ROADMAP item 17 (training,
-item 16, is ported).
+sharding specs) waits for ROADMAP queue 1 item 17: its train cells set
+``seq_axis="model"`` and lower all ten rows, and the port's mesh runs
+neither sequence parallelism nor the four rows whose pattern is not
+``("attn",)`` yet (the specs of all ten rows, and the rank program of the
+six others, are ported).
 
 Usage::
 
@@ -323,8 +326,8 @@ def main(argv=None) -> int:
         return 0 if rec["status"] == "ok" else 1
     if args.all or args.arch:
         raise NotImplementedError(
-            "the LM dry-run (--arch, --all) lowers train_step, prefill and decode under "
-            "sharding specs: ROADMAP queue 1 item 17 (sharding specs)")
+            "the LM dry-run (--arch, --all) lowers every row's train_step, prefill and "
+            "decode with sequence parallelism: ROADMAP queue 1 item 17")
     ap.error("give --counting ROW")
     return 2
 

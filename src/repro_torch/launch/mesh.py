@@ -29,11 +29,14 @@ from ..comm.group import LocalMesh, ProcessGroupComm, ProcessMesh, SoloGroup
 __all__ = ["make_local_mesh", "process_mesh", "init_process_group", "make_production_mesh"]
 
 
-def make_local_mesh(data: int = 1, model: int = 1, *, device=None, timeout: Optional[float] = None):
-    """``data`` graph shards by ``model`` iteration slices, one thread a rank,
-    all on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+def make_local_mesh(data: int = 1, model: int = 1, *, device=None,
+                    timeout: Optional[float] = None, turns: bool = False):
+    """``data`` graph shards by ``model`` iteration slices (the LM's data and
+    model axes), one thread a rank, all on ``device`` (``cuda`` unless the
+    caller asks for the CPU); ``turns``: one rank runs host code at a time
+    (``LocalMesh``; the LM's many small ops run faster so)."""
     kw = {} if timeout is None else {"timeout": timeout}
-    return LocalMesh(data, model, device=device, **kw)
+    return LocalMesh(data, model, device=device, turns=turns, **kw)
 
 
 def init_process_group(device=None) -> torch.device:

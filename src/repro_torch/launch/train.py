@@ -3,15 +3,25 @@
 Trains the reduced config of an architecture row (``--full``: the published
 one) with the fault-tolerant loop (``train.train``: checkpoint and resume,
 the SIGTERM hook), on ``cuda`` unless ``--device cpu``, with the flags of
-``repro.launch.train``.  The mesh flags (``--production-mesh``,
-``--multi-pod``, ``--data``/``--model`` above 1, ``--distributed``) wait for
-the sharding specs (ROADMAP queue 1 item 17) and exit with that error.
+``repro.launch.train``.  ``--data D --model M`` runs ``D x M`` ranks as
+threads on one device taking turns at host code
+(``launch.mesh.make_local_mesh(..., turns=True)``) with
+``ShardingConfig(batch_axes=("data",))``, as the reference does;
+``--distributed`` joins the ``torchrun`` job this process was started in
+(``launch.mesh.init_process_group``), one rank a process, laid out ``--data
+x --model`` (``process_mesh``).  ``--production-mesh`` and ``--multi-pod``
+need sequence parallelism and 256 ranks: they wait for ROADMAP queue 1
+item 17 and exit with that error.
 
 Run::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 3 \\
         --device cpu --ckpt-dir /tmp/ck --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --steps 3 \\
+        --data 2 --model 2 [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch smollm-360m --steps 3 --data 2 --model 2 --distributed --device cpu
 """
 
 from __future__ import annotations
@@ -20,8 +30,10 @@ import argparse
 from typing import Optional, Sequence
 
 from ..configs import get_arch
+from ..configs.base import ShardingConfig
 from ..models import build_model
 from ..train import AdamWConfig, TrainConfig, train
+from .mesh import init_process_group, make_local_mesh, process_mesh
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -40,24 +52,35 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    meshed = [f for f, on in (("--production-mesh", args.production_mesh),
-                              ("--multi-pod", args.multi_pod),
-                              ("--data/--model > 1", args.data * args.model > 1),
-                              ("--distributed", args.distributed)) if on]
-    if meshed:
-        raise NotImplementedError(f"{', '.join(meshed)}: training on a mesh waits for the "
-                                  f"sharding specs (ROADMAP queue 1 item 17)")
+    waits = [f for f, on in (("--production-mesh", args.production_mesh),
+                             ("--multi-pod", args.multi_pod)) if on]
+    if waits:
+        raise NotImplementedError(f"{', '.join(waits)}: the production mesh needs sequence "
+                                  f"parallelism and 256 ranks (ROADMAP queue 1 item 17)")
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    model = build_model(cfg, device=args.device)
+    meshed = args.distributed or args.data * args.model > 1
+    if meshed and tuple(cfg.block_pattern) != ("attn",):
+        raise NotImplementedError(f"{cfg.name} on a mesh waits for ROADMAP queue 1 item 17")
+    if args.distributed:
+        dev = init_process_group(args.device)
+        mesh = process_mesh(data=args.data, iters=args.model, device=dev)
+    elif meshed:
+        mesh = make_local_mesh(args.data, args.model, device=args.device, turns=True)
+    else:
+        mesh = None
+    if mesh is None:
+        model = build_model(cfg, device=args.device)
+    else:
+        model = build_model(cfg, ShardingConfig(batch_axes=("data",)), mesh)
     tcfg = TrainConfig(
         steps=args.steps,
         microbatches=args.microbatches,
         opt=AdamWConfig(total_steps=args.steps),
         checkpoint_dir=args.ckpt_dir,
     )
-    return train(model, tcfg)
+    return train(model, tcfg, mesh)
 
 
 if __name__ == "__main__":

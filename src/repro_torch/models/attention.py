@@ -12,6 +12,22 @@ backward.  Cross-attention goes through
 :func:`chunked_attention`, plain torch, as the reference's is XLA (it never
 routes cross-attention through Pallas).  Decode is plain torch over the
 cache, as it is XLA code in the reference.
+
+On a ``data x model`` mesh, :func:`attention_block_tp` is one rank's
+block: ``wq``, ``wk``, ``wv`` column-parallel, ``wo`` row-parallel.  The
+specs split output columns, not heads, so a rank's columns may cut a head
+(smollm-360m at ``model = 2``: 7.5 of 15 heads).  Where the heads and the
+KV heads both divide the model axis, each rank attends on its own heads
+with their whole GQA groups (the flash kernel on the rank's heads, when
+serving); otherwise every rank all-gathers q, k and v, attends on all
+heads and keeps its own output columns for ``wo``.  The gather is the
+simpler of the two reshards the cut allows (an all-to-all to whole heads
+is the other): it costs ``model`` times the attention's compute, and its
+gradient is a reduce-scatter.  The KV cache is sharded over the sequence
+(``cache_pspecs``): ``k``, ``v`` ``[B, Hkv, ceil(S/model), hd]`` a rank,
+the last blocks padded and masked where ``S`` does not divide the axis,
+and ``slot_pos`` whole on every rank.  Decode combines each rank's partial
+softmax over its slots (the flash-decoding combine).
 """
 
 from __future__ import annotations
@@ -22,14 +38,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..comm import all_gather_cat
 from ..kernels import ops
 from ..kernels.ref import NEG
-from .layers import Dense, Initializer, dense_apply, dense_init, rope
+from .layers import Dense, Initializer, MeshShard, dense_apply, dense_init, rope
 
 __all__ = [
     "Attention",
     "attn_init",
     "attention_block",
+    "attention_block_tp",
+    "init_kv_cache_tp",
     "chunked_attention",
     "decode_attention",
     "init_kv_cache",
@@ -261,3 +280,179 @@ def attention_block(
 
     out = out.transpose(1, 2).reshape(b, l, h * hd)
     return out @ p.wo.w.to(dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# one rank of a data x model mesh
+# ---------------------------------------------------------------------------
+
+
+def _whole_heads(cfg, pm: int) -> bool:
+    """Whether each of ``pm`` model ranks' columns are whole heads with their
+    whole KV groups."""
+    return cfg.num_heads % pm == 0 and cfg.num_kv_heads % pm == 0
+
+
+def _slot_block(s_buf: int, pm: int) -> int:
+    """Slots of the sequence-sharded cache a rank holds: ``ceil(S / pm)``."""
+    return -(-s_buf // pm)
+
+
+def init_kv_cache_tp(batch: int, kv_heads: int, s_buf: int, head_dim: int, pm: int, *,
+                     device: torch.device, dtype: torch.dtype = CACHE_DTYPE) -> dict:
+    """One rank's empty cache of ``s_buf`` slots sharded over ``pm`` model
+    ranks: ``k``, ``v`` ``[batch, kv_heads, ceil(s_buf / pm), head_dim]``,
+    ``slot_pos`` ``[s_buf]`` whole (-1 where empty)."""
+    return {
+        "k": torch.zeros((batch, kv_heads, _slot_block(s_buf, pm), head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, kv_heads, _slot_block(s_buf, pm), head_dim), dtype=dtype,
+                         device=device),
+        "slot_pos": torch.full((s_buf,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _own_slot_pos(slot_pos: torch.Tensor, m: int, blk: int) -> torch.Tensor:
+    """Rank ``m``'s block of ``slot_pos``, padded with -1 (never attended)."""
+    own = slot_pos[m * blk : (m + 1) * blk]
+    if own.shape[0] < blk:
+        own = torch.cat([own, own.new_full((blk - own.shape[0],), -1)])
+    return own
+
+
+def _decode_partial(q, k_cache, v_cache, slot_pos, pos: int, window: int):
+    """One query token over this rank's slots, float32: ``(max [B, H, 1],
+    sum [B, H, 1], unnormalised output [B, H, D])`` of the online softmax."""
+    b, h, _, d = q.shape
+    hkv = k_cache.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, d).float() * (d ** -0.5)
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float())
+    mask = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        mask &= slot_pos > pos - window
+    logits = torch.where(mask, logits, NEG)
+    mx = logits.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - mx), 0.0)
+    acc = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    return (mx.reshape(b, h, 1), p.sum(-1).reshape(b, h, 1), acc.reshape(b, h, d))
+
+
+def _decode_tp(rs: MeshShard, q, k, v, cache: dict, pos: int, window: int) -> torch.Tensor:
+    """Decode on the sequence-sharded cache: the rank owning slot ``pos %
+    S`` writes the token's key and value (all heads), every rank attends
+    over its own slots for every head, and the partial softmaxes are
+    combined across the model axis.  Returns ``[B, H, 1, D]``."""
+    pm, m = rs.model.size, rs.model.rank
+    s_buf = cache["slot_pos"].shape[0]
+    blk = cache["k"].shape[2]
+    slot = pos % s_buf
+    if slot // blk == m:
+        cache["k"][:, :, slot - m * blk : slot - m * blk + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, :, slot - m * blk : slot - m * blk + 1] = v.to(cache["v"].dtype)
+    cache["slot_pos"][slot] = pos
+    mx, sm, acc = _decode_partial(q, cache["k"], cache["v"], _own_slot_pos(cache["slot_pos"],
+                                                                           m, blk), pos, window)
+    if pm > 1:  # one gather of every rank's (max, sum, output)
+        got = rs.model.all_gather(torch.cat([mx, sm, acc], -1))
+        mxs, sms, accs = got[..., :1], got[..., 1:2], got[..., 2:]
+        top = mxs.amax(0)
+        wts = torch.exp(mxs - top)
+        sm = (wts * sms).sum(0)
+        acc = (wts * accs).sum(0)
+    sm = torch.where(sm == 0.0, 1.0, sm)
+    return (acc / sm)[:, :, None].to(q.dtype)
+
+
+def _cache_tp(rs: MeshShard, k, v, whole: bool, l: int, s_buf: int, dtype) -> dict:
+    """This rank's block of the prefill cache.  ``k``, ``v`` are roped keys
+    and values ``[B, h, L, D]``: the rank's own KV heads when ``whole``
+    heads split over the model axis (an all-to-all then turns own heads on
+    every slot into every head on own slots), else every head (each rank
+    keeps its own slots)."""
+    pm, m = rs.model.size, rs.model.rank
+    b, h, _, d = k.shape
+    blk = _slot_block(s_buf, pm)
+    keep = min(l, s_buf)
+    abs_pos = torch.arange(l - keep, l, device=k.device)
+    slots = abs_pos % s_buf
+    slot_pos = torch.full((s_buf,), -1, dtype=torch.int32, device=k.device)
+    slot_pos[slots] = abs_pos.to(torch.int32)
+    out = {"slot_pos": slot_pos}
+    for name, x in (("k", k), ("v", v)):
+        buf = torch.zeros((b, h, blk * pm, d), dtype=dtype, device=k.device)
+        buf[:, :, slots] = x[:, :, l - keep :].to(dtype)
+        if whole and pm > 1:
+            chunks = buf.reshape(b, h, pm, blk, d).permute(2, 0, 1, 3, 4)
+            got = rs.model.all_to_all(chunks.contiguous())  # [src, B, h, blk, D]
+            out[name] = got.permute(1, 0, 2, 3, 4).reshape(b, h * pm, blk, d)
+        else:
+            out[name] = buf[:, :, m * blk : (m + 1) * blk].clone()
+    return out
+
+
+def attention_block_tp(
+    p: Attention,
+    x: torch.Tensor,  # [B, L, D_model], replicated over the model axis
+    cfg,
+    rs: MeshShard,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    cache: Optional[dict] = None,
+    pos: Optional[int] = None,
+    dtype=torch.bfloat16,
+    build_cache_len: Optional[int] = None,
+    cache_dtype: torch.dtype = CACHE_DTYPE,
+    attn_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """:func:`attention_block`'s self-attention as one rank of the mesh
+    (see the module docstring): ``p`` holds the rank's weights, the output
+    ``[B, L, D_model]`` is replicated over the model axis.  With ``cache``
+    (decode) the rank's cache block is updated in place; with
+    ``build_cache_len`` (prefill) the rank's block is built."""
+    hd = cfg.resolved_head_dim
+    pm, m = rs.model.size, rs.model.rank
+    b, l, _ = x.shape
+    xe = rs.enter(x)
+    q, k, v = (rs.column(w, xe, dtype) for w in (p.wq, p.wk, p.wv))
+    whole = _whole_heads(cfg, pm)
+    if whole:
+        h, kv = cfg.num_heads // pm, cfg.num_kv_heads // pm
+    else:  # every rank's columns of q, k and v, in one gather
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        cols = [t.shape[-1] for t in (q, k, v)]
+        qkv = torch.cat([q, k, v], -1)
+        qkv = (all_gather_cat(qkv, rs.model, -1) if cache is None
+               else torch.cat(list(rs.model.all_gather(qkv).unbind(0)), -1))
+        qkv = qkv.reshape(b, l, pm, sum(cols))
+        q, k, v = (t.flatten(-2) for t in qkv.split(cols, -1))
+    q, k, v = (t.reshape(b, l, n, hd).transpose(1, 2) for t, n in ((q, h), (k, kv), (v, kv)))
+    positions = (torch.arange(l, device=x.device) if cache is None
+                 else torch.full((l,), pos, device=x.device))
+    q = rope(q, positions, cfg.rope_theta, rs.rot)
+    k = rope(k, positions, cfg.rope_theta, rs.rot)
+
+    new_cache = None
+    if cache is not None:
+        if whole and pm > 1:  # every rank attends every head over its own slots
+            got = rs.model.all_gather(torch.cat([q, k, v], 1))  # [pm, B, h + 2 kv, 1, D]
+            q, k, v = (t.transpose(0, 1).flatten(1, 2) for t in got.split([h, kv, kv], 2))
+            h = cfg.num_heads
+        out = _decode_tp(rs, q, k, v, cache, pos, window)
+        new_cache = cache
+        cols = cfg.num_heads * hd // pm
+        out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * hd)[..., m * cols : (m + 1) * cols]
+        return rs.row(p.wo.w, out, dtype), new_cache
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = chunked_attention(q, k, v, causal=causal, window=window, q_chunk=attn_chunk,
+                                kv_chunk=attn_chunk)
+    else:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window)
+    if build_cache_len is not None:
+        new_cache = _cache_tp(rs, k, v, whole, l, build_cache_len, cache_dtype)
+    out = out.transpose(1, 2).reshape(b, l, h * hd)
+    if not whole:
+        cols = h * hd // pm
+        out = out[..., m * cols : (m + 1) * cols]
+    return rs.row(p.wo.w, out, dtype), new_cache

@@ -22,22 +22,54 @@ train-mode forward under autograd, self-attention through
 flash kernel has no backward; without a gradient to take, as under
 ``torch.no_grad``, it goes through the flash kernel as serving does) and
 ``ShardingConfig.remat``; gradients come from ``torch.autograd`` on the
-weights made trainable (``params.requires_grad_()``).  The sharding specs (``param_pspecs``,
-``cache_pspecs``, ``input_specs``) wait for ROADMAP queue 1 item 17.
+weights made trainable (``params.requires_grad_()``).
+
+The sharding specs are the reference's rules (DESIGN.md §7) keyed by the
+port's weight names: :func:`param_pspecs` (TP over ``model`` on heads, FFN
+hidden and vocab; FSDP over ``data``; experts over ``model``),
+:func:`cache_pspecs` (KV caches batch over the data axes, sequence over
+``model``) and ``Model.input_specs`` (``meta`` tensors in place of
+``ShapeDtypeStruct``).  The port keeps one module per layer where the
+reference stacks each pattern position over depth, so a port spec is the
+reference's spec of the same leaf without the stacked dimension.  They are
+pure functions of shapes, for all ten rows (``init_params`` runs on
+``meta``).
+
+``build_model(cfg, sharding, mesh)`` on a ``data x model`` mesh
+(``launch.mesh.make_local_mesh``, ``process_mesh``) gives callables that
+run one rank's program when called inside the mesh's rank function
+(``mesh.run``): the rank's weights (``Model.shard_params``), its rows of
+the batch and its blocks of the caches, with explicit collectives over the
+rank's groups (:class:`~.layers.MeshShard`).  ``loss_fn`` returns the
+global loss on every rank, its gradient the rank's share (on CUDA run
+its backward under ``torch.autograd.set_multithreading_enabled(False)``,
+as ``make_train_step`` does: autograd's one device thread would otherwise
+block in one rank's collective); ``prefill_fn`` and ``decode_fn`` return
+the rank's block of vocab columns of the last position's logits
+``[B_loc, V_pad / model]``.  Rows whose pattern is
+``("attn",)`` run on a mesh; the four others, sequence parallelism
+(``seq_axis``) and ``attn_anchor`` wait for ROADMAP queue 1 item 17.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ArchConfig, ShardingConfig
+from ..comm import current_rank, reduce_from
+from ..comm.group import LocalMesh, ProcessMesh
+from ..comm.spec import PartitionSpec as P
+from ..comm.spec import gather_whole, shard_of
+from ..configs.base import ArchConfig, ShapeSpec, ShardingConfig
 from ..device import resolve_device
 from .attention import CACHE_DTYPE
+from .layers import MeshShard, weight
 from .transformer import (
+    Transformer,
     _check_supported,
     cache_buffer_len,
     check_weights,
@@ -46,7 +78,8 @@ from .transformer import (
     init_params,
 )
 
-__all__ = ["Model", "build_model", "chunked_ce_loss", "context_len"]
+__all__ = ["Model", "build_model", "chunked_ce_loss", "context_len", "param_pspecs",
+           "cache_pspecs", "mesh_axes", "rank_axes"]
 
 #: tokens per chunk of :func:`chunked_ce_loss`
 CE_CHUNK = 512
@@ -63,8 +96,28 @@ def _ce_chunk(hc: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return (lse - gold).sum()
 
 
+def _ce_chunk_tp(hc: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                 pad: Optional[torch.Tensor], rs: MeshShard) -> torch.Tensor:
+    """:func:`_ce_chunk` on this rank's block of vocab columns: the max by
+    an all-gather (no gradient: it cancels), the sum of exponentials and
+    the gold logit (from its owning rank) summed over the model axis."""
+    logits = hc.float() @ head.float()
+    if pad is not None:
+        logits = logits + pad
+    mx = logits.detach().amax(-1)
+    if rs.model.size > 1:
+        mx = rs.model.all_gather(mx).amax(0)
+    lse = mx + torch.log(reduce_from(torch.exp(logits - mx[..., None]).sum(-1), rs.model))
+    cols = head.shape[1]
+    local = labels.long() - rs.model.rank * cols
+    mine = (local >= 0) & (local < cols)
+    gold = torch.where(mine, logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0], 0.0)
+    return (lse - reduce_from(gold, rs.model)).sum()
+
+
 def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
-                    chunk: int = CE_CHUNK, vocab_size: int = 0) -> torch.Tensor:
+                    chunk: int = CE_CHUNK, vocab_size: int = 0,
+                    rs: Optional[MeshShard] = None) -> torch.Tensor:
     """Mean cross-entropy of ``h`` ``[B, S, D]`` (the final hidden state)
     through ``head`` ``[D, V_pad]`` against ``labels`` ``[B, S]``, with the
     ``[B, chunk, V_pad]`` float32 logits made one chunk of positions at a
@@ -76,19 +129,30 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *
     until it divides ``S`` (at ``S = 2047``, a train step's ``S - 1``, that
     is 1: 2047 one-token chunks); here the last chunk is ragged instead.
     That is the same sum in another order.
+
+    With ``rs`` (one rank of a mesh) ``h`` is the rank's rows, replicated
+    over the model axis, and ``head`` its block of vocab columns: the
+    logits are vocab-parallel and the result is the rank's share of the
+    global mean, its sum over the data axis divided by the global count.
     """
     b, s, _ = h.shape
-    v_pad = head.shape[1]
+    v_pad, lo, count = head.shape[1], 0, b * s
+    if rs is not None:
+        h, lo, count = rs.enter(h), rs.model.rank * v_pad, count * rs.data.size
     pad = None
-    if vocab_size and v_pad != vocab_size:
-        pad = torch.where(torch.arange(v_pad, device=h.device) < vocab_size, 0.0, -1e30)
+    if vocab_size and lo + v_pad > vocab_size:
+        pad = torch.where(torch.arange(lo, lo + v_pad, device=h.device) < vocab_size, 0.0,
+                          -1e30)
     grad = torch.is_grad_enabled() and (h.requires_grad or head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         args = (h[:, c0 : c0 + chunk], head, labels[:, c0 : c0 + chunk], pad)
-        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False) if grad
-                         else _ce_chunk(*args))
-    return total / (b * s)
+        if rs is not None:
+            fn, args = _ce_chunk_tp, args + (rs,)
+        else:
+            fn = _ce_chunk
+        total = total + (checkpoint(fn, *args, use_reentrant=False) if grad else fn(*args))
+    return total / count
 
 
 def context_len(cfg: ArchConfig) -> Tuple[int, bool]:
@@ -99,6 +163,128 @@ def context_len(cfg: ArchConfig) -> Tuple[int, bool]:
     if cfg.family == "audio":
         return cfg.encoder_context, True
     return 0, False
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+def _named_shapes(tree) -> List[Tuple[str, Any]]:
+    """``(name, leaf)`` of a :class:`Transformer` (its ``named_parameters``)
+    or of a mapping of names to tensors (or anything with a ``shape``)."""
+    if isinstance(tree, nn.Module):
+        return list(tree.named_parameters())
+    return list(tree.items())
+
+
+def param_pspecs(params, cfg: ArchConfig, sh: ShardingConfig) -> Dict[str, P]:
+    """``{weight name: PartitionSpec}`` for the port's weights (a
+    :class:`Transformer`, on ``meta`` too, or a name -> tensor mapping): the
+    reference's rules (``repro/models/factory.py:param_pspecs``) on the
+    weight's path, ``blocks.3.attn.wq.w`` read as ``blocks/3/attn/wq/w``."""
+    mdl = sh.model_axis
+    fsdp = "data" if sh.fsdp else None
+
+    def rule(path: str, ndim: int) -> P:
+        def pad(spec):
+            return P(*([None] * (ndim - len(spec)) + list(spec)))
+
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "embed":
+            return pad([mdl, fsdp])
+        if leaf == "lm_head":
+            return pad([fsdp, mdl])
+        if leaf == "router":
+            return pad([fsdp, None])
+        if "ffn/" in path and leaf in ("w_gate", "w_up", "w_down") and cfg.num_experts:
+            ep = cfg.moe_sharding == "ep"
+            if leaf in ("w_gate", "w_up"):  # [E, D, F]
+                return pad([mdl, fsdp, None] if ep else [None, fsdp, mdl])
+            return pad([mdl, None, fsdp] if ep else [None, mdl, fsdp])  # [E, F, D]
+        if leaf in ("w_gate", "w_up"):  # dense MLP [D, F]
+            return pad([fsdp, mdl])
+        if leaf == "w_down":  # [F, D]
+            return pad([mdl, fsdp])
+        if "channel/wv" in path:  # rwkv channel down-proj [F, D]
+            return pad([mdl, fsdp])
+        if path.endswith("wo/w") or path.endswith("w_out/w"):
+            return pad([mdl, fsdp])
+        if path.endswith("/w") and any(
+            f"/{n}/" in path
+            for n in ("wq", "wk", "wv", "wg", "wr", "w_in", "w_gate", "lru_a", "lru_x")
+        ):  # [D_in, D_out]: TP on the output dim
+            return pad([fsdp, mdl])
+        if path.endswith("/b"):
+            return pad([mdl])
+        if leaf == "conv_w":  # [4, D]
+            return pad([None, mdl])
+        if leaf in ("lambda_raw", "conv_b"):
+            return pad([mdl])
+        if leaf in ("w_lora_a", "w_lora_b"):
+            return pad([None, None])
+        return P(*([None] * ndim))  # norms, mixes, gates, u_bonus: replicated
+
+    return {name: rule(name.replace(".", "/"), len(leaf.shape))
+            for name, leaf in _named_shapes(params)}
+
+
+def cache_pspecs(caches, cfg: ArchConfig, sh: ShardingConfig) -> List[Dict[str, P]]:
+    """One dict of specs per layer, shaped like ``caches``: KV caches batch
+    over the data axes and sequence over ``model``, ``slot_pos`` whole,
+    recurrent states channel over ``model`` (the reference's
+    ``cache_pspecs``)."""
+    mdl, dp = sh.model_axis, sh.batch_axes
+
+    def rule(name: str, nd: int) -> P:
+        def pad(spec):
+            spec = list(spec)[:nd]
+            return P(*(spec + [None] * (nd - len(spec))))
+
+        if name in ("k", "v"):  # [B, Hkv, S, hd]
+            return pad([dp, None, mdl, None])
+        if name in ("xk", "xv"):
+            return pad([dp, None, None, None])
+        if name == "slot_pos":
+            return pad([None])
+        if name == "wkv":  # [B, H, dk, dv]
+            return pad([dp, None, None, mdl])
+        if name in ("x_prev_t", "x_prev_c", "h"):  # [B, D]
+            return pad([dp, mdl])
+        if name == "conv":  # [B, 3, D]
+            return pad([dp, None, mdl])
+        return P(*([None] * nd))
+
+    return [{k: rule(k, len(v.shape)) for k, v in layer.items()} for layer in caches]
+
+
+def mesh_axes(mesh, sh: ShardingConfig) -> Dict[str, int]:
+    """The sizes of a ``data x model`` mesh's axes, by the names the specs use."""
+    return {"data": mesh.data_size, sh.model_axis: mesh.iter_size}
+
+
+def rank_axes(sh: ShardingConfig) -> Tuple[Dict[str, Any], Dict[str, int]]:
+    """This rank's groups and coordinates on the mesh's axes, by the names
+    the specs use (inside ``mesh.run``)."""
+    ctx = current_rank()
+    groups = {"data": ctx.data, sh.model_axis: ctx.model}
+    return groups, {a: g.rank for a, g in groups.items()}
+
+
+def _check_mesh(cfg: ArchConfig, sh: ShardingConfig, mesh) -> None:
+    if not isinstance(mesh, (LocalMesh, ProcessMesh)):
+        raise TypeError(f"a mesh is a LocalMesh or a ProcessMesh (launch.mesh), not {mesh!r}")
+    if tuple(cfg.block_pattern) != ("attn",):
+        raise NotImplementedError(f"{cfg.name} (blocks {cfg.block_pattern}) on a mesh waits "
+                                  f"for ROADMAP queue 1 item 17: only ('attn',) rows run")
+    if sh.seq_axis is not None or sh.attn_anchor:
+        raise NotImplementedError("sequence parallelism (seq_axis) and attn_anchor wait for "
+                                  "ROADMAP queue 1 item 17")
+
+
+# ---------------------------------------------------------------------------
+# Model bundle
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +300,82 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     init_caches_fn: Callable
+    mesh: Optional[Any] = None
+
+    def param_specs(self, params_or_shapes) -> Dict[str, P]:
+        return param_pspecs(params_or_shapes, self.cfg, self.sharding)
+
+    def cache_specs(self, cache_shapes) -> List[Dict[str, P]]:
+        return cache_pspecs(cache_shapes, self.cfg, self.sharding)
+
+    def abstract_params(self) -> Transformer:
+        """The weights' shapes and dtypes on ``meta`` (no memory)."""
+        return init_params(self.cfg, None, device=torch.device("meta"),
+                           dtype=self.dtype if self.cast_params else None)
+
+    def input_specs(self, shape: ShapeSpec):
+        """``meta`` tensors standing in for one shape cell's inputs, and their
+        PartitionSpecs (the reference's ``input_specs``)."""
+        cfg = self.cfg
+        dp = self.sharding.batch_axes
+        meta = torch.device("meta")
+        b, s = shape.global_batch, shape.seq_len
+        structs: Dict[str, Any] = {}
+        specs: Dict[str, Any] = {}
+        ctx_len, ctx_needed = context_len(cfg)
+        if shape.kind in ("train", "prefill"):
+            structs["tokens"] = torch.empty((b, s), dtype=torch.int32, device=meta)
+            specs["tokens"] = P(dp, None)
+        else:  # decode
+            structs["tokens"] = torch.empty((b, 1), dtype=torch.int32, device=meta)
+            specs["tokens"] = P(dp, None)
+            structs["pos"] = torch.empty((), dtype=torch.int32, device=meta)
+            specs["pos"] = P()
+            structs["caches"] = init_caches(cfg, b, s, context_len=ctx_len, device=meta,
+                                            cache_dtype=self.cache_dtype)
+            specs["caches"] = self.cache_specs(structs["caches"])
+        if ctx_needed and shape.kind != "decode":
+            structs["context"] = torch.empty((b, ctx_len, cfg.d_model), dtype=torch.bfloat16,
+                                             device=meta)
+            specs["context"] = P(dp, None, None)
+        return structs, specs
+
+    # ---- one rank of the mesh ------------------------------------------
+    def shard_params(self, params: Transformer) -> Transformer:
+        """This rank's weights (call it inside the mesh's rank function):
+        each weight's block under :meth:`param_specs` at the rank's
+        coordinates, cut from the whole ``params`` and cloned, so the whole
+        weights can be dropped."""
+        check_weights(params, self.cfg)
+        groups, index = rank_axes(self.sharding)
+        sizes = {a: g.size for a, g in groups.items()}
+        specs = self.param_specs(params)
+        return _rebuild(self, {name: shard_of(w.detach(), specs[name], sizes, index).clone()
+                               for name, w in params.named_parameters()})
+
+    def gather_params(self, shard: Transformer) -> Transformer:
+        """The whole weights from every rank's :meth:`shard_params` (a
+        collective: every rank calls it)."""
+        groups, _ = rank_axes(self.sharding)
+        specs = self.param_specs(self.abstract_params())
+        return _rebuild(self, {name: gather_whole(w.detach(), specs[name], groups)
+                               for name, w in shard.named_parameters()})
+
+    def rank_shard(self) -> MeshShard:
+        """This rank's :class:`~.layers.MeshShard` (inside ``mesh.run``)."""
+        groups, _ = rank_axes(self.sharding)
+        sh = self.sharding
+        return MeshShard(groups["data"], groups[sh.model_axis], fsdp=sh.fsdp,
+                         moe_pipeline=sh.moe_pipeline)
+
+
+def _rebuild(model: Model, tensors: Mapping[str, torch.Tensor]) -> Transformer:
+    """A :class:`Transformer` of ``model``'s layout holding ``tensors`` by name."""
+    out = model.abstract_params()
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(out.get_submodule(owner) if owner else out, leaf, weight(t))
+    return out
 
 
 def build_model(
@@ -139,15 +401,26 @@ def build_model(
     their config).  ``cache_dtype`` stores the self-attention keys and
     values (the reference's bf16 by default, whatever ``dtype`` is).
     ``sharding`` gives the loss its ``remat`` and ``attn_chunk`` (the
-    reference's defaults, ``"full"`` and 1024, without one); a ``mesh``
-    waits for ROADMAP queue 1 item 17.
+    reference's defaults, ``"full"`` and 1024, without one), and a mesh its
+    axes, FSDP and the experts' pipeline.
+
+    With ``mesh`` (a ``LocalMesh`` or ``ProcessMesh`` of ``data x model``
+    ranks; its device is the model's) ``init_fn`` still draws the whole
+    weights, and the callables are one rank's program: call them inside
+    ``mesh.run`` on the rank's weights (``Model.shard_params``) and rows.
     """
     _check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError("build_model on a mesh waits for the sharding specs "
-                                  "(ROADMAP queue 1 item 17)")
     sh = sharding or ShardingConfig()
-    dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh(cfg, sh, mesh)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"the mesh is on {mesh.device}, not {device}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+
+    def rank() -> Optional[MeshShard]:
+        return None if mesh is None else model.rank_shard()
 
     def init_fn(generator: torch.Generator):
         if generator.device.type != dev.type:
@@ -165,15 +438,25 @@ def build_model(
 
     def loss_fn(params, batch):
         """``CE(h[:, :-1] @ head, tokens[:, 1:]) + 0.01 * aux``: a float32
-        scalar, differentiable in the weights that require a gradient."""
+        scalar, differentiable in the weights that require a gradient.  On
+        a mesh ``batch`` holds the rank's rows; the value is the global
+        loss, its gradient the rank's share (summed over the data axis, the
+        gradient of the global loss)."""
         check_weights(params, cfg)
+        rs = rank()
         tokens = batch["tokens"].to(dev)
         h, _, aux = params(tokens, mode="train", context=_context_of(params, batch),
                            dtype=dtype, remat=sh.remat, attn_chunk=sh.attn_chunk,
-                           return_hidden=True)
+                           return_hidden=True, rs=rs)
         head = params.embed.T if params.lm_head is None else params.lm_head
-        loss = chunked_ce_loss(h[:, :-1], head, tokens[:, 1:], vocab_size=cfg.vocab_size)
-        return loss + 0.01 * aux
+        if rs is None:
+            loss = chunked_ce_loss(h[:, :-1], head, tokens[:, 1:], vocab_size=cfg.vocab_size)
+            return loss + 0.01 * aux
+        head = (rs.unshard(params.embed, 1).T if params.lm_head is None
+                else rs.unshard(params.lm_head, 0))
+        loss = chunked_ce_loss(h[:, :-1], head, tokens[:, 1:], vocab_size=cfg.vocab_size,
+                               rs=rs)
+        return reduce_from(loss, rs.data) + 0.01 * aux
 
     @torch.no_grad()
     def prefill_fn(params, batch):
@@ -181,20 +464,32 @@ def build_model(
         tokens = batch["tokens"].to(dev)
         s_buf = cache_buffer_len(cfg, tokens.shape[1])
         logits, caches, _ = params(tokens, mode="prefill", context=_context_of(params, batch),
-                                   dtype=dtype, s_buf=s_buf, cache_dtype=cache_dtype)
+                                   dtype=dtype, s_buf=s_buf, cache_dtype=cache_dtype,
+                                   rs=rank())
         return logits[:, -1].clone(), caches  # the clone lets the [B, L, V] logits go
 
     @torch.no_grad()
     def decode_fn(params, batch):
         check_weights(params, cfg)
         logits, caches, _ = params(batch["tokens"].to(dev), mode="decode",
-                                   caches=batch["caches"], pos=batch["pos"], dtype=dtype)
+                                   caches=batch["caches"], pos=batch["pos"], dtype=dtype,
+                                   rs=rank())
         return logits[:, -1].clone(), caches
 
     def init_caches_fn(batch_size: int, seq_len: int, context_len: int = 0):
+        """Empty caches for ``batch_size`` sequences; on a mesh this rank's
+        blocks of them (``cache_pspecs``)."""
+        pm = 0
+        if mesh is not None:
+            rs = rank()
+            if batch_size % rs.data.size:
+                raise ValueError(f"{batch_size} rows do not split over {rs.data.size} data ranks")
+            batch_size, pm = batch_size // rs.data.size, rs.model.size
         return init_caches(cfg, batch_size, seq_len, context_len=context_len, device=dev,
-                           cache_dtype=cache_dtype)
+                           cache_dtype=cache_dtype, model_size=pm)
 
-    return Model(cfg=cfg, sharding=sh, device=dev, dtype=dtype, cast_params=cast_params,
-                 cache_dtype=cache_dtype, init_fn=init_fn, loss_fn=loss_fn,
-                 prefill_fn=prefill_fn, decode_fn=decode_fn, init_caches_fn=init_caches_fn)
+    model = Model(cfg=cfg, sharding=sh, device=dev, dtype=dtype, cast_params=cast_params,
+                  cache_dtype=cache_dtype, init_fn=init_fn, loss_fn=loss_fn,
+                  prefill_fn=prefill_fn, decode_fn=decode_fn, init_caches_fn=init_caches_fn,
+                  mesh=mesh)
+    return model

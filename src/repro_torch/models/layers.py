@@ -9,10 +9,16 @@ float32 weights and weights stored in the compute dtype give the same
 result.  Weights of two or more dimensions may be stored in the compute
 dtype once, when they are made (``Initializer(..., dtype=)``, the
 reference's ``cast_params``); 1-D weights (norms, biases) stay float32.
+
+On a ``data x model`` mesh a rank computes through its :class:`MeshShard`:
+column-parallel projections on its block of output columns, row-parallel
+ones summed over the model axis in float32, weights gathered over the data
+axis where they are used under FSDP, and the vocab-parallel embedding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence
 
@@ -20,13 +26,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..comm import Group, all_gather_cat, all_gather_cat_many, copy_to, reduce_from
+
 __all__ = [
     "Initializer",
+    "MeshShard",
     "Dense",
     "MLP",
     "weight",
     "rmsnorm",
     "rope",
+    "rope_tables",
     "dense_init",
     "dense_apply",
     "mlp_init",
@@ -107,16 +117,24 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10_000.0):
+    """``(cos, sin)`` ``[L, dim / 2]`` float32 of :func:`rope`'s angles."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(half, dtype=torch.float32,
+                                                      device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs  # [L, half]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0,
+         tables=None) -> torch.Tensor:
     """Rotary embeddings on split halves (``x[..., :D/2]``, ``x[..., D/2:]``),
     not interleaved.  ``x`` is ``[..., L, D]``, ``positions`` ``[L]``.  The
     angles are float32; ``x`` times them promotes to float32 and the result
-    is cast back to ``x``'s dtype."""
+    is cast back to ``x``'s dtype.  ``tables`` are :func:`rope_tables` of
+    ``positions``, where the caller made them once for many layers."""
     half = x.shape[-1] // 2
-    freqs = torch.exp(-math.log(theta) * torch.arange(half, dtype=torch.float32,
-                                                      device=x.device) / half)
-    ang = positions.float()[..., None] * freqs  # [L, half]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = rope_tables(positions, x.shape[-1], theta) if tables is None else tables
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -137,3 +155,88 @@ def mlp_apply(p: MLP, x: torch.Tensor, act: str, dtype=torch.bfloat16) -> torch.
     else:  # jax.nn.gelu's default is the tanh form
         h = F.gelu(xb @ p.w_up.to(dtype), approximate="tanh")
     return h @ p.w_down.to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShard:
+    """One rank's place on a ``data x model`` mesh, the port's counterpart
+    of the reference's activation ``shard`` function (``factory.py``), for
+    a rank program with explicit collectives (Megatron's pattern).
+
+    ``data`` is the batch axis (and FSDP's), ``model`` the tensor- and
+    expert-parallel axis.  Activations between blocks are replicated over
+    ``model``; a block enters rank-specific compute through ``copy_to`` and
+    leaves it through a float32 ``reduce_from``, so every model rank holds
+    the same residual stream and, backward, the same gradient of it.
+    """
+
+    data: Group
+    model: Group
+    fsdp: bool = False
+    moe_pipeline: bool = False
+    #: this call's rope tables (``rope_tables``), made once for every layer
+    rot: Optional[tuple] = None
+    #: a block's FSDP weights gathered at its entry (:meth:`gather`), by id
+    gathered: Optional[dict] = None
+
+    def unshard(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """Under FSDP the whole of ``w``'s dimension ``dim`` (sharded over
+        ``data``), gathered where it is used; its gradient is reduce-scattered
+        back to this rank's block.  Without FSDP ``w`` itself."""
+        if not self.fsdp:
+            return w
+        if self.gathered is not None and id(w) in self.gathered:
+            return self.gathered[id(w)]
+        return all_gather_cat(w, self.data, dim)
+
+    def gather(self, weights) -> "MeshShard":
+        """Under FSDP, the shard with every ``(weight, dim)`` of ``weights``
+        (one layer's) gathered over ``data`` in one collective, read by
+        :meth:`unshard`; the gradients go back on one reduce-scatter."""
+        if not self.fsdp or self.data.size == 1:
+            return self
+        ws = [w for w, _ in weights]
+        got = all_gather_cat_many(ws, [d for _, d in weights], self.data)
+        return dataclasses.replace(self, gathered={id(w): g for w, g in zip(ws, got)})
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated activation entering this rank's own compute (``f``)."""
+        return copy_to(x, self.model)
+
+    def column(self, p: "Dense", x: torch.Tensor, dtype) -> torch.Tensor:
+        """``x @ w + b`` on this rank's block of output columns (``w``
+        ``(fsdp, model)``, ``b`` ``(model,)``); ``x`` has entered."""
+        y = x.to(dtype) @ self.unshard(p.w, 0).to(dtype)
+        if p.b is not None:
+            y = y + p.b.to(dtype)
+        return y
+
+    def row(self, w: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
+        """``x @ w`` with ``w``'s rows (``(model, fsdp)``) and ``x``'s columns
+        this rank's block: the partial product in ``dtype``, summed over
+        ``model`` in float32, then cast (``g``)."""
+        y = x.to(dtype) @ self.unshard(w, 1).to(dtype)
+        return reduce_from(y.float(), self.model).to(dtype)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+        """The vocab-parallel lookup: ``table`` ``(model, fsdp)`` holds this
+        rank's block of rows; it writes its own tokens' rows and zeros for
+        the rest, and the sum over ``model`` (one nonzero term: exact) gives
+        every rank the whole lookup."""
+        t = self.unshard(table, 1)
+        rows = t.shape[0]
+        local = tokens.long() - self.model.rank * rows
+        mine = (local >= 0) & (local < rows)
+        got = torch.where(mine[..., None], t[local.clamp(0, rows - 1)].float(), 0.0)
+        return reduce_from(got, self.model).to(dtype)
+
+    def mlp(self, p: "MLP", x: torch.Tensor, act: str, dtype) -> torch.Tensor:
+        """:func:`mlp_apply` with ``w_gate`` and ``w_up`` column-parallel and
+        ``w_down`` row-parallel; ``x`` replicated, the output too."""
+        xb = self.enter(x).to(dtype)
+        up = xb @ self.unshard(p.w_up, 0).to(dtype)
+        if act == "swiglu":
+            h = F.silu(xb @ self.unshard(p.w_gate, 0).to(dtype)) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        return self.row(p.w_down, h, dtype)

@@ -29,9 +29,10 @@ Counterpart of ``repro/models/moe.py``.
       token outputs are gathered back over the group.
 
     A rank holds its own slice of the expert weights
-    (:func:`shard_expert_weights`, the reference's ``in_specs``).  The
-    reference's FSDP unshard (a ZeRO-3 gather over the data axis) waits for
-    ROADMAP queue 1 item 17.
+    (:func:`shard_expert_weights`, the reference's ``in_specs``); under
+    FSDP they are split over the data axis too and gathered at entry (the
+    reference's ZeRO-3 unshard).  Autograd differentiates the layer, so a
+    mesh trains through it.
 """
 
 from __future__ import annotations
@@ -42,7 +43,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..comm import Group, grouped_exchange
+from ..comm import (
+    DifferentiableGroup,
+    Group,
+    all_gather_cat,
+    copy_to,
+    gather_replicated,
+    grouped_exchange,
+    reduce_from,
+)
 from .layers import Initializer, weight
 
 __all__ = ["MoE", "moe_init", "moe_block", "moe_block_manual", "shard_expert_weights"]
@@ -171,7 +180,7 @@ def shard_expert_weights(p: MoE, cfg, rank: int, size: int) -> MoE:
 def _mean(x: torch.Tensor, *groups: Optional[Group]) -> torch.Tensor:
     for g in groups:
         if g is not None and g.size > 1:
-            x = g.all_reduce_sum(x) / g.size
+            x = reduce_from(x, g) / g.size
     return x
 
 
@@ -189,48 +198,62 @@ def moe_block_manual(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank of the reference's distributed MoE layer.
 
-    ``p`` holds this rank's weights (:func:`shard_expert_weights`); ``group``
-    is the model axis, ``data_group`` (optional) the data axes over which the
-    aux loss is averaged.  ``pipeline`` runs the token-sharded EP exchange as
-    ``grouped_exchange`` with ``group_factor`` shifts in flight; otherwise
-    one ``all_to_all``.  Returns ``(out [B_loc, L, D], aux)``, the output the
-    same on every rank of ``group``.
+    ``p`` holds this rank's weights (:func:`shard_expert_weights`; under
+    ``fsdp`` also split over ``data_group`` as the specs say: ``router``
+    dimension 0, ``w_gate`` and ``w_up`` 1, ``w_down`` 2, gathered here, the
+    reference's ZeRO-3 unshard); ``group`` is the model axis, ``data_group``
+    (optional) the data axes over which the aux loss is averaged.
+    ``pipeline`` runs the token-sharded EP exchange as ``grouped_exchange``
+    with ``group_factor`` shifts in flight; otherwise one ``all_to_all``.
+    Returns ``(out [B_loc, L, D], aux)``, the output the same on every rank
+    of ``group``.
+
+    Autograd differentiates it (the collectives are
+    :mod:`~repro_torch.comm.differentiable`'s): where every rank routes
+    every token (TP, and the replicated-token fallback) the routing's
+    gradient is whole on each rank and the experts' partial gradients of
+    the tokens and of the routing weights are summed over ``group``; where
+    each rank routes its own tokens, the gradients of the input and of the
+    router are.
     """
+    router, wg, wu, wd = p.router, p.w_gate, p.w_up, p.w_down
     if fsdp:
-        raise NotImplementedError("the FSDP unshard of the expert weights waits for ROADMAP "
-                                  "queue 1 item 17 (sharding specs)")
+        if data_group is None:
+            raise ValueError("the FSDP unshard gathers over data_group; none given")
+        router, wg, wu, wd = (all_gather_cat(w, data_group, dim)
+                              for w, dim in ((router, 0), (wg, 1), (wu, 1), (wd, 2)))
     pm, m = group.size, group.rank
+    dgroup = DifferentiableGroup(group)
     b, l, d = x.shape
     t = b * l
     xt = x.reshape(t, d)
-    wg, wu, wd = p.w_gate.to(dtype), p.w_up.to(dtype), p.w_down.to(dtype)
+    wg, wu, wd = wg.to(dtype), wu.to(dtype), wd.to(dtype)
     k, e = cfg.experts_per_token, cfg.num_experts
 
-    if cfg.moe_sharding != "ep":
-        # TP experts: f split over the group, tokens replicated, partials summed
-        top_w, top_e, aux = _route(xt, p.router, k)
-        buf, e_flat, pos_c, keep = _dispatch(xt, top_e, _capacity(cfg, t), e, dtype)
-        combined = _combine(_expert_ffn(buf, wg, wu, wd), e_flat, pos_c, keep, top_w, dtype)
-        combined = group.all_reduce_sum(combined.float()).to(dtype)
-        return combined.reshape(b, l, d), _mean(aux, data_group)
-
-    e_loc = e // pm  # this rank's experts
-    if t % pm:
-        # replicated-token EP (decode-sized batches): this rank's experts on
-        # every token; the other experts' slots stay zero and the sum fills them
-        top_w, top_e, aux = _route(xt, p.router, k)
-        buf, e_flat, pos_c, keep = _dispatch(xt, top_e, _capacity(cfg, t), e, dtype)
-        out_buf = torch.zeros_like(buf)
-        out_buf[m * e_loc : (m + 1) * e_loc] = _expert_ffn(buf[m * e_loc : (m + 1) * e_loc],
-                                                           wg, wu, wd)
-        combined = _combine(out_buf, e_flat, pos_c, keep, top_w, dtype)
-        combined = group.all_reduce_sum(combined.float()).to(dtype)
+    if cfg.moe_sharding != "ep" or t % pm:
+        # every rank routes every token; TP experts: f split over the group,
+        # the partial outputs summed; replicated-token EP (decode-sized
+        # batches): this rank's experts on every token, the other experts'
+        # slots zero and the sum fills them
+        top_w, top_e, aux = _route(xt, router, k)
+        buf, e_flat, pos_c, keep = _dispatch(copy_to(xt, group), top_e, _capacity(cfg, t), e,
+                                             dtype)
+        if cfg.moe_sharding != "ep":
+            out_buf = _expert_ffn(buf, wg, wu, wd)
+        else:
+            e_loc = e // pm
+            out_buf = torch.zeros_like(buf)
+            out_buf[m * e_loc : (m + 1) * e_loc] = _expert_ffn(buf[m * e_loc : (m + 1) * e_loc],
+                                                               wg, wu, wd)
+        combined = _combine(out_buf, e_flat, pos_c, keep, copy_to(top_w, group), dtype)
+        combined = reduce_from(combined.float(), group).to(dtype)
         return combined.reshape(b, l, d), _mean(aux, data_group)
 
     # token-sharded EP: the paper's exchange, one chunk per rank
+    e_loc = e // pm  # this rank's experts
     tm = t // pm
-    xt_m = xt[m * tm : (m + 1) * tm]
-    top_w, top_e, aux = _route(xt_m, p.router, k)
+    xt_m = copy_to(xt, group)[m * tm : (m + 1) * tm]
+    top_w, top_e, aux = _route(xt_m, copy_to(router, group), k)
     cap = _capacity(cfg, tm)
     buf, e_flat, pos_c, keep = _dispatch(xt_m, top_e, cap, e, dtype)
     chunks = buf.reshape(pm, e_loc, cap, d)  # chunk q: rank q's experts
@@ -239,13 +262,13 @@ def moe_block_manual(
             acc[src] = _expert_ffn(chunk, wg, wu, wd)
             return acc
 
-        out_chunks = grouped_exchange(group, chunks, consume,
+        out_chunks = grouped_exchange(dgroup, chunks, consume,
                                       torch.zeros_like(chunks), group_factor=group_factor)
     else:
-        recv = group.all_to_all(chunks)  # recv[q]: rank q's tokens for this rank's experts
+        recv = dgroup.all_to_all(chunks)  # recv[q]: rank q's tokens for this rank's experts
         out = _expert_ffn(recv.transpose(0, 1).reshape(e_loc, pm * cap, d), wg, wu, wd)
         out_chunks = out.reshape(e_loc, pm, cap, d).transpose(0, 1).contiguous()
-    back = group.all_to_all(out_chunks)  # back[q]: rank q's experts on this rank's tokens
+    back = dgroup.all_to_all(out_chunks)  # back[q]: rank q's experts on this rank's tokens
     combined = _combine(back.reshape(e, cap, d), e_flat, pos_c, keep, top_w, dtype)
-    full = group.all_gather(combined).reshape(t, d)
+    full = gather_replicated(combined, group).reshape(t, d)
     return full.reshape(b, l, d), _mean(aux, data_group, group)

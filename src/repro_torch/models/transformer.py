@@ -47,12 +47,24 @@ from .attention import (
     CACHE_DTYPE,
     Attention,
     attention_block,
+    attention_block_tp,
     attn_init,
     decode_attention,
     init_kv_cache,
+    init_kv_cache_tp,
 )
-from .layers import MLP, Initializer, dense_apply, mlp_apply, mlp_init, rmsnorm, weight
-from .moe import MoE, moe_block, moe_init
+from .layers import (
+    MLP,
+    Initializer,
+    MeshShard,
+    dense_apply,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+    rope_tables,
+    weight,
+)
+from .moe import MoE, moe_block, moe_block_manual, moe_init
 from .rglru import RgLru, init_rglru_state, rglru_block, rglru_init
 from .rwkv6 import (
     RwkvChannel,
@@ -125,11 +137,19 @@ def layer_kinds(cfg) -> List[str]:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
-def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype):
-    """A dense FFN, or the experts on one device: ``(out, aux loss or None)``."""
+def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype, rs: Optional[MeshShard] = None):
+    """A dense FFN, or the experts: ``(out, aux loss or None)``; on one
+    device, or as one rank of the mesh ``rs`` (the reference's mesh
+    ``_ffn_apply``: ``moe_block_manual`` over the model axis, its aux
+    averaged over the data axis)."""
+    if rs is None:
+        if isinstance(ffn, MoE):
+            return moe_block(ffn, x, cfg, dtype=dtype)
+        return mlp_apply(ffn, x, cfg.act, dtype=dtype), None
     if isinstance(ffn, MoE):
-        return moe_block(ffn, x, cfg, dtype=dtype)
-    return mlp_apply(ffn, x, cfg.act, dtype=dtype), None
+        return moe_block_manual(ffn, x, cfg, group=rs.model, data_group=rs.data,
+                                pipeline=rs.moe_pipeline, fsdp=rs.fsdp, dtype=dtype)
+    return rs.mlp(ffn, x, cfg.act, dtype), None
 
 
 def _project_context(p: Attention, cfg, context: torch.Tensor, dtype) -> dict:
@@ -173,17 +193,21 @@ class Block(nn.Module):
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
                 dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE,
-                attn_chunk: int = 1024):
+                attn_chunk: int = 1024, rs: Optional[MeshShard] = None):
         """The reference's ``_apply_block``; returns ``(h, cache, aux)`` (aux:
         the experts' loss, or None).  Residual adds are in ``h``'s dtype (the
         compute dtype), as in the reference; ``attn_chunk`` tiles the
-        self-attention under autograd (``attention_block``)."""
+        self-attention under autograd (``attention_block``).  With ``rs``,
+        one rank of the mesh (``attention_block_tp``)."""
         eps = cfg.norm_eps
         local = self.kind == "local"
         build = None
         if mode == "prefill":
             build = min(s_buf, cfg.local_window + 128) if local else s_buf
-        mix, new_cache = attention_block(
+        kw = {}
+        if rs is not None:
+            kw["rs"] = rs = rs.gather(_fsdp_weights(self))
+        mix, new_cache = (attention_block if rs is None else attention_block_tp)(
             self.attn, rmsnorm(self.ln1, h, eps), cfg,
             causal=True,
             window=cfg.local_window if local else cfg.window,
@@ -193,10 +217,23 @@ class Block(nn.Module):
             build_cache_len=build,
             cache_dtype=cache_dtype,
             attn_chunk=attn_chunk,
+            **kw,
         )
         h = h + mix
-        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype)
+        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype, rs)
         return h + ff, new_cache, aux
+
+
+def _fsdp_weights(blk: Block) -> list:
+    """A block's ``(weight, dimension FSDP splits)`` that its rank gathers at
+    its entry: the attention's projections and a dense FFN's (the experts
+    gather their own)."""
+    a = blk.attn
+    out = [(a.wq.w, 0), (a.wk.w, 0), (a.wv.w, 0), (a.wo.w, 1)]
+    if isinstance(blk.ffn, MLP):
+        out += [(w, 0) for w in (blk.ffn.w_gate, blk.ffn.w_up) if w is not None]
+        out.append((blk.ffn.w_down, 1))
+    return out
 
 
 class CrossBlock(nn.Module):
@@ -427,7 +464,7 @@ class Transformer(nn.Module):
                 context: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
                 s_buf: Optional[int] = None, cache_dtype: torch.dtype = CACHE_DTYPE,
                 remat: str = "none", attn_chunk: int = 1024,
-                return_hidden: bool = False):
+                return_hidden: bool = False, rs: Optional[MeshShard] = None):
         """Returns ``(logits [B, L, V_pad] float32, caches or None, aux)``.
 
         ``mode="train"`` runs without a cache; ``"prefill"`` builds caches
@@ -445,6 +482,11 @@ class Transformer(nn.Module):
         in place of the logits (the loss chunks the head itself).  ``aux`` is
         the experts' aux losses summed over the layers (float32; 0 without
         experts).
+
+        With ``rs`` it is one rank's program on the mesh: ``tokens`` are the
+        rank's rows, the weights and caches its blocks, the hidden state
+        replicated over the model axis and the logits its block of vocab
+        columns ``[B_loc, L, V_pad / model]``.
         """
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
@@ -457,13 +499,22 @@ class Transformer(nn.Module):
             pos = int(pos)
         if mode == "prefill" and s_buf is None:
             s_buf = cache_buffer_len(cfg, tokens.shape[1])
-        h = self.embed[tokens].to(dtype)
+        if rs is None:
+            h = self.embed[tokens].to(dtype)
+        else:
+            h = rs.embed(self.embed, tokens, dtype)
+            positions = (torch.full((1,), pos, device=h.device) if mode == "decode"
+                         else torch.arange(tokens.shape[1], device=h.device))
+            rs = dataclasses.replace(rs, rot=rope_tables(positions, cfg.resolved_head_dim,
+                                                         cfg.rope_theta))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         remat_on = remat != "none" and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for i, blk in enumerate(self.blocks):
             kw = ({"cache_dtype": cache_dtype, "attn_chunk": attn_chunk}
                   if blk.kind in _KV_KINDS else {})
+            if rs is not None:
+                kw["rs"] = rs
             if remat_on:
                 h, a = checkpoint(_train_layer, blk, h, cfg, context, dtype, kw,
                                   use_reentrant=False, **_remat_kwargs(remat))
@@ -478,12 +529,16 @@ class Transformer(nn.Module):
         caches_out = new_caches if mode != "train" else None
         if return_hidden:
             return h, caches_out, aux
-        head = self.embed.T if self.lm_head is None else self.lm_head
+        if rs is None:
+            head, lo = (self.embed.T if self.lm_head is None else self.lm_head), 0
+        else:
+            head = (rs.unshard(self.embed, 1).T if self.lm_head is None
+                    else rs.unshard(self.lm_head, 0))
+            h, lo = rs.enter(h), rs.model.rank * head.shape[1]
         logits = h.float() @ head.float()
         if cfg.padded_vocab != cfg.vocab_size:
-            pad = torch.where(torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size,
-                              0.0, -1e30)
-            logits.add_(pad)
+            cols = torch.arange(lo, lo + head.shape[1], device=logits.device)
+            logits.add_(torch.where(cols < cfg.vocab_size, 0.0, -1e30))
         return logits, caches_out, aux
 
 
@@ -493,7 +548,7 @@ def _train_layer(blk, h, cfg, context, dtype, kw):
     return h, (torch.zeros((), dtype=torch.float32, device=h.device) if aux is None else aux)
 
 
-def init_params(cfg, generator: torch.Generator, *, device: torch.device,
+def init_params(cfg, generator: Optional[torch.Generator], *, device: torch.device,
                 dtype: Optional[torch.dtype] = None) -> Transformer:
     """Random weights with the reference's distributions, drawn from
     ``generator`` on ``device``: normal(0.02) for the embedding and LM head,
@@ -501,7 +556,8 @@ def init_params(cfg, generator: torch.Generator, *, device: torch.device,
     ``w_down``), zeros for biases and ``xgate``, ones for norms, and the
     reference's own scales for RWKV's mixes, decay and bonus and RG-LRU's
     conv and decay.  With ``dtype``, weights of two or more dimensions are
-    stored in it as they are drawn (``cast_params``)."""
+    stored in it as they are drawn (``cast_params``).  On ``device="meta"``
+    (``generator`` None) the weights are shapes only, for the specs."""
     _check_supported(cfg)
     init = Initializer(generator, device=device, dtype=dtype)
     d = cfg.d_model
@@ -530,8 +586,10 @@ def cache_buffer_len(cfg, seq_len: int) -> int:
 
 
 def _block_cache(cfg, kind: str, batch: int, s_buf: int, context_len: int,
-                 device: torch.device, dtype: torch.dtype) -> dict:
+                 device: torch.device, dtype: torch.dtype, model_size: int = 0) -> dict:
     hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    if model_size and kind == "attn":
+        return init_kv_cache_tp(batch, kvh, s_buf, hd, model_size, device=device, dtype=dtype)
 
     def ctx_kv(lc):
         z = lambda: torch.zeros((batch, kvh, lc, hd), dtype=dtype, device=device)  # noqa: E731
@@ -555,14 +613,17 @@ def _block_cache(cfg, kind: str, batch: int, s_buf: int, context_len: int,
 
 
 def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
-                device: torch.device, cache_dtype: torch.dtype = CACHE_DTYPE) -> List[dict]:
+                device: torch.device, cache_dtype: torch.dtype = CACHE_DTYPE,
+                model_size: int = 0) -> List[dict]:
     """Empty caches (keys and values in ``cache_dtype``) and zero float32
     states, one dict per layer, for decoding after ``seq_len`` tokens; a
     cross-attention cache holds ``context_len`` context positions (the row's
-    own context length by default)."""
+    own context length by default).  With ``model_size`` an ``attn``
+    layer's cache is one rank's block, its sequence sharded over that many
+    model ranks (``init_kv_cache_tp``; ``batch`` is then the rank's rows)."""
     _check_supported(cfg)
     s_buf = cache_buffer_len(cfg, seq_len)
-    return [_block_cache(cfg, kind, batch, s_buf, context_len, device, cache_dtype)
+    return [_block_cache(cfg, kind, batch, s_buf, context_len, device, cache_dtype, model_size)
             for kind in layer_kinds(cfg)]
 
 

@@ -22,8 +22,11 @@ A tree is a nested dict of tensors or numpy arrays (``{"params": {...},
 ``.npz``, flattened by path (``"m/blocks.0.ln1"``).  ``restore`` loads a
 checkpoint onto tensors shaped like templates, on their devices, checking
 shapes and checksums; ``load_latest`` returns the newest readable one raw.
-Re-sharding onto a mesh waits for the sharding specs (ROADMAP queue 1
-item 17).
+
+On a mesh the train loop gathers each leaf whole and one rank saves, so
+the format is the same from any mesh; ``restore(..., shardings=)`` gives
+each rank its block (a :class:`~repro_torch.comm.spec.Placement` a leaf),
+so a checkpoint restores onto a mesh of any shape, or onto one device.
 """
 
 from __future__ import annotations
@@ -60,19 +63,26 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _unflatten(template: Mapping, flat, name: str, prefix: str = "") -> Dict[str, Any]:
+def _unflatten(template: Mapping, flat, name: str, prefix: str = "",
+               shardings: Optional[Mapping] = None) -> Dict[str, Any]:
     """Tensors shaped like ``template``'s leaves, on their devices and in
-    their dtypes, from the flat arrays; a shape mismatch raises."""
+    their dtypes, from the flat arrays (each cut to its block where
+    ``shardings``, shaped like ``template``, places it); a shape mismatch
+    raises."""
     out = {}
     for k, leaf in template.items():
         key = f"{prefix}{k}"
+        place = None if shardings is None else shardings.get(k)
         if isinstance(leaf, Mapping):
-            out[k] = _unflatten(leaf, flat, name, key + "/")
+            out[k] = _unflatten(leaf, flat, name, key + "/", place)
             continue
-        arr = flat[key]
+        arr = torch.from_numpy(np.array(flat[key]))
+        if place is not None:
+            arr = place.block(arr)
         if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{name}:{key} shape {arr.shape} != template {tuple(leaf.shape)}")
-        out[k] = torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype)
+            raise ValueError(f"{name}:{key} shape {tuple(arr.shape)} != template "
+                             f"{tuple(leaf.shape)}")
+        out[k] = arr.to(device=leaf.device, dtype=leaf.dtype, copy=True)
     return out
 
 
@@ -215,12 +225,15 @@ class CheckpointManager:
         return None
 
     def restore(self, step: int, templates: Mapping[str, Mapping], *,
+                shardings: Optional[Mapping[str, Mapping]] = None,
                 verify: bool = True) -> Dict[str, Any]:
         """The trees of checkpoint ``step``, shaped like ``templates`` (name ->
         nested dict of tensors): each leaf a new tensor on its template's
-        device, in its dtype.  A checksum that does not verify raises
-        ``IOError``, a shape that differs from the template's
-        ``ValueError``."""
+        device, in its dtype.  ``shardings`` (name -> a tree like the
+        template's of ``Placement``s) re-shards onto a mesh: each leaf is the
+        rank's block of the saved one, and the template holds the blocks'
+        shapes.  A checksum that does not verify raises ``IOError``, a shape
+        that differs from the template's ``ValueError``."""
         self.wait()
         base = os.path.join(self.dir, f"step_{step:08d}")
         self._protected = step  # keep-pruning must not delete it mid-restore
@@ -233,5 +246,7 @@ class CheckpointManager:
             if verify and _digest(path) != meta["sha256"]:
                 raise IOError(f"checksum mismatch for {name} at step {step}")
             with np.load(path, allow_pickle=False) as z:
-                out[name] = _unflatten(template, z, name)
+                out[name] = _unflatten(template, z, name,
+                                       shardings=None if shardings is None
+                                       else shardings.get(name))
         return out

@@ -14,24 +14,46 @@ step.
 
 The int8 gradient ring (``comm.compress.compressed_ring_reduce_scatter``)
 is a library function here as in the reference, whose step never calls it.
-A mesh (data-parallel replicas, sharded weights) waits for the sharding
-specs (ROADMAP queue 1 item 17).
+
+On a ``data x model`` mesh (a model built with ``mesh=``) the step is one
+rank's: call it inside ``mesh.run`` on the rank's weights
+(``Model.shard_params``) and state (:func:`rank_opt_state`) with the
+global batch, of which the rank takes its data rank's rows.  Gradients land
+in the weights' layout, the reference's ``grad_constraint``: summed over
+``data`` where a weight is whole on it, reduce-scattered (by FSDP's gather)
+where it is split.  The norm adds each block's squares over the axes its
+weight is split on.  ZeRO-1: each data rank updates its block of ``m``,
+``v`` and the weight, then the updated blocks are all-gathered over
+``data``.  Each rank runs its backward on its own thread
+(``torch.autograd.set_multithreading_enabled(False)``): on CUDA autograd
+would otherwise run every rank's backward on one device thread, where a
+rank waiting in a collective's backward blocks the others.  ``train(...,
+mesh)`` runs the loop on every rank, saves checkpoints of the whole
+weights and state from one rank, restores each rank's blocks, and returns
+the whole weights and state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import signal
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.factory import Model
+from ..comm.spec import Placement, gather_whole, used_axes
+from ..models.factory import Model, rank_axes
 from .checkpoint import CheckpointManager
 from .data import DataConfig, synthetic_batch
-from .optimizer import AdamWConfig, adamw_update, init_opt_state
+from .optimizer import (
+    AdamWConfig,
+    adamw_update,
+    init_opt_state,
+    opt_state_pspecs,
+    sharded_global_norm,
+)
 
-__all__ = ["TrainConfig", "make_train_step", "train"]
+__all__ = ["TrainConfig", "make_train_step", "train", "rank_opt_state", "gather_opt_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,20 +67,77 @@ class TrainConfig:
     seed: int = 0
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("training on a mesh waits for the sharding specs "
-                                  "(ROADMAP queue 1 item 17)")
+def _mesh_of(model: Model, mesh):
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError("build the model on the mesh it trains on: build_model(cfg, "
+                         "sharding, mesh)")
+    return model.mesh
+
+
+def _specs(model: Model) -> Tuple[dict, dict]:
+    """``(weight specs, state specs)`` of a model on its mesh."""
+    shapes = dict(model.abstract_params().named_parameters())
+    pspecs = model.param_specs(shapes)
+    ospecs = opt_state_pspecs(pspecs, shapes, zero1=model.sharding.zero1,
+                              data_size=model.mesh.data_size)
+    return pspecs, ospecs
+
+
+def _zero1_dims(pspecs: dict, ospecs: dict) -> Dict[str, Optional[int]]:
+    """The dimension ZeRO-1 splits over ``data`` for each weight (None: none)."""
+    out = {}
+    for k, spec in pspecs.items():
+        o = ospecs["m"][k]
+        out[k] = next((d for d, (a, b) in enumerate(zip(spec, o)) if a != b), None)
+    return out
+
+
+def _zero1_block(x: torch.Tensor, dim: Optional[int], data) -> torch.Tensor:
+    """This data rank's block of ``x`` along ZeRO-1's ``dim`` (a view)."""
+    if dim is None or data.size == 1:
+        return x
+    n = x.shape[dim] // data.size
+    return x.narrow(dim, data.rank * n, n)
+
+
+def rank_opt_state(model: Model, params) -> dict:
+    """This rank's zero AdamW state (inside ``mesh.run``), as
+    :func:`~.optimizer.opt_state_pspecs` lays it out."""
+    pspecs, ospecs = _specs(model)
+    dims = _zero1_dims(pspecs, ospecs)
+    data = rank_axes(model.sharding)[0]["data"]
+    return init_opt_state({k: _zero1_block(p, dims[k], data)
+                           for k, p in params.named_parameters()})
+
+
+def gather_opt_state(model: Model, state: dict) -> dict:
+    """The whole AdamW state from every rank's blocks (a collective)."""
+    pspecs, ospecs = _specs(model)
+    groups, _ = rank_axes(model.sharding)
+    return {kind: {k: gather_whole(v, ospecs[kind][k], groups) for k, v in state[kind].items()}
+            for kind in ("m", "v")} | {"step": state["step"].clone()}
+
+
+def _sum_over(group, tensors: List[torch.Tensor]) -> None:
+    """Sum ``tensors`` over ``group`` in place, in one flat all-reduce."""
+    if group.size == 1 or not tensors:
+        return
+    flat = group.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]))
+    torch._foreach_copy_(tensors, [f.view_as(t) for f, t in
+                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
-    """``(train_step, None)``: ``train_step(params, opt, batch) -> (params,
-    opt, metrics)`` with ``metrics`` ``{"loss", "lr", "grad_norm"}`` (the
+    """``(train_step, shardings)``: ``train_step(params, opt, batch) ->
+    (params, opt, metrics)`` with ``metrics`` ``{"loss", "lr", "grad_norm"}`` (the
     loss and norm device scalars, read without a sync until the caller
     asks).  ``params`` is the model's :class:`~repro_torch.models.Transformer`,
     made trainable here; ``opt`` is :func:`init_opt_state` of its
-    ``named_parameters()``.  The step is eager (the reference jits it)."""
-    _no_mesh(mesh)
+    ``named_parameters()``.  The step is eager (the reference jits it).
+    ``shardings`` is None on one device; on the model's mesh
+    ``{"params": weight specs, "opt": state specs}``, and the step is one
+    rank's (see the module docstring)."""
+    mesh = _mesh_of(model, mesh)
     if model.cast_params:
         raise ValueError("train float32 weights: build the model with cast_params=False "
                          "(the reference's masters stay float32)")
@@ -67,35 +146,68 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
         loss = model.loss_fn(params, batch)
         return loss.detach(), list(torch.autograd.grad(loss, list(weights.values())))
 
+    def loss_and_grads(params, weights, batch):
+        if tcfg.microbatches == 1:
+            return grads_of(params, weights, batch)
+        gb = batch["tokens"].shape[0]
+        if gb % tcfg.microbatches:
+            raise ValueError(f"a batch of {gb} rows does not split into "
+                             f"{tcfg.microbatches} microbatches")
+        mb = gb // tcfg.microbatches
+        loss_sum, grad_sum = None, None
+        for i in range(tcfg.microbatches):
+            micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
+            loss, grads = grads_of(params, weights, micro)
+            if grad_sum is None:  # float32, as the weights are
+                loss_sum, grad_sum = loss, grads
+            else:
+                loss_sum = loss_sum + loss
+                torch._foreach_add_(grad_sum, grads)
+            del grads
+        torch._foreach_div_(grad_sum, float(tcfg.microbatches))
+        return loss_sum / tcfg.microbatches, grad_sum
+
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
         weights = dict(params.named_parameters())
-        if tcfg.microbatches > 1:
-            gb = batch["tokens"].shape[0]
-            if gb % tcfg.microbatches:
-                raise ValueError(f"a batch of {gb} rows does not split into "
-                                 f"{tcfg.microbatches} microbatches")
-            mb = gb // tcfg.microbatches
-            loss_sum, grad_sum = None, None
-            for i in range(tcfg.microbatches):
-                micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
-                loss, grads = grads_of(params, weights, micro)
-                if grad_sum is None:  # float32, as the weights are
-                    loss_sum, grad_sum = loss, grads
-                else:
-                    loss_sum = loss_sum + loss
-                    torch._foreach_add_(grad_sum, grads)
-                del grads
-            loss = loss_sum / tcfg.microbatches
-            torch._foreach_div_(grad_sum, float(tcfg.microbatches))
-            grads = grad_sum
-        else:
-            loss, grads = grads_of(params, weights, batch)
+        loss, grads = loss_and_grads(params, weights, batch)
         _, opt_state, stats = adamw_update(tcfg.opt, weights, dict(zip(weights, grads)),
                                            opt_state)
         return params, opt_state, {"loss": loss, **stats}
 
-    return train_step, None
+    if mesh is None:
+        return train_step, None
+
+    pspecs, ospecs = _specs(model)
+    dims = _zero1_dims(pspecs, ospecs)
+
+    def mesh_step(params, opt_state, batch):
+        groups, _ = rank_axes(model.sharding)
+        data = groups["data"]
+        tokens = batch["tokens"]
+        if tokens.shape[0] % data.size:
+            raise ValueError(f"{tokens.shape[0]} rows do not split over {data.size} data ranks")
+        b = tokens.shape[0] // data.size
+        rows = {k: v[data.rank * b : (data.rank + 1) * b] for k, v in batch.items()}
+        params.requires_grad_(True)
+        weights = dict(params.named_parameters())
+        with torch.autograd.set_multithreading_enabled(False):
+            loss, grads = loss_and_grads(params, weights, rows)
+        grads = dict(zip(weights, grads))
+        _sum_over(data, [g for k, g in grads.items() if "data" not in used_axes(pspecs[k])])
+        norm = sharded_global_norm(grads, pspecs, groups)
+        blocks = {k: _zero1_block(p, dims[k], data) for k, p in weights.items()}
+        _, opt_state, stats = adamw_update(
+            tcfg.opt, blocks, {k: _zero1_block(g, dims[k], data) for k, g in grads.items()},
+            opt_state, norm=norm)
+        with torch.no_grad():
+            for k, d in dims.items():
+                if d is not None and data.size > 1:
+                    weights[k].copy_(torch.cat(list(data.all_gather(
+                        blocks[k].contiguous()).unbind(0)), d))
+        return params, opt_state, {"loss": loss, **stats}
+
+    return mesh_step, {"params": pspecs, "opt": ospecs}
 
 
 def train(model: Model, tcfg: TrainConfig, mesh=None, *, log: Callable[[str], None] = print,
@@ -112,52 +224,114 @@ def train(model: Model, tcfg: TrainConfig, mesh=None, *, log: Callable[[str], No
     the step in which SIGTERM arrived, it saves ``{"params", "opt"}`` (the
     write runs on the checkpoint's writer thread), and after SIGTERM it
     stops.  The SIGTERM hook needs the main thread, as ``signal`` does.
+
+    On the model's mesh every rank runs the loop on its blocks of the
+    weights and state; the ranks agree after each step whether SIGTERM
+    came, a checkpoint is gathered whole and saved by rank (0, 0), a
+    restore gives each rank its blocks, and the result is the whole
+    weights and state.
     """
-    _no_mesh(mesh)
+    mesh = _mesh_of(model, mesh)
     cfg = model.cfg
     dcfg = data or DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=128,
                               seed=tcfg.seed)
     train_step, _ = make_train_step(model, tcfg)
-    params = model.init_fn(torch.Generator(device=model.device).manual_seed(tcfg.seed))
-    params.requires_grad_(True)
-    weights = dict(params.named_parameters())
-    opt = init_opt_state(weights)
-    start = 0
-
-    ckpt = None
+    whole = [model.init_fn(torch.Generator(device=model.device).manual_seed(tcfg.seed))]
+    ckpt = latest = None
     if tcfg.checkpoint_dir:
         ckpt = CheckpointManager(tcfg.checkpoint_dir, async_save=True)
         latest = ckpt.latest_step()
-        if latest is not None:
-            restored = ckpt.restore(latest, {"params": weights, "opt": opt})
-            with torch.no_grad():
-                torch._foreach_copy_(list(weights.values()),
-                                     [restored["params"][k] for k in weights])
-            opt = restored["opt"]
-            start = latest
-            log(f"restored checkpoint at step {latest}")
 
     preempted = {"flag": False}
 
     def _on_sigterm(signum, frame):  # preemption hook
         preempted["flag"] = True
 
-    old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
-    metrics = {}
-    try:
+    def loop(params, opt, start, save, stop_now, writer: bool):
+        metrics = {}
         for step_i in range(start, tcfg.steps):
             batch = synthetic_batch(dcfg, step_i, model.device)
             params, opt, metrics = train_step(params, opt, batch)
-            if (step_i + 1) % tcfg.log_every == 0:
+            if writer and (step_i + 1) % tcfg.log_every == 0:
                 log(f"step {step_i + 1}: loss {float(metrics['loss']):.4f} "
                     f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.2f}")
-            if ckpt and ((step_i + 1) % tcfg.checkpoint_every == 0 or preempted["flag"]):
-                ckpt.save(step_i + 1, {"params": weights, "opt": opt})
-            if preempted["flag"]:
-                log(f"preemption: checkpoint saved at step {step_i + 1}; exiting")
+            stop = stop_now()
+            if ckpt and ((step_i + 1) % tcfg.checkpoint_every == 0 or stop):
+                save(step_i + 1, params, opt)
+            if stop:
+                if writer:
+                    log(f"preemption: checkpoint saved at step {step_i + 1}; exiting")
                 break
+        return params, opt, metrics
+
+    def single():
+        params = whole.pop()
+        params.requires_grad_(True)
+        weights = dict(params.named_parameters())
+        opt, start = init_opt_state(weights), 0
+        if latest is not None:
+            restored = ckpt.restore(latest, {"params": weights, "opt": opt})
+            with torch.no_grad():
+                torch._foreach_copy_(list(weights.values()),
+                                     [restored["params"][k] for k in weights])
+            opt, start = restored["opt"], latest
+            log(f"restored checkpoint at step {latest}")
+
+        def save(step, params, opt):
+            ckpt.save(step, {"params": dict(params.named_parameters()), "opt": opt})
+
+        params, opt, metrics = loop(params, opt, start, save, lambda: preempted["flag"], True)
+        return {"params": params, "opt": opt, "metrics": metrics}
+
+    def on_rank(ctx):
+        params = model.shard_params(whole[0])
+        ctx.data.barrier()
+        ctx.model.barrier()  # every rank holds its blocks: the whole weights may go
+        if ctx.data.rank == 0 and ctx.model.rank == 0:
+            whole.clear()
+        writer = ctx.data.rank == 0 and ctx.model.rank == 0
+        weights = dict(params.named_parameters())
+        opt, start = rank_opt_state(model, params), 0
+        if latest is not None:
+            pspecs, ospecs = _specs(model)
+            groups, index = rank_axes(model.sharding)
+            sizes = {a: g.size for a, g in groups.items()}
+
+            def place(specs):
+                return {k: Placement(spec, sizes, index) for k, spec in specs.items()}
+
+            restored = ckpt.restore(latest, {"params": weights, "opt": opt},
+                                    shardings={"params": place(pspecs),
+                                               "opt": {"m": place(ospecs["m"]),
+                                                       "v": place(ospecs["v"])}})
+            with torch.no_grad():
+                torch._foreach_copy_(list(weights.values()),
+                                     [restored["params"][k] for k in weights])
+            opt, start = restored["opt"], latest
+            if writer:
+                log(f"restored checkpoint at step {latest}")
+
+        def save(step, params, opt):
+            p, o = model.gather_params(params), gather_opt_state(model, opt)
+            if writer:
+                ckpt.save(step, {"params": dict(p.named_parameters()), "opt": o})
+
+        def stop_now() -> bool:  # every rank stops after the same step
+            flag = torch.tensor([float(preempted["flag"])], device=model.device)
+            for g in (ctx.data, ctx.model):
+                if g.size > 1:
+                    flag = g.all_reduce_sum(flag)
+            return bool(flag.item() > 0)
+
+        params, opt, metrics = loop(params, opt, start, save, stop_now, writer)
+        p, o = model.gather_params(params), gather_opt_state(model, opt)
+        return {"params": p, "opt": o, "metrics": metrics} if writer else None
+
+    old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        return single() if mesh is None else mesh.run(on_rank)[0]
     finally:
         signal.signal(signal.SIGTERM, old_handler)
         if ckpt:
             ckpt.wait()
-    return {"params": params, "opt": opt, "metrics": metrics}
+

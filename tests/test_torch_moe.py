@@ -149,6 +149,19 @@ def test_shard_expert_weights_follow_the_reference_specs():
     assert torch.equal(r1.w_up, p.w_up[:, :, 32:64]) and torch.equal(r1.w_down, p.w_down[:, 32:64])
     with pytest.raises(ValueError, match="do not split"):
         moe.shard_expert_weights(p, cfg, 0, 3)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        LocalMesh(1, device="cpu").run(lambda ctx: moe.moe_block_manual(
-            p, torch.zeros(1, 4, cfg.d_model), cfg, group=ctx.data, fsdp=True))
+    # the FSDP unshard: expert weights split over a data axis of 2 as the
+    # specs say (router dim 0, w_gate/w_up dim 1, w_down dim 2), gathered at
+    # entry == the same rank's weights whole
+    x = torch.from_numpy(_x((2, 8), cfg.d_model, seed=3))
+
+    def rank(ctx):
+        ep = moe.shard_expert_weights(p, cfg, ctx.iters.rank, 2)
+        d, n = ctx.data.rank, cfg.d_model // 2
+        fs = moe.MoE(ep.router[d * n : (d + 1) * n], ep.w_gate[:, d * n : (d + 1) * n],
+                     ep.w_up[:, d * n : (d + 1) * n], ep.w_down[:, :, d * n : (d + 1) * n])
+        kw = dict(group=ctx.iters, data_group=ctx.data, dtype=torch.float32)
+        return (moe.moe_block_manual(fs, x, cfg, fsdp=True, **kw),
+                moe.moe_block_manual(ep, x, cfg, **kw))
+
+    for (out_f, aux_f), (out, aux) in LocalMesh(2, 2, device="cpu").run(rank):
+        assert torch.equal(out_f, out) and torch.equal(aux_f, aux)

@@ -184,8 +184,12 @@ def test_adamw_reduces_quadratic_and_refuses_cast_weights():
     with pytest.raises(ValueError, match="float32"):
         adamw_update(cfg, {"w": torch.zeros(2, dtype=torch.bfloat16)}, {"w": torch.zeros(2)},
                      init_opt_state({"w": torch.zeros(2)}))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        opt_state_pspecs({}, zero1=True)
+    # ZeRO-1's state specs: the first whole dimension that data divides
+    specs = opt_state_pspecs({"w": ("model", None), "b": (None,), "x": ("data",)},
+                             {"w": torch.zeros(4, 6), "b": torch.zeros(3), "x": torch.zeros(4)},
+                             zero1=True, data_size=2)
+    assert specs["m"] == {"w": ("model", "data"), "b": (None,), "x": ("data",)}
+    assert specs["v"] == specs["m"] and specs["step"] == ()
 
 
 def test_reference_state_carries_across():
@@ -381,13 +385,20 @@ def test_sigterm_saves_after_the_step_and_exits(tmp_path, monkeypatch):
 
 
 def test_train_refuses_a_mesh_and_cast_weights():
-    model = build_model(get_arch("smollm-360m").reduced(), device="cpu")
+    """A mesh trains the ``("attn",)`` rows (the model built on it); the
+    other rows' meshes wait for ROADMAP queue 1 item 17."""
+    from repro_torch.configs import ShardingConfig
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 2, device="cpu")
+    model = build_model(get_arch("smollm-360m").reduced(), ShardingConfig(batch_axes=("data",)),
+                        mesh)
+    out = train(model, TrainConfig(steps=1), mesh)
+    assert int(out["opt"]["step"]) == 1 and np.isfinite(float(out["metrics"]["loss"]))
+    _, shardings = make_train_step(model, TrainConfig(), mesh)
+    assert shardings["params"]["embed"] == ("model", None)
     with pytest.raises(NotImplementedError, match="item 17"):
-        train(model, TrainConfig(steps=1), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_train_step(model, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_arch("smollm-360m").reduced(), mesh=object(), device="cpu")
+        build_model(get_arch("rwkv6-3b").reduced(), mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="cast_params"):
         make_train_step(build_model(get_arch("smollm-360m").reduced(), cast_params=True,
                                     device="cpu"), TrainConfig())
@@ -404,11 +415,22 @@ def test_launcher_takes_three_steps_on_the_cpu(tmp_path):
     assert int(out["opt"]["step"]) == 3 and np.isfinite(float(out["metrics"]["loss"]))
 
 
-@pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"], ["--data", "2"],
-                                   ["--model", "2"], ["--distributed"]])
+@pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
+                                   ["--data", "2", "--arch", "rwkv6-3b"],
+                                   ["--model", "2", "--arch", "whisper-base"],
+                                   ["--distributed", "--arch", "recurrentgemma-2b"]])
 def test_launcher_refuses_every_mesh_flag(flags):
+    """What still waits for item 17: the production mesh, and any mesh for
+    the rows whose pattern is not ``("attn",)``."""
     with pytest.raises(NotImplementedError, match="item 17"):
         launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--data", "2"], ["--model", "2"], ["--data", "2", "--model",
+                                                                       "2"]])
+def test_launcher_takes_the_local_mesh_flags(flags):
+    out = launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
+    assert int(out["opt"]["step"]) == 1 and np.isfinite(float(out["metrics"]["loss"]))
 
 
 def test_launcher_needs_a_card_unless_asked(monkeypatch):
