@@ -48,8 +48,11 @@ from .differentiable import (  # noqa: F401
     all_gather_cat,
     all_gather_cat_many,
     copy_to,
+    gather_cat_replicated,
     gather_replicated,
     reduce_from,
+    reduce_scatter,
+    split,
 )
 from .pipelined import fused_exchange, grouped_exchange  # noqa: F401
 from .ring import ring_allgather, ring_allgather_overlap, ring_reduce_scatter  # noqa: F401

@@ -16,6 +16,13 @@ collective in the reference (Megatron's pattern):
 * :func:`gather_replicated`: an all-gather whose result every rank goes on
   computing with as the same replicated value, so every rank holds the
   whole gradient and keeps its own part of it (no collective backward);
+  :func:`gather_cat_replicated` the same concatenated along a dimension;
+* :func:`reduce_scatter` (sequence parallelism's exit): the sum over the
+  group, this rank's block of a dimension forward, the gradient
+  all-gathered back;
+* :func:`split`: this rank's block of a replicated activation forward, the
+  blocks' gradients all-gathered back into the replicated one's whole
+  gradient;
 * :func:`all_to_all` and :func:`shift`: the :class:`~.group.Group`
   collectives with their adjoints (an all-to-all back, a shift the other
   way), for the experts' exchange; :class:`DifferentiableGroup` offers
@@ -36,7 +43,8 @@ import torch
 from .group import Group, Work
 
 __all__ = ["copy_to", "reduce_from", "all_gather_cat", "all_gather_cat_many", "gather_replicated",
-           "all_to_all", "shift", "DifferentiableGroup"]
+           "gather_cat_replicated", "reduce_scatter", "split", "all_to_all", "shift",
+           "DifferentiableGroup"]
 
 
 def _solo(group: Group) -> bool:
@@ -127,6 +135,39 @@ class _GatherReplicated(torch.autograd.Function):
         return g[ctx.rank], None
 
 
+class _GatherCatReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_cat(group, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.group.size, ctx.dim)[ctx.group.rank].contiguous(), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(group, x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(ctx.group, g, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(group.size, dim)[group.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(ctx.group, g, ctx.dim), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, chunks, group):
@@ -179,6 +220,26 @@ def gather_replicated(x: torch.Tensor, group: Group) -> torch.Tensor:
     rank (a replicated activation); the gradient of this rank's ``x`` is its
     part of its own whole gradient."""
     return _GatherReplicated.apply(x, group)
+
+
+def gather_cat_replicated(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, to be used alike on
+    every rank; the gradient of this rank's ``x`` is its block of its own
+    whole gradient."""
+    return x if _solo(group) else _GatherCatReplicated.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, this rank's block of ``dim`` (which
+    the group's size must divide); the gradient is all-gathered back."""
+    return x if _solo(group) else _ReduceScatter.apply(x, group, dim)
+
+
+def split(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of ``x``, a replicated activation; the
+    blocks' gradients are all-gathered, so every rank holds the whole
+    gradient of ``x``."""
+    return x if _solo(group) else _Split.apply(x, group, dim)
 
 
 def all_to_all(chunks: torch.Tensor, group: Group) -> torch.Tensor:

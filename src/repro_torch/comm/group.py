@@ -214,6 +214,10 @@ class LocalGroup(Group):
         _check_chunks(chunks, self.size)
         got = self._exchange(list(chunks.unbind(0)))
         out = torch.stack(got)  # the wire: one copy into the received buffer
+        # drop the peers' views before meeting, so that once past the barrier
+        # no rank keeps another's chunks alive (a rank's `del` of what it
+        # sent then frees it, as the dry-run's one-rank model assumes)
+        del got
         # peers stacked the views this rank posted; meet once more so that
         # no rank writes into its chunks while a peer may still read them
         self.barrier()
@@ -232,12 +236,14 @@ class LocalGroup(Group):
         out = got[0].clone()
         for y in got[1:]:  # rank order: every rank gets the same bits
             out += y
+        got = y = None  # as all_to_all: no peer's input outlives the barrier
         self.barrier()
         return out
 
     def all_gather(self, x):
         got = self._exchange([x] * self.size)
         out = torch.stack(got)
+        del got  # as all_to_all: no peer's input outlives the barrier
         self.barrier()
         return out
 

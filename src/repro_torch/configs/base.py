@@ -152,8 +152,11 @@ class ShardingConfig:
     ``fsdp`` (ZeRO-3: weights sharded over ``data`` and gathered where
     used), ``zero1`` (AdamW's ``m`` and ``v`` sharded over ``data``) and
     ``moe_pipeline`` (the experts' exchange as ``grouped_exchange``).
-    ``seq_axis`` (with ``sp_dim``, read only with it) and ``attn_anchor``
-    wait for ROADMAP queue 1 item 17: a mesh run with either set raises.
+    ``seq_axis="model"`` is sequence parallelism (``sp_dim`` 1: the
+    stream's sequence, 2: its channels, split over the model axis between
+    blocks) and ``attn_anchor`` gives each model rank its own q heads
+    (``models.layers.MeshShard``); a ``pod`` axis waits for ROADMAP queue 1
+    item 17.
     ``grad_compression`` is a field the reference's train step never reads,
     and the port's does not read it either (the int8 ring is a library
     function, ``comm.compress``)."""

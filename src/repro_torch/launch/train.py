@@ -9,9 +9,9 @@ threads on one device taking turns at host code
 ``ShardingConfig(batch_axes=("data",))``, as the reference does;
 ``--distributed`` joins the ``torchrun`` job this process was started in
 (``launch.mesh.init_process_group``), one rank a process, laid out ``--data
-x --model`` (``process_mesh``).  ``--production-mesh`` and ``--multi-pod``
-need sequence parallelism and 256 ranks: they wait for ROADMAP queue 1
-item 17 and exit with that error.
+x --model`` (``process_mesh``); every row runs on a mesh.
+``--production-mesh`` and ``--multi-pod`` need a pod axis and 256 ranks:
+they wait for ROADMAP queue 1 item 17 and exit with that error.
 
 Run::
 
@@ -55,14 +55,12 @@ def main(argv: Optional[Sequence[str]] = None):
     waits = [f for f, on in (("--production-mesh", args.production_mesh),
                              ("--multi-pod", args.multi_pod)) if on]
     if waits:
-        raise NotImplementedError(f"{', '.join(waits)}: the production mesh needs sequence "
-                                  f"parallelism and 256 ranks (ROADMAP queue 1 item 17)")
+        raise NotImplementedError(f"{', '.join(waits)}: the production meshes need a pod axis "
+                                  f"and 256 ranks (ROADMAP queue 1 item 17)")
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     meshed = args.distributed or args.data * args.model > 1
-    if meshed and tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError(f"{cfg.name} on a mesh waits for ROADMAP queue 1 item 17")
     if args.distributed:
         dev = init_process_group(args.device)
         mesh = process_mesh(data=args.data, iters=args.model, device=dev)

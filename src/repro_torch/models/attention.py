@@ -19,15 +19,24 @@ specs split output columns, not heads, so a rank's columns may cut a head
 (smollm-360m at ``model = 2``: 7.5 of 15 heads).  Where the heads and the
 KV heads both divide the model axis, each rank attends on its own heads
 with their whole GQA groups (the flash kernel on the rank's heads, when
-serving); otherwise every rank all-gathers q, k and v, attends on all
-heads and keeps its own output columns for ``wo``.  The gather is the
+serving).  With ``attn_anchor`` (``MeshShard.anchor``), where the heads
+divide the axis and the KV heads do not (recurrentgemma-2b: 10 heads, 1
+KV head), each rank all-gathers k and v and attends its own q heads over
+the KV heads they read (the reference's ``attn_repeat_kv``: each KV head
+once where the rank's q heads share it in whole groups, else repeated to
+one a q head).  Otherwise every rank all-gathers q, k and v, attends on
+all heads and keeps its own output columns for ``wo``.  The gather is the
 simpler of the two reshards the cut allows (an all-to-all to whole heads
 is the other): it costs ``model`` times the attention's compute, and its
 gradient is a reduce-scatter.  The KV cache is sharded over the sequence
 (``cache_pspecs``): ``k``, ``v`` ``[B, Hkv, ceil(S/model), hd]`` a rank,
 the last blocks padded and masked where ``S`` does not divide the axis,
 and ``slot_pos`` whole on every rank.  Decode combines each rank's partial
-softmax over its slots (the flash-decoding combine).
+softmax over its slots (the flash-decoding combine); an anchored decode
+takes the cut-head path.  :func:`cross_attention_tp` is the cross-attention
+of a rank: heads as above through :func:`chunked_attention`, the context
+replicated over the model axis and its keys and values whole in the cache
+(``xk``, ``xv``, gathered at prefill).
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..comm import all_gather_cat
+from ..comm import all_gather_cat, copy_to
 from ..kernels import ops
 from ..kernels.ref import NEG
 from .layers import Dense, Initializer, MeshShard, dense_apply, dense_init, rope
@@ -48,6 +57,7 @@ __all__ = [
     "attn_init",
     "attention_block",
     "attention_block_tp",
+    "cross_attention_tp",
     "init_kv_cache_tp",
     "chunked_attention",
     "decode_attention",
@@ -390,9 +400,42 @@ def _cache_tp(rs: MeshShard, k, v, whole: bool, l: int, s_buf: int, dtype) -> di
     return out
 
 
+def _anchored(cfg, rs: MeshShard) -> bool:
+    """Whether ``attn_anchor`` gives each rank its own q heads: the heads
+    divide the model axis, the KV heads do not."""
+    pm = rs.model.size
+    return rs.anchor and pm > 1 and cfg.num_heads % pm == 0 and cfg.num_kv_heads % pm != 0
+
+
+def _own_kv(k: torch.Tensor, cfg, rs: MeshShard) -> torch.Tensor:
+    """The KV heads ``[B, n, L, D]`` of ``k`` (every KV head) that this
+    rank's own q heads read: each once where they serve the rank's heads in
+    equal consecutive groups, else one a q head (the reference's repeat)."""
+    pm, m = rs.model.size, rs.model.rank
+    hq, g = cfg.num_heads // pm, cfg.num_heads // cfg.num_kv_heads
+    idx = [(m * hq + j) // g for j in range(hq)]
+    n = idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [idx[0] + j // (hq // n) for j in range(hq)]:
+        return k[:, idx[0] : idx[0] + n]
+    return k[:, idx]
+
+
+def _gather_cols(ts, rs: MeshShard, grad: bool):
+    """Every rank's columns of each of ``ts`` ``[B, L, c_i]``, in one
+    all-gather: ``[B, L, model * c_i]`` each, in rank order (the gradient
+    reduce-scattered back where ``grad``)."""
+    b, l = ts[0].shape[:2]
+    pm = rs.model.size
+    cols = [t.shape[-1] for t in ts]
+    cat = torch.cat(ts, -1)
+    got = (all_gather_cat(cat, rs.model, -1) if grad
+           else torch.cat(list(rs.model.all_gather(cat.contiguous()).unbind(0)), -1))
+    return [t.flatten(-2) for t in got.reshape(b, l, pm, sum(cols)).split(cols, -1)]
+
+
 def attention_block_tp(
     p: Attention,
-    x: torch.Tensor,  # [B, L, D_model], replicated over the model axis
+    x: torch.Tensor,  # the stream: [B, L, D_model] replicated, or this rank's block of it
     cfg,
     rs: MeshShard,
     *,
@@ -406,26 +449,26 @@ def attention_block_tp(
     attn_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """:func:`attention_block`'s self-attention as one rank of the mesh
-    (see the module docstring): ``p`` holds the rank's weights, the output
-    ``[B, L, D_model]`` is replicated over the model axis.  With ``cache``
-    (decode) the rank's cache block is updated in place; with
+    (see the module docstring): ``p`` holds the rank's weights; the output
+    is the rank's part of the stream (:meth:`MeshShard.leave`).  With
+    ``cache`` (decode) the rank's cache block is updated in place; with
     ``build_cache_len`` (prefill) the rank's block is built."""
     hd = cfg.resolved_head_dim
     pm, m = rs.model.size, rs.model.rank
-    b, l, _ = x.shape
     xe = rs.enter(x)
+    b, l, _ = xe.shape
     q, k, v = (rs.column(w, xe, dtype) for w in (p.wq, p.wk, p.wv))
     whole = _whole_heads(cfg, pm)
+    anchored = not whole and cache is None and _anchored(cfg, rs)
+    grad = cache is None
     if whole:
         h, kv = cfg.num_heads // pm, cfg.num_kv_heads // pm
-    else:  # every rank's columns of q, k and v, in one gather
+    elif anchored:  # own q heads; every rank's columns of k and v
+        h, kv = cfg.num_heads // pm, cfg.num_kv_heads
+        k, v = _gather_cols([k, v], rs, grad)
+    else:  # every rank's columns of q, k and v
         h, kv = cfg.num_heads, cfg.num_kv_heads
-        cols = [t.shape[-1] for t in (q, k, v)]
-        qkv = torch.cat([q, k, v], -1)
-        qkv = (all_gather_cat(qkv, rs.model, -1) if cache is None
-               else torch.cat(list(rs.model.all_gather(qkv).unbind(0)), -1))
-        qkv = qkv.reshape(b, l, pm, sum(cols))
-        q, k, v = (t.flatten(-2) for t in qkv.split(cols, -1))
+        q, k, v = _gather_cols([q, k, v], rs, grad)
     q, k, v = (t.reshape(b, l, n, hd).transpose(1, 2) for t, n in ((q, h), (k, kv), (v, kv)))
     positions = (torch.arange(l, device=x.device) if cache is None
                  else torch.full((l,), pos, device=x.device))
@@ -443,16 +486,85 @@ def attention_block_tp(
         cols = cfg.num_heads * hd // pm
         out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * hd)[..., m * cols : (m + 1) * cols]
         return rs.row(p.wo.w, out, dtype), new_cache
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = chunked_attention(q, k, v, causal=causal, window=window, q_chunk=attn_chunk,
+    ka, va = (_own_kv(k, cfg, rs), _own_kv(v, cfg, rs)) if anchored else (k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or ka.requires_grad or va.requires_grad):
+        out = chunked_attention(q, ka, va, causal=causal, window=window, q_chunk=attn_chunk,
                                 kv_chunk=attn_chunk)
     else:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+        out = ops.flash_attention(q.contiguous(), ka.contiguous(), va.contiguous(),
                                   causal=causal, window=window)
     if build_cache_len is not None:
         new_cache = _cache_tp(rs, k, v, whole, l, build_cache_len, cache_dtype)
     out = out.transpose(1, 2).reshape(b, l, h * hd)
-    if not whole:
+    if not (whole or anchored):
+        cols = h * hd // pm
+        out = out[..., m * cols : (m + 1) * cols]
+    return rs.row(p.wo.w, out, dtype), new_cache
+
+
+def cross_attention_tp(
+    p: Attention,
+    x: torch.Tensor,  # the stream, as attention_block_tp takes it
+    cfg,
+    rs: MeshShard,
+    *,
+    context: Optional[torch.Tensor] = None,  # [B, Lc, D_model], replicated over the model axis
+    cache: Optional[dict] = None,
+    dtype=torch.bfloat16,
+    build_cache: bool = False,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Cross-attention as one rank of the mesh: train and prefill over
+    ``context`` (``build_cache``: the context's keys and values of every
+    KV head, ``{"xk", "xv"}`` ``[B, Hkv, Lc, hd]``, gathered over the model
+    axis), decode over ``cache["xk"]``, ``cache["xv"]``.  Heads split as in
+    :func:`attention_block_tp`; the output is the rank's part of the
+    stream."""
+    hd = cfg.resolved_head_dim
+    pm, m = rs.model.size, rs.model.rank
+    xe = rs.enter(x)
+    b, l, _ = xe.shape
+    q = rs.column(p.wq, xe, dtype)
+    whole = _whole_heads(cfg, pm)
+    own = whole or _anchored(cfg, rs)
+    new_cache = None
+    if cache is None:
+        if context is None:
+            raise ValueError("a cross-attention needs a context outside decode")
+        ctx = copy_to(context, rs.model)
+        lc = ctx.shape[1]
+        k, v = rs.column(p.wk, ctx, dtype), rs.column(p.wv, ctx, dtype)
+        if build_cache:
+            xk, xv = _gather_cols([k, v], rs, grad=False)
+            new_cache = {n: t.reshape(b, lc, cfg.num_kv_heads, hd).transpose(1, 2)
+                         for n, t in (("xk", xk), ("xv", xv))}
+        if whole:
+            kv = cfg.num_kv_heads // pm
+        elif own:
+            k, v = _gather_cols([k, v], rs, grad=True)
+            kv = cfg.num_kv_heads
+        else:  # q has the prompt's positions, k and v the context's
+            (q,) = _gather_cols([q], rs, grad=True)
+            k, v = _gather_cols([k, v], rs, grad=True)
+            kv = cfg.num_kv_heads
+        h = cfg.num_heads // pm if own else cfg.num_heads
+        q = q.reshape(b, l, h, hd).transpose(1, 2)
+        k, v = (t.reshape(b, lc, kv, hd).transpose(1, 2) for t in (k, v))
+        if own and not whole:
+            k, v = _own_kv(k, cfg, rs), _own_kv(v, cfg, rs)
+        out = chunked_attention(q, k, v, causal=False, window=0)
+    else:
+        xk, xv = cache["xk"], cache["xv"]
+        lc = xk.shape[2]
+        if own:
+            h = cfg.num_heads // pm
+            xk, xv = _own_kv(xk, cfg, rs), _own_kv(xv, cfg, rs)
+        else:
+            h = cfg.num_heads
+            (q,) = _gather_cols([q], rs, grad=False)
+        q = q.reshape(b, l, h, hd).transpose(1, 2)
+        out = decode_attention(q, xk, xv, torch.arange(lc, device=x.device), lc, window=0)
+    out = out.transpose(1, 2).reshape(b, l, h * hd)
+    if not own:
         cols = h * hd // pm
         out = out[..., m * cols : (m + 1) * cols]
     return rs.row(p.wo.w, out, dtype), new_cache

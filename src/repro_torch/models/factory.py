@@ -46,9 +46,18 @@ its backward under ``torch.autograd.set_multithreading_enabled(False)``,
 as ``make_train_step`` does: autograd's one device thread would otherwise
 block in one rank's collective); ``prefill_fn`` and ``decode_fn`` return
 the rank's block of vocab columns of the last position's logits
-``[B_loc, V_pad / model]``.  Rows whose pattern is
-``("attn",)`` run on a mesh; the four others, sequence parallelism
-(``seq_axis``) and ``attn_anchor`` wait for ROADMAP queue 1 item 17.
+``[B_loc, V_pad / model]``.  All ten rows run on a mesh, trained and
+served, every block kind as one rank's program (``models/transformer.py``),
+the context of a vision or audio row the rank's rows of it.
+``seq_axis="model"`` is sequence parallelism (``MeshShard.sp``): with
+``sp_dim=1`` the residual stream between blocks is the rank's block of the
+sequence, a prompt whose length the model axis does not divide padded with
+zero rows that every block keeps at zero; with ``sp_dim=2`` its block of
+the channels.  Decode's one token keeps the stream replicated.
+``attn_anchor`` gives each rank its own q heads where the heads divide the
+model axis and the KV heads do not (``attention_block_tp``).  A ``pod``
+axis (the multi-pod and production meshes) waits for ROADMAP queue 1 item
+17.
 """
 
 from __future__ import annotations
@@ -130,15 +139,16 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *
     is 1: 2047 one-token chunks); here the last chunk is ragged instead.
     That is the same sum in another order.
 
-    With ``rs`` (one rank of a mesh) ``h`` is the rank's rows, replicated
-    over the model axis, and ``head`` its block of vocab columns: the
-    logits are vocab-parallel and the result is the rank's share of the
-    global mean, its sum over the data axis divided by the global count.
+    With ``rs`` (one rank of a mesh) ``h`` is the rank's rows, whole, as
+    they entered the rank's compute (``MeshShard.enter``), and ``head`` its
+    block of vocab columns: the logits are vocab-parallel and the result is
+    the rank's share of the global mean, its sum over the data axis divided
+    by the global count.
     """
     b, s, _ = h.shape
     v_pad, lo, count = head.shape[1], 0, b * s
     if rs is not None:
-        h, lo, count = rs.enter(h), rs.model.rank * v_pad, count * rs.data.size
+        lo, count = rs.model.rank * v_pad, count * rs.data.size
     pad = None
     if vocab_size and lo + v_pad > vocab_size:
         pad = torch.where(torch.arange(lo, lo + v_pad, device=h.device) < vocab_size, 0.0,
@@ -274,12 +284,16 @@ def rank_axes(sh: ShardingConfig) -> Tuple[Dict[str, Any], Dict[str, int]]:
 def _check_mesh(cfg: ArchConfig, sh: ShardingConfig, mesh) -> None:
     if not isinstance(mesh, (LocalMesh, ProcessMesh)):
         raise TypeError(f"a mesh is a LocalMesh or a ProcessMesh (launch.mesh), not {mesh!r}")
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError(f"{cfg.name} (blocks {cfg.block_pattern}) on a mesh waits "
-                                  f"for ROADMAP queue 1 item 17: only ('attn',) rows run")
-    if sh.seq_axis is not None or sh.attn_anchor:
-        raise NotImplementedError("sequence parallelism (seq_axis) and attn_anchor wait for "
+    if "pod" in (sh.model_axis, sh.seq_axis):
+        raise NotImplementedError("a pod axis (the multi-pod and production meshes) waits for "
                                   "ROADMAP queue 1 item 17")
+    if sh.seq_axis not in (None, sh.model_axis):
+        raise ValueError(f"sequence parallelism runs over the model axis {sh.model_axis!r}, "
+                         f"not {sh.seq_axis!r}")
+    if sh.sp_dim not in (1, 2):
+        raise ValueError(f"sp_dim is 1 (the sequence) or 2 (the channels), not {sh.sp_dim}")
+    if sh.seq_axis is not None and sh.sp_dim == 2 and cfg.d_model % mesh.iter_size:
+        raise ValueError(f"sp_dim=2 splits {cfg.d_model} channels over {mesh.iter_size} ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +380,8 @@ class Model:
         groups, _ = rank_axes(self.sharding)
         sh = self.sharding
         return MeshShard(groups["data"], groups[sh.model_axis], fsdp=sh.fsdp,
-                         moe_pipeline=sh.moe_pipeline)
+                         moe_pipeline=sh.moe_pipeline,
+                         sp=0 if sh.seq_axis is None else sh.sp_dim, anchor=sh.attn_anchor)
 
 
 def _rebuild(model: Model, tensors: Mapping[str, torch.Tensor]) -> Transformer:
@@ -427,13 +442,13 @@ def build_model(
             raise ValueError(f"the generator is on {generator.device}, the model on {dev}")
         return init_params(cfg, generator, device=dev, dtype=dtype if cast_params else None)
 
-    def _context_of(params, batch):
+    def _context_of(params, batch, rs):
         ctx = batch.get("context")
         if ctx is None:
             return None
         ctx = ctx.to(dev)
         if cfg.family == "audio":  # frame embeddings -> encoder -> the cross context
-            return encode(params, cfg, ctx, dtype=dtype, attn_chunk=sh.attn_chunk)
+            return encode(params, cfg, ctx, dtype=dtype, attn_chunk=sh.attn_chunk, rs=rs)
         return ctx.to(dtype)
 
     def loss_fn(params, batch):
@@ -445,7 +460,7 @@ def build_model(
         check_weights(params, cfg)
         rs = rank()
         tokens = batch["tokens"].to(dev)
-        h, _, aux = params(tokens, mode="train", context=_context_of(params, batch),
+        h, _, aux = params(tokens, mode="train", context=_context_of(params, batch, rs),
                            dtype=dtype, remat=sh.remat, attn_chunk=sh.attn_chunk,
                            return_hidden=True, rs=rs)
         head = params.embed.T if params.lm_head is None else params.lm_head
@@ -454,8 +469,9 @@ def build_model(
             return loss + 0.01 * aux
         head = (rs.unshard(params.embed, 1).T if params.lm_head is None
                 else rs.unshard(params.lm_head, 0))
-        loss = chunked_ce_loss(h[:, :-1], head, tokens[:, 1:], vocab_size=cfg.vocab_size,
-                               rs=rs)
+        rs = dataclasses.replace(rs, seq_len=tokens.shape[1])
+        loss = chunked_ce_loss(rs.enter(h)[:, :-1], head, tokens[:, 1:],
+                               vocab_size=cfg.vocab_size, rs=rs)
         return reduce_from(loss, rs.data) + 0.01 * aux
 
     @torch.no_grad()
@@ -463,9 +479,9 @@ def build_model(
         check_weights(params, cfg)
         tokens = batch["tokens"].to(dev)
         s_buf = cache_buffer_len(cfg, tokens.shape[1])
-        logits, caches, _ = params(tokens, mode="prefill", context=_context_of(params, batch),
-                                   dtype=dtype, s_buf=s_buf, cache_dtype=cache_dtype,
-                                   rs=rank())
+        rs = rank()
+        logits, caches, _ = params(tokens, mode="prefill", context=_context_of(params, batch, rs),
+                                   dtype=dtype, s_buf=s_buf, cache_dtype=cache_dtype, rs=rs)
         return logits[:, -1].clone(), caches  # the clone lets the [B, L, V] logits go
 
     @torch.no_grad()

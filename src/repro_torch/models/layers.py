@@ -13,7 +13,10 @@ reference's ``cast_params``); 1-D weights (norms, biases) stay float32.
 On a ``data x model`` mesh a rank computes through its :class:`MeshShard`:
 column-parallel projections on its block of output columns, row-parallel
 ones summed over the model axis in float32, weights gathered over the data
-axis where they are used under FSDP, and the vocab-parallel embedding.
+axis where they are used under FSDP, and the vocab-parallel embedding;
+with sequence parallelism the stream between blocks is this rank's block
+of the sequence (or of the channels) and the entry and exit collectives an
+all-gather and a reduce-scatter.
 """
 
 from __future__ import annotations
@@ -26,7 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..comm import Group, all_gather_cat, all_gather_cat_many, copy_to, reduce_from
+from ..comm import (
+    Group,
+    all_gather_cat,
+    all_gather_cat_many,
+    copy_to,
+    gather_cat_replicated,
+    reduce_from,
+    reduce_scatter,
+    split,
+)
 
 __all__ = [
     "Initializer",
@@ -164,16 +176,41 @@ class MeshShard:
     a rank program with explicit collectives (Megatron's pattern).
 
     ``data`` is the batch axis (and FSDP's), ``model`` the tensor- and
-    expert-parallel axis.  Activations between blocks are replicated over
-    ``model``; a block enters rank-specific compute through ``copy_to`` and
-    leaves it through a float32 ``reduce_from``, so every model rank holds
-    the same residual stream and, backward, the same gradient of it.
+    expert-parallel axis.  Without sequence parallelism (``sp = 0``) the
+    residual stream between blocks is replicated over ``model``: a block
+    enters rank-specific compute through ``copy_to`` and leaves it through a
+    float32 ``reduce_from``, so every model rank holds the same stream and,
+    backward, the same gradient of it.
+
+    With ``sp = 1`` (the reference's ``seq_axis`` with ``sp_dim=1``,
+    Megatron's sequence parallelism) the stream is this rank's block of the
+    sequence ``[B, Lp / model, D]``: :meth:`enter` all-gathers it (the
+    gradient reduce-scattered back) and :meth:`leave` reduce-scatters the
+    partial sums (the gradient all-gathered back).  ``L`` (``seq_len``) is
+    padded to ``Lp``, the next multiple of ``model``, with zero rows that
+    every block keeps at zero (norms of zero rows are zero, the partial sums
+    are padded with zeros) and :meth:`enter` drops.  With ``sp = 2`` the
+    stream is this rank's block of the channels ``[B, L, D / model]`` and
+    :meth:`norm` all-reduces the sum of squares.  Decode (one token) keeps
+    the stream replicated.  Weights replicated over ``model`` go through
+    :meth:`rep` where a rank's own compute reads them and through
+    :meth:`stream_weight` where they act on the stream, so their gradients
+    are whole on every rank.
+
+    ``anchor`` is the reference's ``attn_anchor``: where the heads divide
+    the model axis and the KV heads do not, each rank attends only its own
+    q heads with the KV heads they need (``attention_block_tp``).
     """
 
     data: Group
     model: Group
     fsdp: bool = False
     moe_pipeline: bool = False
+    #: sequence parallelism: 0 off, 1 the sequence, 2 the channels
+    sp: int = 0
+    #: the unpadded sequence length of this call's stream (``sp = 1``)
+    seq_len: Optional[int] = None
+    anchor: bool = False
     #: this call's rope tables (``rope_tables``), made once for every layer
     rot: Optional[tuple] = None
     #: a block's FSDP weights gathered at its entry (:meth:`gather`), by id
@@ -199,9 +236,86 @@ class MeshShard:
         got = all_gather_cat_many(ws, [d for _, d in weights], self.data)
         return dataclasses.replace(self, gathered={id(w): g for w, g in zip(ws, got)})
 
+    @property
+    def _split(self) -> bool:
+        return self.sp != 0 and self.model.size > 1
+
+    def padded_len(self, length: int) -> int:
+        """The stream's padded sequence length under ``sp = 1``."""
+        pm = self.model.size
+        return -(-length // pm) * pm
+
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """A replicated activation entering this rank's own compute (``f``)."""
-        return copy_to(x, self.model)
+        """The stream entering this rank's own compute, whole: ``copy_to``
+        (``f``), or under sequence parallelism the all-gather of the blocks
+        (the padding dropped)."""
+        if not self._split:
+            return copy_to(x, self.model)
+        if self.sp == 1:
+            return all_gather_cat(x, self.model, 1)[:, : self.seq_len]
+        return all_gather_cat(x, self.model, -1)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's partial sums back to the stream: the sum over
+        ``model`` (``g``), or under sequence parallelism this rank's block
+        of it (a reduce-scatter)."""
+        if not self._split:
+            return reduce_from(y, self.model)
+        if self.sp == 1:
+            pad = self.padded_len(y.shape[1]) - y.shape[1]
+            if pad:
+                y = F.pad(y, (0, 0, 0, pad))
+            return reduce_scatter(y, self.model, 1)
+        return reduce_scatter(y, self.model, -1)
+
+    def enter_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream made whole for a program that takes a replicated input
+        and gives a replicated output (the experts): the gradient of each
+        block is that block of the whole gradient."""
+        if not self._split:
+            return x
+        if self.sp == 1:
+            return gather_cat_replicated(x, self.model, 1)[:, : self.seq_len]
+        return gather_cat_replicated(x, self.model, -1)
+
+    def own(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the stream of a replicated output (the
+        experts'); without sequence parallelism ``y`` itself."""
+        if not self._split:
+            return y
+        if self.sp == 1:
+            pad = self.padded_len(y.shape[1]) - y.shape[1]
+            if pad:
+                y = F.pad(y, (0, 0, 0, pad))
+            return split(y, self.model, 1)
+        return split(y, self.model, -1)
+
+    def rep(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight replicated over ``model`` used in this rank's own compute
+        (on its heads or columns): its gradient summed over ``model``."""
+        return copy_to(w, self.model)
+
+    def stream_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight replicated over ``model`` that acts on the stream itself
+        (a norm's scale, a gate): its gradient summed over ``model`` where
+        each rank holds its own part of the stream (sequence parallelism),
+        else whole on every rank as the stream is."""
+        return self.rep(w) if self._split else w
+
+    def norm(self, w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+        """:func:`rmsnorm` of the stream: local rows without sequence
+        parallelism or with ``sp = 1``; with ``sp = 2`` this rank's channels
+        over the sum of squares of the whole row (all-reduced)."""
+        if not self._split:
+            return rmsnorm(w, x, eps)
+        if self.sp == 1:
+            return rmsnorm(self.stream_weight(w), x, eps)
+        pm, m = self.model.size, self.model.rank
+        d = x.shape[-1]
+        xf = x.float()
+        ss = copy_to(reduce_from(xf.square().sum(-1, keepdim=True), self.model), self.model)
+        w_own = self.stream_weight(w)[m * d : (m + 1) * d]
+        return (xf * torch.rsqrt(ss / (d * pm) + eps) * w_own.float()).to(x.dtype)
 
     def column(self, p: "Dense", x: torch.Tensor, dtype) -> torch.Tensor:
         """``x @ w + b`` on this rank's block of output columns (``w``
@@ -214,25 +328,25 @@ class MeshShard:
     def row(self, w: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
         """``x @ w`` with ``w``'s rows (``(model, fsdp)``) and ``x``'s columns
         this rank's block: the partial product in ``dtype``, summed over
-        ``model`` in float32, then cast (``g``)."""
+        ``model`` in float32 (:meth:`leave`), then cast."""
         y = x.to(dtype) @ self.unshard(w, 1).to(dtype)
-        return reduce_from(y.float(), self.model).to(dtype)
+        return self.leave(y.float()).to(dtype)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
         """The vocab-parallel lookup: ``table`` ``(model, fsdp)`` holds this
         rank's block of rows; it writes its own tokens' rows and zeros for
         the rest, and the sum over ``model`` (one nonzero term: exact) gives
-        every rank the whole lookup."""
+        every rank the whole lookup (under sequence parallelism its block)."""
         t = self.unshard(table, 1)
         rows = t.shape[0]
         local = tokens.long() - self.model.rank * rows
         mine = (local >= 0) & (local < rows)
         got = torch.where(mine[..., None], t[local.clamp(0, rows - 1)].float(), 0.0)
-        return reduce_from(got, self.model).to(dtype)
+        return self.leave(got).to(dtype)
 
     def mlp(self, p: "MLP", x: torch.Tensor, act: str, dtype) -> torch.Tensor:
         """:func:`mlp_apply` with ``w_gate`` and ``w_up`` column-parallel and
-        ``w_down`` row-parallel; ``x`` replicated, the output too."""
+        ``w_down`` row-parallel, on the stream ``x``."""
         xb = self.enter(x).to(dtype)
         up = xb @ self.unshard(p.w_up, 0).to(dtype)
         if act == "swiglu":

@@ -13,6 +13,14 @@ The linear recurrence is a log-depth scan over the sequence (:func:`_lru_scan`:
 ``ceil(log2 L)`` doubling steps, where the reference runs
 ``jax.lax.associative_scan``); decode is the same block on one token.  All
 plain torch, as the reference's is XLA.
+
+On a ``data x model`` mesh (:func:`rglru_block_tp`) ``w_in`` and
+``w_gate`` are column-parallel, the conv, ``lambda_raw`` and the gates'
+biases split over channels, ``w_out`` row-parallel.  The gates ``lru_a``
+and ``lru_x`` read every channel of the post-conv ``u``: a rank all-gathers
+``u`` before them, and they come out on its own channels (column-parallel),
+where the scan runs alone.  The states ``h`` ``[B, D / model]`` and
+``conv`` ``[B, 3, D / model]`` are the rank's channels.
 """
 
 from __future__ import annotations
@@ -23,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, Initializer, dense_init, weight
+from ..comm import all_gather_cat
+from .layers import Dense, Initializer, MeshShard, dense_init, weight
 
-__all__ = ["RgLru", "rglru_init", "init_rglru_state", "rglru_block", "rglru_decode"]
+__all__ = ["RgLru", "rglru_init", "init_rglru_state", "rglru_block", "rglru_block_tp",
+           "rglru_decode"]
 
 _C = 8.0  # Griffin's recurrence sharpness constant
 CONV_WIDTH = 4
@@ -111,6 +121,31 @@ def rglru_block(p: RgLru, x: torch.Tensor, cfg, *, state: Optional[dict] = None,
     bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
     h = _lru_scan(a, bx, None if state is None else state["h"])
     out = (h.to(dtype) * gate) @ p.w_out.w.to(dtype)
+    new_state = None
+    if state is not None:
+        new_state = {"h": h[:, -1].float(),
+                     "conv": torch.cat([state["conv"], u_pre.float()], 1)[:, -(CONV_WIDTH - 1):]}
+    return out, new_state
+
+
+def rglru_block_tp(p: RgLru, x: torch.Tensor, cfg, rs: MeshShard, *,
+                   state: Optional[dict] = None, dtype=torch.bfloat16):
+    """:func:`rglru_block` as one rank of the mesh (see the module
+    docstring): ``p`` holds the rank's weights, ``x`` is the stream, the
+    output the rank's part of it and the state the rank's channels."""
+    xb = rs.enter(x).to(dtype)
+    gate = F.gelu(rs.column(p.w_gate, xb, dtype), approximate="tanh")
+    u_pre = rs.column(p.w_in, xb, dtype)
+    u = _conv_causal(p.conv_w.to(dtype), p.conv_b.to(dtype), u_pre,
+                     None if state is None else state["conv"])
+    uf = u.float()
+    u_all = all_gather_cat(uf, rs.model, -1)  # every channel, for the gates
+    r = torch.sigmoid(rs.column(p.lru_a, u_all, torch.float32))
+    i = torch.sigmoid(rs.column(p.lru_x, u_all, torch.float32))
+    a = torch.exp(-_C * F.softplus(p.lambda_raw.float()) * r)
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+    h = _lru_scan(a, bx, None if state is None else state["h"])
+    out = rs.row(p.w_out.w, h.to(dtype) * gate, dtype)
     new_state = None
     if state is not None:
         new_state = {"h": h[:, -1].float(),

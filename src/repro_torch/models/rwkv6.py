@@ -15,6 +15,21 @@ are <= 0), plus the state carried in from the chunks before.
 :func:`wkv_scan_ref`, one step at a time, is its oracle.  Decode carries the
 state ``S`` and the last token of each mix per layer.  All of it is plain
 torch, as the reference's is XLA.
+
+On a ``data x model`` mesh (:func:`rwkv_block_tp`,
+:func:`rwkv_channel_mix_tp`) ``wr``, ``wk``, ``wv``, ``wg`` and the
+channel-mix's ``wk`` are column-parallel, ``wo`` and the channel-mix's
+``wv`` row-parallel; the mixes, the decay's LoRA and base, ``u`` and
+``ln_x`` are replicated.  Where the heads divide the model axis a rank's
+columns are ``H / model`` whole heads: it runs their WKV and group norm
+alone, and its ``wkv`` state is those heads' ``[B, H / model, dk, dv]``.
+The reference's cache spec splits ``dv`` over the model axis instead
+(``[B, H, dk, dv / model]``): the same number of elements a rank, in
+another layout, a reviewed departure (ROADMAP queue 3) that keeps the
+heads' group norm on one rank.  Where the heads do not divide the axis,
+every rank gathers r, k, v and g and runs every head (its state whole), as
+cut attention heads do.  ``x_prev_t`` and ``x_prev_c`` are a rank's block
+of channels ``[B, D / model]``, gathered where a step reads them.
 """
 
 from __future__ import annotations
@@ -25,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..comm import all_gather_cat
 from ..kernels.ref import ELEMENT_BUDGET
-from .layers import Dense, Initializer, dense_init, weight
+from .layers import Dense, Initializer, MeshShard, dense_init, weight
 
 __all__ = [
     "RwkvTime",
@@ -36,7 +52,9 @@ __all__ = [
     "wkv_scan_ref",
     "wkv_chunked",
     "rwkv_block",
+    "rwkv_block_tp",
     "rwkv_channel_mix",
+    "rwkv_channel_mix_tp",
     "rwkv_decode",
 ]
 
@@ -234,6 +252,85 @@ def rwkv_channel_mix(p: RwkvChannel, x: torch.Tensor, *, state: Optional[dict] =
     new_state = None
     if state is not None:
         new_state = dict(state, x_prev_c=x[:, -1].float())
+    return out, new_state
+
+
+def _whole_prev(x_prev: Optional[torch.Tensor], rs: MeshShard) -> Optional[torch.Tensor]:
+    """A state's last token ``[B, D]`` from every rank's channels."""
+    if x_prev is None or rs.model.size == 1:
+        return x_prev
+    return torch.cat(list(rs.model.all_gather(x_prev.contiguous()).unbind(0)), -1)
+
+
+def _own_cols(x: torch.Tensor, rs: MeshShard) -> torch.Tensor:
+    cols = x.shape[-1] // rs.model.size
+    return x[..., rs.model.rank * cols : (rs.model.rank + 1) * cols]
+
+
+def rwkv_block_tp(p: RwkvTime, x: torch.Tensor, cfg, rs: MeshShard, *,
+                  state: Optional[dict] = None, dtype=torch.bfloat16):
+    """:func:`rwkv_block` as one rank of the mesh (see the module
+    docstring): ``p`` holds the rank's weights, ``x`` is the stream, the
+    output the rank's part of it (``MeshShard.leave``) and the state the
+    rank's block."""
+    hd = cfg.resolved_head_dim
+    heads = cfg.d_model // hd
+    pm = rs.model.size
+    xe = rs.enter(x)
+    b, l, d = xe.shape
+    xx = _token_shift(xe, None if state is None else _whole_prev(state["x_prev_t"], rs))
+
+    def proj(w: Dense, mix):
+        return rs.column(w, _mix(xe, xx, rs.rep(mix)), dtype).float()
+
+    r, k, v, g = (proj(w, mix) for w, mix in ((p.wr, p.mix_r), (p.wk, p.mix_k),
+                                               (p.wv, p.mix_v), (p.wg, p.mix_g)))
+    xw = _mix(xe, xx, rs.rep(p.mix_w)).float()
+    lora = torch.tanh(xw @ rs.rep(p.w_lora_a).float())
+    base, lora_b = rs.rep(p.w_base).float(), rs.rep(p.w_lora_b).float()
+    u, ln_x = rs.rep(p.u_bonus).float(), rs.rep(p.ln_x)
+    own = heads % pm == 0
+    if own:  # this rank's H / model whole heads
+        hh = heads // pm
+        base, lora_b, ln_x = _own_cols(base, rs), _own_cols(lora_b, rs), _own_cols(ln_x, rs)
+        u = u[rs.model.rank * hh : (rs.model.rank + 1) * hh]
+    else:  # every head on every rank
+        hh = heads
+        r, k, v, g = (all_gather_cat(t, rs.model, -1) for t in (r, k, v, g))
+
+    def split_heads(y):
+        return y.reshape(b, l, hh, hd).transpose(1, 2)
+
+    logw = split_heads(-torch.exp(base + lora @ lora_b))
+    s0 = (state["wkv"] if state is not None
+          else torch.zeros((b, hh, hd, hd), device=x.device))
+    o, s_l = wkv_chunked(split_heads(r), split_heads(k), split_heads(v), logw, u, s0)
+    oh = o.transpose(1, 2)
+    var, mean = torch.var_mean(oh, -1, keepdim=True, unbiased=False)
+    o = ((oh - mean) * torch.rsqrt(var + 1e-5)).reshape(b, l, hh * hd) * ln_x
+    o = o.to(dtype) * F.silu(g.to(dtype))
+    if not own:
+        o = _own_cols(o, rs)
+    out = rs.row(p.wo.w, o, dtype)
+    new_state = None
+    if state is not None:
+        new_state = {"wkv": s_l, "x_prev_t": _own_cols(xe[:, -1], rs).float(),
+                     "x_prev_c": state["x_prev_c"]}
+    return out, new_state
+
+
+def rwkv_channel_mix_tp(p: RwkvChannel, x: torch.Tensor, rs: MeshShard, *,
+                        state: Optional[dict] = None, dtype=torch.bfloat16):
+    """:func:`rwkv_channel_mix` as one rank of the mesh: ``wk``
+    column-parallel, ``wv`` row-parallel."""
+    xe = rs.enter(x)
+    x_prev = None if state is None else _whole_prev(state["x_prev_c"], rs)
+    xk = _mix(xe, _token_shift(xe, x_prev), rs.rep(p.mix_k)).to(dtype)
+    hidden = torch.square(torch.relu(rs.column(p.wk, xk, dtype)))
+    out = rs.row(p.wv.w, hidden, dtype)
+    new_state = None
+    if state is not None:
+        new_state = dict(state, x_prev_c=_own_cols(xe[:, -1], rs).float())
     return out, new_state
 
 

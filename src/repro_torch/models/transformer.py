@@ -27,6 +27,17 @@ outputs of the plain matmuls (the reference's
 keeps everything.  The reference remats a
 group of the block pattern, here each layer: the same values.  The
 experts' load-balancing aux losses are summed over the layers.
+
+On a ``data x model`` mesh (``rs``, a :class:`~.layers.MeshShard`) every
+block kind runs as one rank's program: self-attention through
+``attention_block_tp``, cross-attention through ``cross_attention_tp``,
+the time- and channel-mix through ``rwkv_block_tp`` and
+``rwkv_channel_mix_tp``, the RG-LRU through ``rglru_block_tp``, FFNs
+column- and row-parallel, the experts through ``moe_block_manual``; the
+whisper encoder likewise, its stream replicated over the model axis.
+Under sequence parallelism the residual stream between blocks is the
+rank's block (``MeshShard.sp``), so a remat carry is ``1 / model`` of a
+rank's.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from .attention import (
     attention_block,
     attention_block_tp,
     attn_init,
+    cross_attention_tp,
     decode_attention,
     init_kv_cache,
     init_kv_cache_tp,
@@ -65,13 +77,15 @@ from .layers import (
     weight,
 )
 from .moe import MoE, moe_block, moe_block_manual, moe_init
-from .rglru import RgLru, init_rglru_state, rglru_block, rglru_init
+from .rglru import RgLru, init_rglru_state, rglru_block, rglru_block_tp, rglru_init
 from .rwkv6 import (
     RwkvChannel,
     RwkvTime,
     init_rwkv_state,
     rwkv_block,
+    rwkv_block_tp,
     rwkv_channel_mix,
+    rwkv_channel_mix_tp,
     rwkv_init,
 )
 
@@ -141,15 +155,23 @@ def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype, rs: Optional[MeshShard] = None)
     """A dense FFN, or the experts: ``(out, aux loss or None)``; on one
     device, or as one rank of the mesh ``rs`` (the reference's mesh
     ``_ffn_apply``: ``moe_block_manual`` over the model axis, its aux
-    averaged over the data axis)."""
+    averaged over the data axis, on the whole stream and back to the
+    rank's block of it under sequence parallelism)."""
     if rs is None:
         if isinstance(ffn, MoE):
             return moe_block(ffn, x, cfg, dtype=dtype)
         return mlp_apply(ffn, x, cfg.act, dtype=dtype), None
     if isinstance(ffn, MoE):
-        return moe_block_manual(ffn, x, cfg, group=rs.model, data_group=rs.data,
-                                pipeline=rs.moe_pipeline, fsdp=rs.fsdp, dtype=dtype)
+        out, aux = moe_block_manual(ffn, rs.enter_whole(x), cfg, group=rs.model,
+                                    data_group=rs.data, pipeline=rs.moe_pipeline, fsdp=rs.fsdp,
+                                    dtype=dtype)
+        return rs.own(out), aux
     return rs.mlp(ffn, x, cfg.act, dtype), None
+
+
+def _norm(w: torch.Tensor, x: torch.Tensor, eps: float, rs: Optional[MeshShard]) -> torch.Tensor:
+    """:func:`rmsnorm` of the stream, on one device or a rank of the mesh."""
+    return rmsnorm(w, x, eps) if rs is None else rs.norm(w, x, eps)
 
 
 def _project_context(p: Attention, cfg, context: torch.Tensor, dtype) -> dict:
@@ -208,7 +230,7 @@ class Block(nn.Module):
         if rs is not None:
             kw["rs"] = rs = rs.gather(_fsdp_weights(self))
         mix, new_cache = (attention_block if rs is None else attention_block_tp)(
-            self.attn, rmsnorm(self.ln1, h, eps), cfg,
+            self.attn, _norm(self.ln1, h, eps, rs), cfg,
             causal=True,
             window=cfg.local_window if local else cfg.window,
             cache=cache if mode == "decode" else None,
@@ -220,19 +242,29 @@ class Block(nn.Module):
             **kw,
         )
         h = h + mix
-        ff, aux = _ffn_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg, dtype, rs)
+        ff, aux = _ffn_apply(self.ffn, _norm(self.ln2, h, eps, rs), cfg, dtype, rs)
         return h + ff, new_cache, aux
 
 
-def _fsdp_weights(blk: Block) -> list:
+def _fsdp_weights(blk: nn.Module) -> list:
     """A block's ``(weight, dimension FSDP splits)`` that its rank gathers at
-    its entry: the attention's projections and a dense FFN's (the experts
-    gather their own)."""
-    a = blk.attn
-    out = [(a.wq.w, 0), (a.wk.w, 0), (a.wv.w, 0), (a.wo.w, 1)]
-    if isinstance(blk.ffn, MLP):
-        out += [(w, 0) for w in (blk.ffn.w_gate, blk.ffn.w_up) if w is not None]
-        out.append((blk.ffn.w_down, 1))
+    its entry: every column-parallel projection's ``w`` (dimension 0) and
+    row-parallel one's (dimension 1) of its attentions, mixes and dense FFN
+    (the experts gather their own)."""
+    out = []
+    for a in (getattr(blk, "attn", None), getattr(blk, "xattn", None)):
+        if a is not None:
+            out += [(a.wq.w, 0), (a.wk.w, 0), (a.wv.w, 0), (a.wo.w, 1)]
+    if isinstance(blk, RwkvBlock):
+        t, c = blk.time, blk.channel
+        out += [(d.w, 0) for d in (t.wr, t.wk, t.wv, t.wg, c.wk)] + [(t.wo.w, 1), (c.wv.w, 1)]
+    if isinstance(blk, RglruBlock):
+        r = blk.rec
+        out += [(d.w, 0) for d in (r.w_in, r.w_gate, r.lru_a, r.lru_x)] + [(r.w_out.w, 1)]
+    ffn = getattr(blk, "ffn", None)
+    if isinstance(ffn, MLP):
+        out += [(w, 0) for w in (ffn.w_gate, ffn.w_up) if w is not None]
+        out.append((ffn.w_down, 1))
     return out
 
 
@@ -252,8 +284,19 @@ class CrossBlock(nn.Module):
         self.xgate = weight(xgate)
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+                dtype=torch.bfloat16, s_buf: Optional[int] = None,
+                rs: Optional[MeshShard] = None):
         eps = cfg.norm_eps
+        if rs is not None:
+            rs = rs.gather(_fsdp_weights(self))
+            mix, new_cache = cross_attention_tp(
+                self.xattn, rs.norm(self.ln1, h, eps), cfg, rs,
+                context=context if mode != "decode" else None,
+                cache=cache if mode == "decode" else None, dtype=dtype,
+                build_cache=mode == "prefill")
+            h = h + torch.tanh(rs.stream_weight(self.xgate)).to(h.dtype) * mix
+            ff, aux = _ffn_apply(self.ffn, rs.norm(self.ln2, h, eps), cfg, dtype, rs)
+            return h + ff, cache if mode == "decode" else new_cache, aux
         x = rmsnorm(self.ln1, h, eps)
         new_cache = None
         if mode == "decode":
@@ -289,8 +332,11 @@ class AttnCrossBlock(nn.Module):
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
                 dtype=torch.bfloat16, s_buf: Optional[int] = None, cache_dtype=CACHE_DTYPE,
-                attn_chunk: int = 1024):
+                attn_chunk: int = 1024, rs: Optional[MeshShard] = None):
         eps = cfg.norm_eps
+        if rs is not None:
+            return self._forward_tp(h, cfg, mode, cache, pos, context, dtype, s_buf, cache_dtype,
+                                    attn_chunk, rs.gather(_fsdp_weights(self)))
         mix, new_kv = attention_block(
             self.attn, rmsnorm(self.ln1, h, eps), cfg, causal=True,
             cache=cache if mode == "decode" else None, pos=pos, dtype=dtype,
@@ -314,6 +360,27 @@ class AttnCrossBlock(nn.Module):
             new_cache = cache  # its k, v and slot_pos were written in place
         return h, new_cache, aux
 
+    def _forward_tp(self, h, cfg, mode, cache, pos, context, dtype, s_buf, cache_dtype,
+                    attn_chunk, rs: MeshShard):
+        """One rank's block: the self-attention's cache sharded over the
+        sequence, the context's keys and values whole."""
+        eps = cfg.norm_eps
+        decode = mode == "decode"
+        mix, new_kv = attention_block_tp(
+            self.attn, rs.norm(self.ln1, h, eps), cfg, rs, causal=True,
+            cache=cache if decode else None, pos=pos, dtype=dtype,
+            build_cache_len=s_buf if mode == "prefill" else None, cache_dtype=cache_dtype,
+            attn_chunk=attn_chunk)
+        h = h + mix
+        xmix, ctx_kv = cross_attention_tp(self.xattn, rs.norm(self.ln_c, h, eps), cfg, rs,
+                                          context=None if decode else context,
+                                          cache=cache if decode else None, dtype=dtype,
+                                          build_cache=mode == "prefill")
+        h = h + xmix
+        ff, aux = _ffn_apply(self.ffn, rs.norm(self.ln2, h, eps), cfg, dtype, rs)
+        new_cache = cache if decode else (dict(new_kv, **ctx_kv) if mode == "prefill" else None)
+        return h + ff, new_cache, aux
+
 
 class RwkvBlock(nn.Module):
     """Pre-norm ``"rwkv"`` block: the time-mix, then the channel-mix."""
@@ -329,20 +396,24 @@ class RwkvBlock(nn.Module):
         self.ln2 = weight(ln2)
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+                dtype=torch.bfloat16, s_buf: Optional[int] = None,
+                rs: Optional[MeshShard] = None):
         eps = cfg.norm_eps
         state = None
         if mode == "prefill":
-            hd = cfg.resolved_head_dim
-            state = init_rwkv_state(h.shape[0], cfg.d_model // hd, hd, cfg.d_model,
-                                    device=h.device)
+            state = _block_cache(cfg, "rwkv", h.shape[0], 0, 0, h.device, torch.float32,
+                                 0 if rs is None else rs.model.size)
         elif mode == "decode":
             state = cache
-        mix, state2 = rwkv_block(self.time, rmsnorm(self.ln1, h, eps), cfg, state=state,
-                                 dtype=dtype)
+        time_mix, channel_mix, kw = rwkv_block, rwkv_channel_mix, {}
+        if rs is not None:
+            time_mix, channel_mix = rwkv_block_tp, rwkv_channel_mix_tp
+            kw["rs"] = rs = rs.gather(_fsdp_weights(self))
+        mix, state2 = time_mix(self.time, _norm(self.ln1, h, eps, rs), cfg, state=state,
+                               dtype=dtype, **kw)
         h = h + mix
-        cm, state3 = rwkv_channel_mix(self.channel, rmsnorm(self.ln2, h, eps), state=state2,
-                                      dtype=dtype)
+        cm, state3 = channel_mix(self.channel, _norm(self.ln2, h, eps, rs), state=state2,
+                                 dtype=dtype, **kw)
         h = h + cm
         if mode == "decode":
             cache.update(state3)
@@ -363,17 +434,23 @@ class RglruBlock(nn.Module):
         self.ffn = ffn
 
     def forward(self, h, cfg, *, mode="train", cache=None, pos=None, context=None,
-                dtype=torch.bfloat16, s_buf: Optional[int] = None):
+                dtype=torch.bfloat16, s_buf: Optional[int] = None,
+                rs: Optional[MeshShard] = None):
         eps = cfg.norm_eps
         state = None
         if mode == "prefill":
-            state = init_rglru_state(h.shape[0], cfg.d_model, device=h.device)
+            state = _block_cache(cfg, "rglru", h.shape[0], 0, 0, h.device, torch.float32,
+                                 0 if rs is None else rs.model.size)
         elif mode == "decode":
             state = cache
-        mix, new_state = rglru_block(self.rec, rmsnorm(self.ln1, h, eps), cfg, state=state,
-                                     dtype=dtype)
+        mix_fn, kw = rglru_block, {}
+        if rs is not None:
+            mix_fn = rglru_block_tp
+            kw["rs"] = rs = rs.gather(_fsdp_weights(self))
+        mix, new_state = mix_fn(self.rec, _norm(self.ln1, h, eps, rs), cfg, state=state,
+                                dtype=dtype, **kw)
         h = h + mix
-        h = h + mlp_apply(self.ffn, rmsnorm(self.ln2, h, eps), cfg.act, dtype=dtype)
+        h = h + _ffn_apply(self.ffn, _norm(self.ln2, h, eps, rs), cfg, dtype, rs)[0]
         if mode == "decode":
             cache.update(new_state)
             new_state = cache
@@ -485,8 +562,9 @@ class Transformer(nn.Module):
 
         With ``rs`` it is one rank's program on the mesh: ``tokens`` are the
         rank's rows, the weights and caches its blocks, the hidden state
-        replicated over the model axis and the logits its block of vocab
-        columns ``[B_loc, L, V_pad / model]``.
+        replicated over the model axis (under sequence parallelism, outside
+        decode, the rank's block of it: ``return_hidden`` returns that) and
+        the logits its block of vocab columns ``[B_loc, L, V_pad / model]``.
         """
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
@@ -502,6 +580,9 @@ class Transformer(nn.Module):
         if rs is None:
             h = self.embed[tokens].to(dtype)
         else:
+            # decode's one token keeps the stream replicated
+            rs = dataclasses.replace(rs, sp=0 if mode == "decode" else rs.sp,
+                                     seq_len=tokens.shape[1])
             h = rs.embed(self.embed, tokens, dtype)
             positions = (torch.full((1,), pos, device=h.device) if mode == "decode"
                          else torch.arange(tokens.shape[1], device=h.device))
@@ -525,7 +606,7 @@ class Transformer(nn.Module):
             if a is not None:
                 aux = aux + a
             new_caches.append(nc)
-        h = rmsnorm(self.final_norm, h, cfg.norm_eps)
+        h = _norm(self.final_norm, h, cfg.norm_eps, rs)
         caches_out = new_caches if mode != "train" else None
         if return_hidden:
             return h, caches_out, aux
@@ -587,9 +668,18 @@ def cache_buffer_len(cfg, seq_len: int) -> int:
 
 def _block_cache(cfg, kind: str, batch: int, s_buf: int, context_len: int,
                  device: torch.device, dtype: torch.dtype, model_size: int = 0) -> dict:
+    """One layer's empty cache; with ``model_size`` one rank's block of it:
+    self-attention keys and values sharded over the sequence, the context's
+    whole, recurrent states split over channels (``cache_pspecs``), the
+    ``wkv`` state as ``H / model`` whole heads where the heads divide the
+    axis (every head where they do not)."""
     hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
-    if model_size and kind == "attn":
-        return init_kv_cache_tp(batch, kvh, s_buf, hd, model_size, device=device, dtype=dtype)
+    pm = model_size or 1
+    if model_size and kind in ("attn", "local", "attn_cross"):
+        length = min(s_buf, cfg.local_window + 128) if kind == "local" else s_buf
+        kv = init_kv_cache_tp(batch, kvh, length, hd, model_size, device=device, dtype=dtype)
+        if kind != "attn_cross":
+            return kv
 
     def ctx_kv(lc):
         z = lambda: torch.zeros((batch, kvh, lc, hd), dtype=dtype, device=device)  # noqa: E731
@@ -603,12 +693,16 @@ def _block_cache(cfg, kind: str, batch: int, s_buf: int, context_len: int,
     if kind == "cross":
         return ctx_kv(context_len or cfg.num_image_tokens or cfg.encoder_context)
     if kind == "attn_cross":
-        return dict(init_kv_cache(batch, kvh, s_buf, hd, device=device, dtype=dtype),
-                    **ctx_kv(context_len or cfg.encoder_context))
+        if not model_size:
+            kv = init_kv_cache(batch, kvh, s_buf, hd, device=device, dtype=dtype)
+        return dict(kv, **ctx_kv(context_len or cfg.encoder_context))
     if kind == "rwkv":
-        return init_rwkv_state(batch, cfg.d_model // hd, hd, cfg.d_model, device=device)
+        heads = cfg.d_model // hd
+        if heads % pm == 0:
+            heads //= pm
+        return init_rwkv_state(batch, heads, hd, cfg.d_model // pm, device=device)
     if kind == "rglru":
-        return init_rglru_state(batch, cfg.d_model, device=device)
+        return init_rglru_state(batch, cfg.d_model // pm, device=device)
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -618,9 +712,9 @@ def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
     """Empty caches (keys and values in ``cache_dtype``) and zero float32
     states, one dict per layer, for decoding after ``seq_len`` tokens; a
     cross-attention cache holds ``context_len`` context positions (the row's
-    own context length by default).  With ``model_size`` an ``attn``
-    layer's cache is one rank's block, its sequence sharded over that many
-    model ranks (``init_kv_cache_tp``; ``batch`` is then the rank's rows)."""
+    own context length by default).  With ``model_size`` each layer's cache
+    is one rank's block of it over that many model ranks (``_block_cache``;
+    ``batch`` is then the rank's rows)."""
     _check_supported(cfg)
     s_buf = cache_buffer_len(cfg, seq_len)
     return [_block_cache(cfg, kind, batch, s_buf, context_len, device, cache_dtype, model_size)
@@ -651,14 +745,31 @@ def check_weights(params: Transformer, cfg) -> None:
 
 
 def encode(params: Transformer, cfg, frames: torch.Tensor, *, dtype=torch.bfloat16,
-           attn_chunk: int = 1024) -> torch.Tensor:
+           attn_chunk: int = 1024, rs: Optional[MeshShard] = None) -> torch.Tensor:
     """The bidirectional encoder over frame embeddings ``[B, T, d]``: each
     layer's self-attention through ``ops.flash_attention(causal=False)``, or
-    under autograd ``chunked_attention`` (``attention_block``)."""
+    under autograd ``chunked_attention`` (``attention_block``).  With ``rs``
+    one rank's program (``attention_block_tp`` on the rank's heads, the
+    FFN column- and row-parallel), its stream and output replicated over the
+    model axis."""
     if params.encoder is None:
         raise ValueError(f"{cfg.name} has no encoder")
     eps = cfg.norm_eps
     h = frames.to(dtype)
+    if rs is not None:
+        pos = torch.arange(h.shape[1], device=h.device)
+        rs = dataclasses.replace(rs, sp=0, seq_len=None, gathered=None,
+                                 rot=rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta))
+    for blk in params.encoder.blocks:
+        rsb, kw = None, {}
+        if rs is not None:
+            kw["rs"] = rsb = rs.gather(_fsdp_weights(blk))
+        mix, _ = (attention_block if rs is None else attention_block_tp)(
+            blk.attn, rmsnorm(blk.ln1, h, eps), cfg, causal=False, dtype=dtype,
+            attn_chunk=attn_chunk, **kw)
+        h = h + mix
+        h = h + _ffn_apply(blk.ffn, rmsnorm(blk.ln2, h, eps), cfg, dtype, rsb)[0]
+    return rmsnorm(params.encoder.final_norm, h, eps)
     for blk in params.encoder.blocks:
         mix, _ = attention_block(blk.attn, rmsnorm(blk.ln1, h, eps), cfg, causal=False,
                                  dtype=dtype, attn_chunk=attn_chunk)

@@ -13,7 +13,12 @@ tests/test_torch_mesh_moe.py and tests/test_torch_mesh_train.py.
 * :func:`port_single_run`: the port on one device.
 
 Tokens are ``B x S`` from a seed; prefill takes the first ``serve``
-positions and decode the rest, one at a time.
+positions and decode the rest, one at a time.  A vision or audio row also
+takes a context ``[B, Lc, d]`` from a seed (:func:`context`), for the loss
+and the prefill.  A job's ``sharding`` holds the reference's
+``ShardingConfig`` fields besides the batch axes, FSDP and the pipeline
+(``seq_axis``, ``sp_dim``, ``attn_anchor``); with ``perturb`` the biases and
+cross gates, zero at init, are drawn from a seed.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from repro_torch.configs import ShardingConfig, get_arch
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import from_reference_named, from_reference_params
+from repro_torch.models.factory import context_len
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 24
@@ -45,6 +51,16 @@ EXPERTS = ["phi3.5-moe-42b-a6.6b", "mixtral-8x22b"]
 
 def tokens(vocab: int) -> np.ndarray:
     return np.random.default_rng(5).integers(0, vocab, (B, S)).astype(np.int32)
+
+
+def context(cfg):
+    """A vision row's image embeddings or an audio row's frames ``[B, Lc,
+    d]`` (float32, as the reference's tests draw them), else None."""
+    ctx_len, needed = context_len(cfg)
+    if not needed:
+        return None
+    rng = np.random.default_rng(6)
+    return (rng.standard_normal((B, ctx_len, cfg.d_model)) * 0.1).astype(np.float32)
 
 
 def config(row: str, heads=None, capacity_factor=None):
@@ -72,7 +88,7 @@ _WORKER = textwrap.dedent("""
         return {"/".join(str(getattr(e, "key", getattr(e, "idx", e))) for e in p): np.asarray(v)
                 for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
-    jobs, out_dir = json.loads(sys.argv[1]), sys.argv[2]
+    jobs, out_dir = json.loads(open(sys.argv[1]).read()), sys.argv[2]
     for job in jobs:
         cfg = get_arch(job["row"]).reduced()
         if job.get("heads"):
@@ -82,19 +98,26 @@ _WORKER = textwrap.dedent("""
             cfg = dataclasses.replace(cfg, capacity_factor=job["capacity_factor"])
         mesh = make_local_mesh(job["data"], job["model"])
         sh = ShardingConfig(batch_axes=("data",), fsdp=job["fsdp"],
-                            moe_pipeline=job["pipeline"])
+                            moe_pipeline=job["pipeline"], **job.get("sharding", {}))
         model = build_model(cfg, sh, mesh, dtype=jnp.float32)
         params = jax.jit(model.init_fn)(jax.random.key(0))
+        if job.get("perturb"):  # biases and the cross gates, zero at init, from a seed
+            rng = np.random.default_rng(7)
+            params = jax.tree_util.tree_map_with_path(
+                lambda path, x: (rng.standard_normal(x.shape) * 0.5).astype(x.dtype)
+                if path[-1].key in ("b", "xgate") else x, params)
         out = {"params/" + k: v for k, v in flat(params).items()}
         params = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s),
                                                      model.param_specs(params)))
         tokens = np.asarray(job["tokens"], np.int32)
-        loss, grads = jax.jit(jax.value_and_grad(model.loss_fn))(params, {"tokens": tokens})
+        ctx = {} if job.get("context") is None else {
+            "context": np.asarray(job["context"], np.float32)}
+        loss, grads = jax.jit(jax.value_and_grad(model.loss_fn))(params, {"tokens": tokens, **ctx})
         out["loss"] = np.asarray(loss)
         out.update({"grads/" + k: v for k, v in flat(grads).items()})
         if job.get("serve"):
             n = job["serve"]
-            lg, caches = jax.jit(model.prefill_fn)(params, {"tokens": tokens[:, :n]})
+            lg, caches = jax.jit(model.prefill_fn)(params, {"tokens": tokens[:, :n], **ctx})
             out["logits/0"] = np.asarray(lg)
             dec = jax.jit(model.decode_fn)
             for t in range(tokens.shape[1] - n):
@@ -107,21 +130,40 @@ _WORKER = textwrap.dedent("""
 
 
 def job(jid, row, data, model, *, fsdp=False, pipeline=False, serve=False, heads=None,
-        capacity_factor=None) -> dict:
+        capacity_factor=None, perturb=False, **sharding) -> dict:
+    """A reference job (``perturb``: biases and cross gates drawn nonzero;
+    ``sharding``: ``seq_axis``, ``sp_dim``, ``attn_anchor``)."""
     cfg = config(row, heads)
+    ctx = context(cfg)
     return {"id": jid, "row": row, "data": data, "model": model, "fsdp": fsdp,
             "pipeline": pipeline, "serve": SERVE if serve else 0, "heads": heads,
-            "capacity_factor": capacity_factor, "tokens": tokens(cfg.vocab_size).tolist()}
+            "capacity_factor": capacity_factor, "tokens": tokens(cfg.vocab_size).tolist(),
+            "context": None if ctx is None else ctx.tolist(), "sharding": sharding,
+            "perturb": perturb}
 
 
-def reference_runs(jobs, tmp) -> dict:
+def reference_runs(jobs, tmp, procs: int = 1) -> dict:
     """``{job id: {"params", "loss", "grads", "logits"}}``: the reference's
-    meshed runs, one subprocess on 8 forced host devices."""
+    meshed runs on 8 forced host devices, in ``procs`` subprocesses at once
+    (the jobs dealt out in turn; each job is mostly the reference's
+    single-threaded compile)."""
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", _WORKER, json.dumps(jobs), str(tmp)], env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    running = []
+    for i in range(procs):
+        spec = Path(tmp) / f"jobs{i}.json"  # the contexts are too long for an argument
+        spec.write_text(json.dumps(jobs[i::procs]))
+        running.append(subprocess.Popen([sys.executable, "-c", _WORKER, str(spec), str(tmp)],
+                                        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True))
+    for proc in running:
+        try:
+            _, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, err[-3000:]
     out = {}
     for j in jobs:
         z = dict(np.load(Path(tmp) / f"{j['id']}.npz"))
@@ -137,7 +179,7 @@ def reference_runs(jobs, tmp) -> dict:
 
 
 def _nest(flat: dict, prefix: str) -> dict:
-    """A reference pytree from its flattened leaves (``tail`` as a list)."""
+    """A reference pytree from its flattened leaves (lists as lists)."""
     out: dict = {}
     for k, v in flat.items():
         if not k.startswith(prefix):
@@ -147,29 +189,50 @@ def _nest(flat: dict, prefix: str) -> dict:
         for p in parents:
             d = d.setdefault(p, {})
         d[leaf] = v
-    if "tail" in out:
-        out["tail"] = [out["tail"][str(i)] for i in range(len(out["tail"]))]
+    return _lists(out)
+
+
+def _lists(d):
+    """Dicts keyed ``"0"``, ``"1"``, ... (a flattened list: ``tail``, the
+    encoder's ``blocks``) back into lists."""
+    if not isinstance(d, dict):
+        return d
+    d = {k: _lists(v) for k, v in d.items()}
+    if d and all(k.isdigit() for k in d):
+        return [d[str(i)] for i in range(len(d))]
+    return d
+
+
+def _batch(toks, ctx, lo=0, hi=None):
+    """``{"tokens": rows lo:hi}`` and the context's same rows, if any."""
+    out = {"tokens": toks[lo:hi]}
+    if ctx is not None:
+        out["context"] = ctx[lo:hi]
     return out
 
 
 def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipeline=False,
-                  serve=False, cache_dtype=torch.bfloat16):
+                  serve=False, cache_dtype=torch.bfloat16, ctx=None, **sharding):
     """The port's meshed loss, gradients (whole, in the weights' layout) and,
-    with ``serve``, logits (whole) on ``data x model`` thread ranks."""
+    with ``serve``, logits (whole) on ``data x model`` thread ranks
+    (``sharding``: more ``ShardingConfig`` fields; ``ctx`` a context)."""
     mesh = make_local_mesh(data, model, device="cpu")
-    m = build_model(cfg, ShardingConfig(batch_axes=("data",), fsdp=fsdp, moe_pipeline=pipeline),
+    m = build_model(cfg, ShardingConfig(batch_axes=("data",), fsdp=fsdp, moe_pipeline=pipeline,
+                                        **sharding),
                     mesh, dtype=torch.float32, cache_dtype=cache_dtype)
     toks = torch.as_tensor(toks)
+    ctx_all = None if ctx is None else torch.as_tensor(ctx)
     names = [n for n, _ in params.named_parameters()]
 
     def rank(ctx):
         p = m.shard_params(params)
         b = toks.shape[0] // data
-        rows = toks[ctx.data.rank * b : (ctx.data.rank + 1) * b]
+        batch = _batch(toks, ctx_all, ctx.data.rank * b, (ctx.data.rank + 1) * b)
+        rows = batch["tokens"]
         groups = {"data": ctx.data, "model": ctx.model}
         specs = m.param_specs(p)
         p.requires_grad_(True)
-        loss = m.loss_fn(p, {"tokens": rows})
+        loss = m.loss_fn(p, batch)
         grads = torch.autograd.grad(loss, list(p.parameters()))
         whole = {}
         for n, g in zip(names, grads):
@@ -179,7 +242,7 @@ def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipel
         logits = []
         if serve:
             p.requires_grad_(False)
-            lg, caches = m.prefill_fn(p, {"tokens": rows[:, :SERVE]})
+            lg, caches = m.prefill_fn(p, dict(batch, tokens=rows[:, :SERVE]))
             logits.append(gather_whole(lg, P("data", "model"), groups))
             for t in range(S - SERVE):
                 lg, caches = m.decode_fn(p, {"tokens": rows[:, SERVE + t : SERVE + t + 1],
@@ -195,18 +258,19 @@ def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipel
     return out[0]
 
 
-def port_single_run(cfg, params, toks, *, serve=False, cache_dtype=torch.bfloat16):
+def port_single_run(cfg, params, toks, *, serve=False, cache_dtype=torch.bfloat16, ctx=None):
     """The port's loss, gradients and logits on one device."""
     m = build_model(cfg, device="cpu", dtype=torch.float32, cache_dtype=cache_dtype)
     toks = torch.as_tensor(toks)
+    batch = _batch(toks, None if ctx is None else torch.as_tensor(ctx))
     params.requires_grad_(True)
-    loss = m.loss_fn(params, {"tokens": toks})
+    loss = m.loss_fn(params, batch)
     grads = dict(zip([n for n, _ in params.named_parameters()],
                      torch.autograd.grad(loss, list(params.parameters()))))
     params.requires_grad_(False)
     logits = []
     if serve:
-        lg, caches = m.prefill_fn(params, {"tokens": toks[:, :SERVE]})
+        lg, caches = m.prefill_fn(params, dict(batch, tokens=toks[:, :SERVE]))
         logits.append(lg)
         for t in range(S - SERVE):
             lg, caches = m.decode_fn(params, {"tokens": toks[:, SERVE + t : SERVE + t + 1],

@@ -6,9 +6,9 @@
 FSDP off and on.  The reference stacks each pattern position over depth;
 the port keeps one module per layer, so a stacked reference leaf maps onto
 one port weight per layer, its spec less the leading ``None``.  Specs are
-compared as plain tuples.  Also: what a mesh still refuses (the four rows
-that are not ``("attn",)``, ``seq_axis``, ``attn_anchor``, the production
-mesh flags) names ROADMAP queue 1 item 17.
+compared as plain tuples.  Also: what a mesh still refuses (a pod axis,
+the production mesh flags) names ROADMAP queue 1 item 17; every row,
+``seq_axis="model"`` and ``attn_anchor`` build on a mesh.
 """
 
 from __future__ import annotations
@@ -245,19 +245,29 @@ WAITING = [n for n in ROWS if get_arch(n).block_pattern != ("attn",)]
 
 @pytest.mark.parametrize("name", WAITING)
 def test_a_mesh_refuses_the_rows_that_wait(name):
-    """The four rows with other block kinds wait for item 17 on a mesh."""
+    """The four rows with other block kinds run on a mesh now; what still
+    waits for item 17 there is a pod axis."""
     mesh = make_local_mesh(2, 2, device="cpu")
+    build_model(get_arch(name).reduced(), ShardingConfig(batch_axes=("data",)), mesh)
     with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_arch(name).reduced(), ShardingConfig(batch_axes=("data",)), mesh)
+        build_model(get_arch(name).reduced(),
+                    ShardingConfig(batch_axes=("data",), seq_axis="pod"), mesh)
 
 
 @pytest.mark.parametrize("field", [{"seq_axis": "model"}, {"attn_anchor": True}],
                          ids=["seq_axis", "attn_anchor"])
 def test_a_mesh_refuses_sequence_parallelism_and_anchors(field):
+    """Sequence parallelism over the model axis and anchors build on a mesh
+    now; a sequence axis other than the model axis, or an ``sp_dim`` other
+    than 1 or 2, is refused."""
     mesh = make_local_mesh(1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_arch("smollm-360m").reduced(),
-                    ShardingConfig(batch_axes=("data",), **field), mesh)
+    cfg = get_arch("smollm-360m").reduced()
+    build_model(cfg, ShardingConfig(batch_axes=("data",), **field), mesh)
+    with pytest.raises(ValueError, match="model axis"):
+        build_model(cfg, ShardingConfig(batch_axes=("data",), **dict(field, seq_axis="data")),
+                    mesh)
+    with pytest.raises(ValueError, match="sp_dim"):
+        build_model(cfg, ShardingConfig(batch_axes=("data",), sp_dim=3, **field), mesh)
 
 
 @pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"]])

@@ -385,8 +385,8 @@ def test_sigterm_saves_after_the_step_and_exits(tmp_path, monkeypatch):
 
 
 def test_train_refuses_a_mesh_and_cast_weights():
-    """A mesh trains the ``("attn",)`` rows (the model built on it); the
-    other rows' meshes wait for ROADMAP queue 1 item 17."""
+    """A mesh trains the rows (the model built on it); a pod axis waits for
+    ROADMAP queue 1 item 17; cast weights cannot train."""
     from repro_torch.configs import ShardingConfig
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -398,7 +398,8 @@ def test_train_refuses_a_mesh_and_cast_weights():
     _, shardings = make_train_step(model, TrainConfig(), mesh)
     assert shardings["params"]["embed"] == ("model", None)
     with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_arch("rwkv6-3b").reduced(), mesh=mesh, device="cpu")
+        build_model(get_arch("rwkv6-3b").reduced(), ShardingConfig(seq_axis="pod"), mesh=mesh,
+                    device="cpu")
     with pytest.raises(ValueError, match="cast_params"):
         make_train_step(build_model(get_arch("smollm-360m").reduced(), cast_params=True,
                                     device="cpu"), TrainConfig())
@@ -416,12 +417,13 @@ def test_launcher_takes_three_steps_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
-                                   ["--data", "2", "--arch", "rwkv6-3b"],
-                                   ["--model", "2", "--arch", "whisper-base"],
-                                   ["--distributed", "--arch", "recurrentgemma-2b"]])
+                                   ["--production-mesh", "--data", "2", "--arch", "rwkv6-3b"],
+                                   ["--multi-pod", "--model", "2", "--arch", "whisper-base"],
+                                   ["--production-mesh", "--distributed", "--arch",
+                                    "recurrentgemma-2b"]])
 def test_launcher_refuses_every_mesh_flag(flags):
-    """What still waits for item 17: the production mesh, and any mesh for
-    the rows whose pattern is not ``("attn",)``."""
+    """What still waits for item 17: the production meshes, whatever row and
+    local mesh flags come with them (every row runs on a local mesh)."""
     with pytest.raises(NotImplementedError, match="item 17"):
         launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
 
