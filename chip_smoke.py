@@ -9,7 +9,8 @@ the other six LM rows served at full width (vision cross-attention,
 experts with the distributed expert layer, RWKV6, RG-LRU with local
 attention at head dim 256, the whisper encoder-decoder) and training
 (smollm-360m whole, a phi3.5-moe layer, the int8 gradient ring) and the
-LM on a data x model mesh (training, serving, experts, torchrun), with
+LM on a data x model mesh (training, serving, experts, torchrun) and on the
+multi-pod mesh beside the LM dry-run's memory model, with
 every kernel of their paths built from this checkout and held against its
 plain PyTorch version.  Every bound is the roofline of a kernel's work count
 (``repro_torch.kernels.work``).
@@ -295,6 +296,30 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              the CPU's meshed run within 1e-4.  (d) launch/train.py
              --distributed under torchrun at world size 1 (NCCL) == the
              same training on a 1 x 1 LocalMesh, bitwise.
+19. rows   — the four other rows served on their meshes (recurrentgemma-2b
+             anchored on 2 x 2, rwkv6-3b, llama-3.2-vision at 5 layers and
+             whisper-base on 1 x 4): prefill and decode ms, flash shapes
+             as predicted; each reduced row card == the CPU's meshed run
+             (smollm-360m with sequence parallelism and FSDP); a rank's
+             launch at each new flash shape (path "lm_mesh_rows").
+20. pod    — the production and multi-pod meshes.  (a) the LM dry-run
+             (``launch.dryrun.measure_lm`` on meta, in a process that sees
+             no card, started with phase 1) of the cells phases 8, 17 (a),
+             18 (a), (b) and 20 (b) run, held against their peaks: the
+             one-rank cells within 5%, the LocalMesh cells inside [every
+             rank at its fullest wait, the others there while one peaks]
+             + 15% (with what the process holds beside the ranks:
+             the phase's allocation before it, the whole weights while the
+             ranks cut theirs).  (b) smollm-360m whole on (pod 2, data 1,
+             model 2) thread ranks with the sharding ``launch/train.py
+             --production-mesh --multi-pod`` builds (the batch over pod and
+             data, seq_axis="model"), bf16, 2 warm and 2 timed steps: losses
+             within 1e-3 of phase 17 (a)'s, a rank's weight and ZeRO-1
+             elements == the specs', ms a step, tokens/s, peak.  (c) the six
+             attention rows reduced (head dim 64), float32, on (2, 2, 2):
+             the loss, a prefill and 4 decode steps on the card == the
+             CPU's meshed run within 1e-4 (the float32 flash kernel, path
+             "lm_pod_checks").
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -2825,6 +2850,8 @@ def phase_lm(dev, flash_ms: float):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)  # what the process holds beside this cell
     params = model.init_fn(gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
@@ -2955,7 +2982,8 @@ def phase_lm(dev, flash_ms: float):
                 flash_share_of_prefill=flash_ms * cfg.num_layers / prefill_ms,
                 decode_vs_forward_max_abs_err_float32=dec_err, bf16_max_abs_distances=bf16_dist,
                 bf16_decode_over_forward_distance=bf16_ratio,
-                card_vs_cpu_rel_err=rel,
+                card_vs_cpu_rel_err=rel, held_bytes=held,
+                prompt_bytes=prompt.numel() * prompt.element_size(),
                 n_params=n_params, weight_bytes=weight_bytes, prefill_split=split,
                 decode_split=dsplit, mesh_refs=dict(first_tok=first_tok.cpu(),
                                                     fwd32=fwd32.cpu(), dist=bf16_dist))
@@ -4364,6 +4392,7 @@ def train_smollm(dev, tmp):
     log_line, lines, stamps = _train_log()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # what the process holds beside this cell
     before = read_launches()
     t0 = time.perf_counter()
     run = train(model, tcfg, log=log_line, data=data)
@@ -4398,7 +4427,7 @@ def train_smollm(dev, tmp):
     return dict(arch=TRAIN_ARCH, layers=cfg.num_layers, n_params=n_params, batch=TRAIN_BATCH,
                 seq_len=TRAIN_LEN, compute="bf16, float32 weights and AdamW state",
                 remat=model.sharding.remat, ms_per_step=ms, step_ms_runs=[x * 1e3 for x in step_s],
-                tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
+                tokens_per_s=tokens / ms * 1e3, peak_bytes=peak, held_bytes=held,
                 model_flops_share=6 * n_params * tokens / (ms / 1e3 * BF16_PEAK),
                 losses=losses, grad_norm=gnorm, launches=launched, seconds=train_s,
                 profiled_step=split, parts_alone=parts, split_seconds=split_s, resume=resume)
@@ -4623,16 +4652,19 @@ MESH_CARD_CPU_RTOL = 1e-4  # (c): card vs CPU, float32, TF32 off
 
 def _mesh_model(cfg, shape, dev, **kw):
     """``(mesh, model)``: ``cfg`` on a LocalMesh of ``shape`` thread ranks
-    sharing ``dev``, taking turns at host code (a wait past MESH_TIMEOUT
-    fails the mesh)."""
+    (``(data, model)``, or ``(pods, data, model)`` with the batch over pod
+    and data) sharing ``dev``, taking turns at host code (a wait past
+    MESH_TIMEOUT fails the mesh)."""
     from repro_torch.comm import LocalMesh
     from repro_torch.configs import ShardingConfig
     from repro_torch.models import build_model
 
     sh = {k: kw.pop(k) for k in ("fsdp", "zero1", "moe_pipeline", "seq_axis", "sp_dim",
                                  "attn_anchor") if k in kw}
-    mesh = LocalMesh(*shape, device=dev, timeout=MESH_TIMEOUT, turns=True)
-    return mesh, build_model(cfg, ShardingConfig(batch_axes=("data",), **sh), mesh, **kw)
+    pods, data, model = (1, *shape) if len(shape) == 2 else shape
+    mesh = LocalMesh(data, model, pods=pods, device=dev, timeout=MESH_TIMEOUT, turns=True)
+    dp = ("data",) if pods == 1 else ("pod", "data")
+    return mesh, build_model(cfg, ShardingConfig(batch_axes=dp, **sh), mesh, **kw)
 
 
 def _spec_elements(model, specs_of=None) -> int:
@@ -4648,7 +4680,7 @@ def _spec_elements(model, specs_of=None) -> int:
 
 
 def _rank_index(ctx) -> int:
-    return ctx.iters.rank * ctx.data.size + ctx.data.rank
+    return (ctx.pod.rank * ctx.iters.size + ctx.iters.rank) * ctx.data.size + ctx.data.rank
 
 
 def mesh_grads(model, whole, tokens, context=None):
@@ -4706,7 +4738,8 @@ def _leaf_errs(got, want):
 
 
 def mesh_train(dev, single_losses, label="phase 18 (a)", warm=TRAIN_WARM, timed=MESH_TRAIN_TIMED,
-               against="phase 17 (a)", f32_check=True, **sharding):
+               against="phase 17 (a)", f32_check=True, shape=MESH_TRAIN, fsdp=True,
+               **sharding):
     """(a) smollm-360m whole on LocalMesh 2 x 2 (FSDP and ZeRO-1), bf16,
     B = 8 x 2048 of the stream, phase 17 (a)'s weights, lr and schedule:
     TRAIN_WARM + MESH_TRAIN_TIMED steps, whose losses track phase 17 (a)'s within
@@ -4714,10 +4747,12 @@ def mesh_train(dev, single_losses, label="phase 18 (a)", warm=TRAIN_WARM, timed=
     elements == the specs' arithmetic; ms a step, tokens/s, peak bytes, the
     last warm step under the profiler (busy share).  Then the float32 check at
     MESH_F32_LAYERS layers: the meshed loss and gradients == one device's.
-    Phase 19 (d) runs it again with ``sharding`` (sequence parallelism)
-    for ``warm`` + ``timed`` steps under its ``label``, its losses held to
-    ``against``'s (phase 18 (a)'s), without the float32 check
-    (``f32_check``: its reduced card-vs-CPU run holds the same path)."""
+    Phase 20 (b) runs it again on its ``shape`` (pods, data, model) with
+    the production sharding (``fsdp``, ``sharding``: sequence parallelism)
+    for ``warm`` + ``timed`` steps under its ``label``, without the float32
+    check (``f32_check``: its reduced card-vs-CPU run holds the same path).
+    The record carries what the process held before (``held_bytes``) and
+    the whole weights' bytes, for phase 20 (a)'s memory model."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
@@ -4725,14 +4760,16 @@ def mesh_train(dev, single_losses, label="phase 18 (a)", warm=TRAIN_WARM, timed=
     from repro_torch.train.train_loop import rank_opt_state
 
     cfg = get_arch(TRAIN_ARCH)
-    mesh, model = _mesh_model(cfg, MESH_TRAIN, dev, fsdp=True, zero1=True, **sharding)
+    mesh, model = _mesh_model(cfg, shape, dev, fsdp=fsdp, zero1=True, **sharding)
     data = DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN, seed=0)
     step, shardings = make_train_step(model, train_tcfg(), mesh)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     before = read_launches()
     t0 = time.perf_counter()
     whole = [model.init_fn(torch.Generator(device=dev).manual_seed(0))]  # train()'s weights
+    whole_bytes = sum(p.numel() * p.element_size() for p in whole[0].parameters())
     state, stamps = {}, []
 
     def setup(ctx):
@@ -4789,21 +4826,22 @@ def mesh_train(dev, single_losses, label="phase 18 (a)", warm=TRAIN_WARM, timed=
     ms = sum(step_s) / len(step_s) * 1e3
     tokens = TRAIN_BATCH * TRAIN_LEN
     state_bytes = 4 * (want_w + grads_elems + 2 * want_m)
-    log(f"{label} {TRAIN_ARCH} on LocalMesh {MESH_TRAIN[0]} x {MESH_TRAIN[1]} (FSDP, "
+    log(f"{label} {TRAIN_ARCH} on LocalMesh {' x '.join(map(str, shape))} ({'FSDP, ' * fsdp}"
         f"ZeRO-1{''.join(f', {k}={v}' for k, v in sharding.items())}), B={TRAIN_BATCH} "
         f"L={TRAIN_LEN}: {ms:.1f} ms a step over {len(step_s)} "
         f"{[round(x * 1e3, 1) for x in step_s]}, {tokens / ms * 1e3:.0f} tokens/s, peak "
         f"{peak / 2 ** 30:.2f} GiB; a rank holds {want_w} weight, {grads_elems} gradient and "
         f"{want_m} m / v elements ({state_bytes / 1e9:.3f} GB float32); losses {losses} vs "
         f"{against} within {max(errs):.3g}; profiled step {split}; setup {init_s:.1f}s")
-    record = dict(arch=TRAIN_ARCH, mesh=list(MESH_TRAIN), fsdp=True, zero1=True, **sharding,
+    record = dict(arch=TRAIN_ARCH, mesh=list(shape), fsdp=fsdp, zero1=True, **sharding,
                   batch=TRAIN_BATCH, seq_len=TRAIN_LEN, ms_per_step=ms,
                   step_ms_runs=[x * 1e3 for x in step_s], tokens_per_s=tokens / ms * 1e3,
                   peak_bytes=peak, losses=losses, single_device_losses=single_losses[:nsteps],
                   loss_rel_err_max=max(errs),
                   rank_elements={"weights": want_w, "gradients": grads_elems, "m": want_m,
                                  "v": want_m}, rank_state_bytes=state_bytes,
-                  profiled_step=split, setup_seconds=init_s, launches=launched)
+                  profiled_step=split, setup_seconds=init_s, launches=launched,
+                  held_bytes=held, whole_weight_bytes=whole_bytes)
     if not f32_check:
         return record
     # float32 at MESH_F32_LAYERS layers: meshed loss and gradients == one device's
@@ -4860,7 +4898,10 @@ def mesh_serve(dev, refs):
     mesh, model = _mesh_model(cfg, MESH_SERVE, dev, cast_params=True)
     gen = torch.Generator(device=dev)
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)  # what the process holds beside this cell
     whole = [model.init_fn(gen.manual_seed(0))]  # phase 8's weights
+    whole_bytes = sum(p.numel() * p.element_size() for p in whole[0].parameters())
     prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_LEN), generator=gen.manual_seed(1),
                            device=dev)
     first_tok = refs["first_tok"].to(dev)
@@ -4999,8 +5040,9 @@ def mesh_serve(dev, refs):
                 rank_weight_bytes=bytes_rank, flash_launches_per_prefill=per_prefill[0],
                 bf16_decode_step0_distance=dist, bf16_over_forward_distance=ratio,
                 float32_check={"layers": MESH_SERVE_F32_LAYERS, "max_abs_err": dec_err},
-                rank_flash_launch=flash_row, seconds=run_s,
-                launches=launches, float32_check_launches=f32_launches)
+                rank_flash_launch=flash_row, seconds=run_s, held_bytes=held,
+                whole_weight_bytes=whole_bytes, launches=launches,
+                float32_check_launches=f32_launches)
 
 
 def mesh_moe(dev):
@@ -5226,8 +5268,7 @@ MESH_ROWS_SERVE = {
     "whisper-base": ((1, 4), None, 4, 448, {}),  # (c)
 }
 MESH_ROWS_TIMED = 1  # (a)-(c): timed prefills after a warm one
-MESH_SP = {"seq_axis": "model"}  # (d): smollm-360m on MESH_TRAIN
-MESH_SP_WARM, MESH_SP_TIMED = 2, 2  # (d): steps
+MESH_SP = {"seq_axis": "model"}  # sequence parallelism (smollm-360m's reduced check)
 #: every row's reduced config, float32, card == the CPU's meshed run: (mesh,
 #: ShardingConfig fields)
 MESH_ROWS_REDUCED = {
@@ -5538,12 +5579,12 @@ def mesh_row_launches(dev, rank_shapes):
     return rows
 
 
-def phase_mesh_rows(dev, mesh_train_18):
-    """Phase 19: (a)-(c) the four other rows served on their meshes, (d)
-    smollm-360m trained on 2 x 2 with sequence parallelism against phase 18
-    (a)'s losses, each reduced row card == CPU, and a rank's launch at each
-    new flash shape.  The served launches are path "lm_mesh_rows", the
-    decode checks' "lm_mesh_rows_checks"."""
+def phase_mesh_rows(dev):
+    """Phase 19: (a)-(c) the four other rows served on their meshes, each
+    reduced row card == CPU, and a rank's launch at each new flash shape.
+    The served launches are path "lm_mesh_rows", the decode checks'
+    "lm_mesh_rows_checks".  (Its former (d), smollm-360m on 2 x 2 with
+    sequence parallelism, is phase 20 (b) on the pod mesh.)"""
     import torch
 
     torch.cuda.synchronize(dev)
@@ -5562,23 +5603,261 @@ def phase_mesh_rows(dev, mesh_train_18):
             d256 = s["flash_attention"]
         part_s[name] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train = mesh_train(dev, mesh_train_18["losses"], label="phase 19 (d)", warm=MESH_SP_WARM,
-                       timed=MESH_SP_TIMED, against="phase 18 (a)", f32_check=False, **MESH_SP)
-    train["peak_bytes_phase_18_a"] = mesh_train_18["peak_bytes"]
-    log(f"phase 19 (d) peak {train['peak_bytes'] / 2 ** 30:.2f} GiB with sequence parallelism, "
-        f"{mesh_train_18['peak_bytes'] / 2 ** 30:.2f} GiB without (phase 18 (a)); "
-        f"{train['ms_per_step']:.1f} against {mesh_train_18['ms_per_step']:.1f} ms a step")
-    part_s["train"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     card_cpu = mesh_rows_card_vs_cpu(dev)
     part_s["card_vs_cpu"] = time.perf_counter() - t0
     launch_rows = mesh_row_launches(dev, shapes)
     dt = time.perf_counter() - t_start
     log(f"phase 19 passed in {dt:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in part_s.items())}); "
         f"launches served {served}, checks {checks}")
-    return served, checks, d256, launch_rows, {"rows": rows, "train_sp": train,
-                                               "card_vs_cpu": card_cpu,
+    return served, checks, d256, launch_rows, {"rows": rows, "card_vs_cpu": card_cpu,
                                                "part_seconds": part_s, "seconds": dt}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the production and multi-pod meshes
+# ---------------------------------------------------------------------------
+
+POD_TRAIN = (2, 1, 2)  # (b): pods, data, model
+POD_WARM, POD_TIMED = 2, 2  # (b): steps
+POD_ROWS_MESH = (2, 2, 2)  # (c): pods, data, model
+POD_ROWS_SHAPE = (4, 64)  # (c): each reduced row's batch
+POD_ROWS_PREFILL = 60  # (c): prompt tokens; decode takes the rest one at a time
+POD_ROWS_TOL = 1e-4  # (c): card vs CPU, float32, TF32 off, relative to the largest entry
+DRYRUN_ONE_RANK_RTOL = 0.05  # (a): a one-rank cell, as phase 15 (b) holds NCCL at world size 1
+
+#: (a): the cells phases 8, 17 (a), 18 (a), (b) and 20 (b) run, as the LM
+#: dry-run takes them: row, (pods, data, model) or None (one
+#: device), ShardingConfig fields, cast weights, kind, batch, tokens
+POD_DRYRUN_CELLS = {
+    "phase 8 prefill": (LM_ARCH, None, {}, True, "prefill", LM_BATCH, LM_LEN),
+    "phase 8 decode": (LM_ARCH, None, {}, True, "decode", LM_BATCH, LM_LEN),
+    "phase 17 (a)": (TRAIN_ARCH, None, {}, False, "train", TRAIN_BATCH, TRAIN_LEN),
+    "phase 18 (a)": (TRAIN_ARCH, (1, *MESH_TRAIN), {"batch_axes": ["data"], "fsdp": True},
+                     False, "train", TRAIN_BATCH, TRAIN_LEN),
+    "phase 18 (b) prefill": (LM_ARCH, (1, *MESH_SERVE), {"batch_axes": ["data"]}, True,
+                             "prefill", LM_BATCH, LM_LEN),
+    "phase 18 (b) decode": (LM_ARCH, (1, *MESH_SERVE), {"batch_axes": ["data"]}, True,
+                            "decode", LM_BATCH, LM_LEN),
+    "phase 20 (b)": (TRAIN_ARCH, POD_TRAIN, {"batch_axes": ["pod", "data"],
+                                             "seq_axis": "model"},
+                     False, "train", TRAIN_BATCH, TRAIN_LEN),
+}
+
+_LM_DRYRUN_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.comm import AbstractMesh
+from repro_torch.configs import ShardingConfig, get_arch
+from repro_torch.launch.dryrun import measure_lm
+from repro_torch.models import build_model
+
+out = {}
+for name, (arch, shape, sh, cast, kind, batch, length) in json.loads(sys.argv[2]).items():
+    t0 = time.perf_counter()
+    mesh = None if shape is None else AbstractMesh(shape[1], shape[2], pods=shape[0])
+    sh = ShardingConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in sh.items()})
+    model = build_model(get_arch(arch), sh, mesh, cast_params=cast,
+                        device="meta" if mesh is None else None)
+    rec = measure_lm(model, kind, batch, length)
+    whole = sum(p.numel() * p.element_size() for p in model.abstract_params().parameters())
+    out[name] = dict(rec["memory"], whole_weight_bytes=whole, launches=rec["launches"],
+                     flops=rec["cost"]["flops"], analysis_s=time.perf_counter() - t0)
+print(json.dumps(out))
+"""
+
+
+def start_lm_dryrun():
+    """(a)'s dry-run, started with phase 1 in a process that sees no card
+    (one thread: it runs beside the phases that use the card)."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    cells = {k: [*v[:1], None if v[1] is None else list(v[1]), *v[2:]]
+             for k, v in POD_DRYRUN_CELLS.items()}
+    return subprocess.Popen([sys.executable, "-c", _LM_DRYRUN_CHILD, str(ROOT / "src"),
+                             json.dumps(cells)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _total(r) -> int:
+    return r["argument_bytes"] + r["output_bytes"] + r["temp_bytes"]
+
+
+def _local_mesh_ends(ranks: int, runs, setup: int):
+    """``(lower, upper)`` peaks of a LocalMesh process whose ranks take turns
+    (a rank runs host code until it waits for a peer): ``runs`` each a
+    rank's dry-run memory (every rank the same), ``setup`` what the ranks
+    and the whole weights hold while the ranks cut theirs.  Lower: every
+    rank at its fullest wait (``waiting_bytes``) at once, as all reach that
+    collective; upper: the others at their fullest waits while one rank
+    peaks."""
+    lower = max(ranks * (r["argument_bytes"] + r["waiting_bytes"]) for r in runs)
+    upper = max(ranks * (r["argument_bytes"] + r["waiting_bytes"]) + _total(r)
+                - r["argument_bytes"] - r["waiting_bytes"] for r in runs)
+    return max(setup, lower), max(setup, upper)
+
+
+def pod_dryrun(proc, lm8, train17, mesh18, pod20):
+    """(a): the LM dry-run's peaks against the measured ones of phases 8,
+    17 (a), 18 (a), (b) and 20 (b): one-rank cells within DRYRUN_ONE_RANK_RTOL,
+    LocalMesh cells inside [lower, upper] (:func:`_local_mesh_ends`)
+    widened by MODEL_RTOL_LOCAL, each beside what the phase held before it
+    (``held_bytes``)."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20 (a): the LM dry-run exited {proc.returncode}:\n"
+                             f"{err[-3000:]}")
+    pred = json.loads(out.strip().splitlines()[-1])
+    p8, d8 = pred["phase 8 prefill"], pred["phase 8 decode"]
+    decode8 = (d8["argument_bytes"] + d8["temp_bytes"] + (LM_DECODE + 1) * d8["output_bytes"]
+               + lm8["prompt_bytes"])
+    cells = {
+        "phase 8 granite-3-8b prefill + decode": (
+            "one rank", lm8["held_bytes"] + max(_total(p8), decode8), None, lm8["peak_bytes"]),
+        "phase 17 (a) smollm-360m train step": (
+            "one rank", train17["held_bytes"] + _total(pred["phase 17 (a)"]), None,
+            train17["peak_bytes"]),
+    }
+    for label, rec, runs, n in (
+            ("phase 18 (a) smollm-360m 2 x 2 train step", mesh18["train"],
+             [pred["phase 18 (a)"]], MESH_TRAIN[0] * MESH_TRAIN[1]),
+            ("phase 18 (b) granite-3-8b 1 x 4 prefill + decode", mesh18["serve"],
+             [pred["phase 18 (b) prefill"], pred["phase 18 (b) decode"]],
+             MESH_SERVE[0] * MESH_SERVE[1]),
+            ("phase 20 (b) smollm-360m (pod 2, data 1, model 2) train step", pod20,
+             [pred["phase 20 (b)"]], math.prod(POD_TRAIN))):
+        setup = rec["whole_weight_bytes"] + n * runs[0]["argument_bytes"]
+        lower, upper = _local_mesh_ends(n, runs, setup)
+        cells[label] = ("LocalMesh", rec["held_bytes"] + lower, rec["held_bytes"] + upper,
+                        rec["peak_bytes"])
+    got, missed = {}, []
+    for label, (kind, lo, hi, meas) in cells.items():
+        if kind == "one rank":
+            rel = (lo - meas) / meas
+            ok = abs(rel) <= DRYRUN_ONE_RANK_RTOL
+            got[label] = {"model": kind, "predicted_peak_bytes": lo, "measured_peak_bytes": meas,
+                          "rel_err": rel}
+        else:
+            lo_w, hi_w = lo * (1 - MODEL_RTOL_LOCAL), hi * (1 + MODEL_RTOL_LOCAL)
+            ok = lo_w <= meas <= hi_w
+            got[label] = {"model": kind, "lower_peak_bytes": lo, "upper_peak_bytes": hi,
+                          "measured_peak_bytes": meas, "lower_rel_err": (lo - meas) / meas,
+                          "upper_rel_err": (hi - meas) / meas}
+        if not ok:
+            missed.append(label)
+        log(f"phase 20 (a) {label}: measured peak {meas} B, predicted "
+            + (f"{lo} B ({got[label]['rel_err']:+.4f})" if hi is None else
+               f"[{lo}, {hi}] B, lower to upper ({got[label]['lower_rel_err']:+.4f}, "
+               f"{got[label]['upper_rel_err']:+.4f})"))
+    if missed:
+        raise AssertionError(f"phase 20 (a): measured peaks outside the LM dry-run's model: "
+                             f"{ {k: got[k] for k in missed} }")
+    return {"cells": got, "predictions": pred}
+
+
+def pod_serve_run(model, whole, toks):
+    """The meshed loss (no gradient: attention through the flash kernel, as
+    serving) and the whole logits of a prefill over POD_ROWS_PREFILL tokens
+    and each following decode step, from rank (0, 0, 0), on the CPU."""
+    import torch
+    from repro_torch.comm.spec import PartitionSpec as P
+    from repro_torch.comm.spec import gather_whole
+
+    def rank(ctx):
+        p = model.shard_params(whole)
+        rows = model.rank_rows({"tokens": toks})["tokens"]
+        groups = {"pod": ctx.pod, "data": ctx.data, "model": ctx.model}
+        spec = P(("pod", "data"), "model")
+        with torch.no_grad():
+            loss = float(model.loss_fn(p, {"tokens": rows}))
+        lg, caches = model.prefill_fn(p, {"tokens": rows[:, :POD_ROWS_PREFILL]})
+        logits = [gather_whole(lg, spec, groups)]
+        for t in range(POD_ROWS_PREFILL, rows.shape[1]):
+            lg, caches = model.decode_fn(p, {"tokens": rows[:, t : t + 1], "caches": caches,
+                                             "pos": t})
+            logits.append(gather_whole(lg, spec, groups))
+        return loss, [x.cpu() for x in logits] if _rank_index(ctx) == 0 else None
+
+    return mesh_run(model.mesh, rank)[0]
+
+
+def pod_rows_card_vs_cpu(dev):
+    """(c): the six attention rows reduced (head dim 64, so that the flash
+    kernel takes them), float32, on POD_ROWS_MESH thread ranks: the loss,
+    the prefill's and every decode step's logits on the card == the CPU's
+    meshed run within POD_ROWS_TOL; the float32 kernel launched once a
+    layer a rank for the loss and for the prefill (path "lm_pod_checks")."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import DataConfig, synthetic_batch
+
+    b, l = POD_ROWS_SHAPE
+    ranks = math.prod(POD_ROWS_MESH)
+    rows, want_launches = {}, 0
+    reset_launches()
+    for i, row in enumerate(MESH_ROWS):
+        cfg = dataclasses.replace(get_arch(row).reduced(), head_dim=64)
+        w = build_model(cfg, dtype=torch.float32, device="cpu").init_fn(
+            torch.Generator().manual_seed(60 + i))
+        toks = synthetic_batch(DataConfig(cfg.vocab_size, b, l, seed=i), 0, "cpu")["tokens"]
+        runs = []
+        for d in ("cpu", dev):
+            _, m = _mesh_model(cfg, POD_ROWS_MESH, d, dtype=torch.float32,
+                               cache_dtype=torch.float32)
+            runs.append(pod_serve_run(m, w if d == "cpu" else copy.deepcopy(w).to(d),
+                                      toks.to(d)))
+        (want_loss, want), (got_loss, got) = runs
+        loss_err = abs(got_loss - want_loss) / abs(want_loss)
+        lg_err = max(float((g - x).abs().max()) / float(x.abs().max())
+                     for g, x in zip(got, want))
+        rows[row] = {"loss_rel_err": loss_err, "logits_err": lg_err, "steps": len(got)}
+        want_launches += 2 * cfg.num_layers * ranks
+        if not (loss_err <= POD_ROWS_TOL and lg_err <= POD_ROWS_TOL):
+            raise AssertionError(f"phase 20 (c) {row}: card vs CPU loss {loss_err}, logits "
+                                 f"{lg_err}")
+    launches = read_launches()
+    if launches["flash_attention_fp32"] != want_launches or launches["flash_attention"]:
+        raise AssertionError(f"phase 20 (c): launches {launches}, want {want_launches} float32")
+    log(f"phase 20 (c) six rows reduced (head dim 64), float32, on "
+        f"{' x '.join(map(str, POD_ROWS_MESH))} (pod, data, model): card == CPU (loss / "
+        f"logits, relative): " + ", ".join(f"{k} {v['loss_rel_err']:.2g}/{v['logits_err']:.2g}"
+                                          for k, v in rows.items())
+        + f"; float32 flash launches {launches['flash_attention_fp32']}")
+    return launches, rows
+
+
+def phase_pod(dev, dryrun_proc, lm8, train17, mesh18):
+    """Phase 20: (a) the LM dry-run against the measured peaks, (b)
+    smollm-360m whole on the pod mesh with the production sharding, (c)
+    the six attention rows reduced on (2, 2, 2), card == CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    part_s = {}
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    # what launch/train.py --production-mesh --multi-pod builds
+    prod = dict(fsdp=cfg.params_count() >= 2e9, seq_axis="model")
+    train = mesh_train(dev, train17["losses"], label="phase 20 (b)", warm=POD_WARM,
+                       timed=POD_TIMED, against="phase 17 (a)", f32_check=False,
+                       shape=POD_TRAIN, **prod)
+    train["sharding"] = dict(prod, batch_axes=["pod", "data"])
+    part_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks, rows = pod_rows_card_vs_cpu(dev)
+    part_s["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = pod_dryrun(dryrun_proc, lm8, train17, mesh18, train)
+    part_s["dryrun_wait"] = time.perf_counter() - t0
+    dt = time.perf_counter() - t_start
+    log(f"phase 20 passed in {dt:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in part_s.items())})")
+    return checks, {"dryrun": dry, "train_pod": train, "card_vs_cpu": rows,
+                    "part_seconds": part_s, "seconds": dt}
 
 
 # ---------------------------------------------------------------------------
@@ -5616,7 +5895,7 @@ DESIGNS = {
 
 
 def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, order, wide, dags,
-                 sparse, dist, compact, dryrun, train, mesh, mesh_rows, card):
+                 sparse, dist, compact, dryrun, train, mesh, mesh_rows, pod, card):
     flash, flash32, flash256, flash256_32, sass, d256_launches = flash
     lm, lm_rows = lm
     mesh_flash, mesh = mesh
@@ -5789,11 +6068,23 @@ def kernels_line(rows, dense_rows, launches, per, draw_ms, dense, flash, lm, ord
             | {k: v for k, v in lm.items()
                if k not in ("launches", "float32_check_launches", "mesh_refs")},
             "lm_rows_path": lm_rows, "train_path": train, "mesh_path": mesh,
-            "mesh_rows_path": rows19}
+            "mesh_rows_path": rows19, "pod_path": pod}
 
 
 def run_phases(dev):
-    """Every phase in order on ``dev``; returns what the kernels line reports."""
+    """Every phase in order on ``dev``; returns what the kernels line reports.
+    Phase 20 (a)'s dry-run process starts first, on the host beside the
+    card's phases, and is stopped if a phase fails before it is read."""
+    lm_dryrun = start_lm_dryrun()
+    try:
+        return _run_phases(dev, lm_dryrun)
+    finally:
+        if lm_dryrun.poll() is None:
+            lm_dryrun.kill()
+            lm_dryrun.communicate()
+
+
+def _run_phases(dev, lm_dryrun):
     import torch
     from repro_torch.core.count_engine import build_counting_plan
     from repro_torch.core.templates import template
@@ -5837,8 +6128,8 @@ def run_phases(dev):
     train = phase_train(dev)
     mesh_launches, mesh_checks, mesh_flash, mesh = phase_mesh(dev, train["smollm"]["losses"],
                                                               lm.pop("mesh_refs"))
-    rows19_launches, rows19_checks, rows19_d256, rows19_flash, rows19 = phase_mesh_rows(
-        dev, mesh["train"])
+    rows19_launches, rows19_checks, rows19_d256, rows19_flash, rows19 = phase_mesh_rows(dev)
+    pod_checks, pod = phase_pod(dev, lm_dryrun, lm, train["smollm"], mesh)
     tw2_launches, tw2_rows, tw2 = phase_tw2(dev)
     sparse_graphs = {}
     sparse_launches, sparse_rows, sparse = phase_sparse(dev, sparse_graphs)
@@ -5852,6 +6143,7 @@ def run_phases(dev):
                 "lm_rows": rows_served, "lm_rows_float32_checks": rows_checks,
                 "lm_mesh": mesh_launches, "lm_mesh_float32_checks": mesh_checks,
                 "lm_mesh_rows": rows19_launches, "lm_mesh_rows_checks": rows19_checks,
+                "lm_pod_checks": pod_checks,
                 "family": family_launches, "tw2": tw2_launches, "sparse": sparse_launches,
                 "distributed": dist_launches, "distributed_compact": compact_launches,
                 "serve": serve_launches}
@@ -5867,7 +6159,7 @@ def run_phases(dev):
     return (rows, dense_rows, launches, per, draw_ms, dense, (*flash_rows, sass, d256_launches),
             (lm, lm_rows), order, wide, dags, (sparse_rows, sparse), (dist_rows, dist),
             (compact_rows, compact), dryrun, train, (mesh_flash, mesh),
-            (rows19_flash, rows19_d256, rows19))
+            (rows19_flash, rows19_d256, rows19), pod)
 
 
 def main() -> int:

@@ -23,8 +23,8 @@ Transports:
   type``, NCCL has no 16-bit integer type), so the narrow wire's int16 and
   int8 payloads travel as a bitcast ``uint8`` view of their last axis and
   are viewed back on receipt: bytes, never a cast.
-* :class:`LocalMesh`: ``data x iters`` ranks as threads of one process,
-  all on one device, the counterpart of the reference's host-device mesh
+* :class:`LocalMesh`: ``pods x data x iters`` ranks as threads of one
+  process, all on one device, the counterpart of the reference's host-device mesh
   (``repro/launch/mesh.py:22``).  Its collectives exchange tensors through
   shared slots: the "wire" is a copy on the device (a shift clones what it
   sends; ``all_to_all`` and ``all_gather`` stack what they receive), so a
@@ -255,11 +255,14 @@ class LocalGroup(Group):
 class RankContext:
     """What a rank function sees: its data-axis group (the graph shards;
     the LM's batch and FSDP axis), its iteration-axis group (independent
-    colorings; the LM's model axis, :attr:`model`) and its device."""
+    colorings; the LM's model axis, :attr:`model`), its device, and its pod
+    group (the LM's second data-parallel axis, over which the weights are
+    whole: a :class:`SoloGroup` where the mesh has no pod axis)."""
 
     data: Group
     iters: Group
     device: torch.device
+    pod: Group = dataclasses.field(default_factory=SoloGroup)
 
     @property
     def model(self) -> Group:
@@ -291,14 +294,17 @@ def _run_as(ctx: RankContext, fn: Callable[[RankContext], Any]):
 
 
 class LocalMesh:
-    """``data x iters`` ranks as threads of this process on one device.
+    """``pods x data x iters`` ranks as threads of this process on one device.
 
-    Rank ``(i, p)`` holds graph shard ``p`` of iteration slice ``i``; its
-    data group is the ``data`` ranks of slice ``i``, its iteration group the
-    ``iters`` ranks of shard ``p``.  :meth:`run` runs a rank function on
-    every rank and returns their results in rank order (``i`` major).  Any
-    rank's exception aborts the others' waits and is re-raised here; a wait
-    longer than ``timeout`` seconds fails the mesh the same way.
+    Rank ``(o, i, p)`` holds graph shard ``p`` of iteration slice ``i`` of
+    pod ``o``; its data group is the ``data`` ranks of slice ``i`` of its
+    pod, its iteration group the ``iters`` ranks of shard ``p`` of its pod,
+    its pod group the ``pods`` ranks ``(*, i, p)``.  :meth:`run` runs a
+    rank function on every rank and returns their results in rank order
+    (``o``, then ``i``, major).  Any rank's exception aborts the others'
+    waits and is re-raised here; a wait longer than ``timeout`` seconds
+    fails the mesh the same way.  The pod axis is the LM's (the
+    reference's multi-pod mesh); the counting engine refuses it.
 
     With ``turns`` one rank at a time runs host code: a rank holds the
     mesh's turn until it waits for a peer.  Every torch op releases and
@@ -307,14 +313,16 @@ class LocalMesh:
     each wait.  The device work is the same (one stream either way).
     """
 
-    def __init__(self, data: int = 1, iters: int = 1, *, device=None,
+    def __init__(self, data: int = 1, iters: int = 1, *, pods: int = 1, device=None,
                  timeout: float = DEFAULT_TIMEOUT_S, turns: bool = False):
         from ..device import resolve_device
 
-        if data < 1 or iters < 1:
-            raise ValueError(f"a mesh needs data >= 1 and iters >= 1; got {data} x {iters}")
+        if data < 1 or iters < 1 or pods < 1:
+            raise ValueError(f"a mesh needs data >= 1, iters >= 1 and pods >= 1; got {data} x "
+                             f"{iters} ({pods} pods)")
         self.data_size = int(data)
         self.iter_size = int(iters)
+        self.pod_size = int(pods)
         self.device = resolve_device(device)
         self.timeout = float(timeout)
         self.turns = bool(turns)
@@ -326,10 +334,12 @@ class LocalMesh:
 
     @property
     def size(self) -> int:
-        return self.data_size * self.iter_size
+        return self.pod_size * self.data_size * self.iter_size
 
     def __repr__(self) -> str:
-        return f"LocalMesh(data={self.data_size}, iters={self.iter_size}, device={self.device})"
+        pods = f"pods={self.pod_size}, " if self.pod_size > 1 else ""
+        return (f"LocalMesh({pods}data={self.data_size}, iters={self.iter_size}, "
+                f"device={self.device})")
 
     def _fail(self, err: BaseException) -> None:
         with self._lock:
@@ -371,28 +381,30 @@ class LocalMesh:
 
     def run(self, fn: Callable[[RankContext], Any]) -> List[Any]:
         """``fn(ctx)`` on every rank, one thread each; the results in rank order."""
-        P, I = self.data_size, self.iter_size
+        O, P, I = self.pod_size, self.data_size, self.iter_size
         self._failed = None
         self._conds = []
-        data_hubs = [_Hub(P, self) if P > 1 else None for _ in range(I)]
-        iter_hubs = [_Hub(I, self) if I > 1 else None for _ in range(P)]
-        results: List[Any] = [None] * (P * I)
+        data_hubs = [[_Hub(P, self) if P > 1 else None for _ in range(I)] for _ in range(O)]
+        iter_hubs = [[_Hub(I, self) if I > 1 else None for _ in range(P)] for _ in range(O)]
+        pod_hubs = [[_Hub(O, self) if O > 1 else None for _ in range(P)] for _ in range(I)]
+        results: List[Any] = [None] * (O * P * I)
 
-        def body(i: int, p: int) -> None:
-            ctx = RankContext(self._group(data_hubs[i], p), self._group(iter_hubs[p], i),
-                              self.device)
+        def body(o: int, i: int, p: int) -> None:
+            ctx = RankContext(self._group(data_hubs[o][i], p), self._group(iter_hubs[o][p], i),
+                              self.device, self._group(pod_hubs[i][p], o))
             try:
                 with self._turn_held():
-                    results[i * P + p] = _run_as(ctx, fn)
+                    results[(o * I + i) * P + p] = _run_as(ctx, fn)
             except BaseException as e:  # every failure fails the mesh
                 self._fail(e)
 
-        if P * I == 1:
-            body(0, 0)
+        if O * P * I == 1:
+            body(0, 0, 0)
         else:
-            threads = [threading.Thread(target=body, args=(i, p), daemon=True,
-                                        name=f"LocalMesh rank ({i}, {p})")
-                       for i in range(I) for p in range(P)]
+            name = "LocalMesh rank " + ("({}, {}, {})" if O > 1 else "({1}, {2})")
+            threads = [threading.Thread(target=body, args=(o, i, p), daemon=True,
+                                        name=name.format(o, i, p))
+                       for o in range(O) for i in range(I) for p in range(P)]
             for t in threads:
                 t.start()
             for t in threads:
@@ -480,27 +492,32 @@ class ProcessGroupComm(Group):
 
 class ProcessMesh:
     """This process's rank of a ``torch.distributed`` job laid out as
-    ``iters x data`` (world rank ``i * data + p``); see
-    ``launch.mesh.process_mesh``.  :meth:`run` runs the rank function here
-    and returns its result as a one-element list."""
+    ``pods x iters x data`` (world rank ``(o * iters + i) * data + p``);
+    see ``launch.mesh.process_mesh``.  :meth:`run` runs the rank function
+    here and returns its result as a one-element list."""
 
-    def __init__(self, data_group: Group, iter_group: Group, device: torch.device):
+    def __init__(self, data_group: Group, iter_group: Group, device: torch.device,
+                 pod_group: Optional[Group] = None):
         self.data = data_group
         self.iters = iter_group
+        self.pod = SoloGroup() if pod_group is None else pod_group
         self.data_size = data_group.size
         self.iter_size = iter_group.size
+        self.pod_size = self.pod.size
         self.device = device
 
     @property
     def size(self) -> int:
-        return self.data_size * self.iter_size
+        return self.pod_size * self.data_size * self.iter_size
 
     def __repr__(self) -> str:
-        return (f"ProcessMesh(data={self.data_size}, iters={self.iter_size}, "
-                f"rank=({self.iters.rank}, {self.data.rank}), device={self.device})")
+        pods = f"pods={self.pod_size}, " if self.pod_size > 1 else ""
+        rank = ((self.pod.rank,) if self.pod_size > 1 else ()) + (self.iters.rank, self.data.rank)
+        return (f"ProcessMesh({pods}data={self.data_size}, iters={self.iter_size}, "
+                f"rank={rank}, device={self.device})")
 
     def run(self, fn: Callable[[RankContext], Any]) -> List[Any]:
-        return [_run_as(RankContext(self.data, self.iters, self.device), fn)]
+        return [_run_as(RankContext(self.data, self.iters, self.device, self.pod), fn)]
 
 
 Mesh = Union[LocalMesh, ProcessMesh]

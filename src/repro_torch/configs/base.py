@@ -4,9 +4,8 @@
 
 Every architecture is a frozen :class:`ArchConfig`; ``reduced()`` derives
 the CPU test configuration (same family and topology, tiny widths).
-``ShardingConfig`` holds every field of the reference's; sequence
-parallelism (``seq_axis``, ``sp_dim``) and ``attn_anchor`` wait for
-ROADMAP queue 1 item 17.
+``ShardingConfig`` holds every field of the reference's, and the port
+reads all of them but ``grad_compression`` (see its docstring).
 """
 
 from __future__ import annotations
@@ -146,17 +145,19 @@ class ArchConfig:
 class ShardingConfig:
     """How a model maps onto the mesh: the reference's fields and defaults.
 
-    On one device only ``remat`` and ``attn_chunk`` apply.  On a ``data x
-    model`` mesh the port reads ``batch_axes`` (the data-parallel axes; the
-    subset the mesh has), ``model_axis`` (tensor and expert parallelism),
-    ``fsdp`` (ZeRO-3: weights sharded over ``data`` and gathered where
-    used), ``zero1`` (AdamW's ``m`` and ``v`` sharded over ``data``) and
+    On one device only ``remat`` and ``attn_chunk`` apply.  On a ``[pod x]
+    data x model`` mesh the port reads ``batch_axes`` (the data-parallel
+    axes the batch splits over, the subset the mesh has: ``("pod",
+    "data")`` on the multi-pod mesh), ``model_axis`` (tensor and expert
+    parallelism), ``fsdp`` (ZeRO-3: weights sharded over ``data`` and
+    gathered where used), ``zero1`` (AdamW's ``m`` and ``v`` sharded over ``data``) and
     ``moe_pipeline`` (the experts' exchange as ``grouped_exchange``).
     ``seq_axis="model"`` is sequence parallelism (``sp_dim`` 1: the
     stream's sequence, 2: its channels, split over the model axis between
-    blocks) and ``attn_anchor`` gives each model rank its own q heads
-    (``models.layers.MeshShard``); a ``pod`` axis waits for ROADMAP queue 1
-    item 17.
+    blocks; the port takes no other sequence axis) and ``attn_anchor``
+    gives each model rank its own q heads (``models.layers.MeshShard``).
+    FSDP and ZeRO-1 split over ``data`` alone: the weights are whole
+    across pods, as in the reference.
     ``grad_compression`` is a field the reference's train step never reads,
     and the port's does not read it either (the int8 ring is a library
     function, ``comm.compress``)."""

@@ -814,6 +814,10 @@ def make_count_fn(plan: DistributedPlan, mesh, *, mode: str = "adaptive", group_
     if mesh.data_size != plan.num_shards:
         raise ValueError(f"the plan has {plan.num_shards} shards; the mesh {mesh.data_size} "
                          f"data ranks")
+    if getattr(mesh, "pod_size", 1) > 1:
+        raise ValueError(f"the counting engine runs on a data x iteration mesh: fold the "
+                         f"{mesh.pod_size} pods into the iteration axis (as the reference's "
+                         f"iter_axis=('pod', 'model'); make_production_mesh's counting view)")
     if mesh.device != plan.device:
         raise ValueError(f"the plan's split tables are on {plan.device}; the mesh runs on "
                          f"{mesh.device}")

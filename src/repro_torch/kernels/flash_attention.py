@@ -28,7 +28,9 @@ mask, probabilities zeroed where masked, a zero denominator read as 1, any
   the CUDA cores (TF32 tensor cores would break the float32 checks' 1e-5).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel of its
-dtype or raises.  The host-side arithmetic of the bf16 kernel lives here as
+dtype or raises; a ``meta`` tensor (the dry-run's shape-only run) checks the
+same contract, allocates the output and records the launch and its work
+(:func:`.work.flash_attention`) under ``work.LaunchLog``.  The host-side arithmetic of the bf16 kernel lives here as
 plain functions the CPU tests reach: :func:`launch_grid`,
 :func:`tensor_map_geometry`, and :func:`kv_tiles` / :func:`tile_needs_mask`,
 which the kernel computes on the device the same way.
@@ -41,7 +43,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import flash_attention_ref
 
 __all__ = [
@@ -131,7 +133,9 @@ def flash_attention(
     the logits are scaled by ``D**-0.5``.  Returns ``[B, Hq, L, D]`` in ``q``'s
     dtype.  A CPU tensor runs the plain version (which also takes ``Lq !=
     Lk``); a CUDA tensor launches the bf16 (wgmma) or the float32 (CUDA-core)
-    kernel, or raises.  Neither the kernels nor the reference's Pallas kernel
+    kernel, or raises; a ``meta`` tensor checks the kernels' contract and
+    records the launch a CUDA tensor would make (:func:`.work.record`),
+    returning a ``meta`` output and counting no launch.  Neither the kernels nor the reference's Pallas kernel
     has a backward, so a tensor that requires a gradient (with grad mode on)
     raises on either device: training attends through
     ``models.attention.chunked_attention``, as the reference trains.
@@ -150,6 +154,10 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check_cuda(q, k, v)
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        work.record("flash_attention", (q, k, v, out),
+                    work.flash_attention(b, hq, hkv, lq, d, q.element_size(), causal, window))
+        return out
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, d,
             int(bool(causal)), int(window))
     with torch.cuda.device(q.device):
@@ -178,9 +186,11 @@ flash_attention.launches_fp32 = 0  # float32, csrc/flash_attention.cu
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """The kernels' argument contract; raises on anything they do not take."""
-    if q.device.type != "cuda":
-        raise ValueError(f"q must be on a CUDA device or the CPU, got {q.device}")
+    """The kernels' argument contract, on the card and on ``meta`` alike;
+    raises on anything they do not take."""
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"q must be on a CUDA device, the meta device or the CPU, got "
+                         f"{q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is {q.dtype} on {q.device}")

@@ -1,15 +1,19 @@
-"""Counting dry-run: one rank of a paper-scale cell, on ``meta`` tensors.
+"""Dry-run: one rank of a paper-scale cell, on ``meta`` tensors.
 
-Counterpart of the counting half of ``repro/launch/dryrun.py``
-(``run_counting_cell``, ``_compaction_report``, ``_emit``, ``main``).  The
-reference lowers and compiles its program against shape structs and reads
-XLA's analyses; here nothing is lowered.  The port's own per-rank program
-(``make_count_fn(..., return_raw=True)``) runs once on the shape-only plan
-(:func:`~repro_torch.core.distributed.abstract_plan`) and an
+Counterpart of ``repro/launch/dryrun.py``: its counting half
+(``run_counting_cell``, ``_compaction_report``) and its LM half
+(``sharding_for``, ``skip_reason``, ``lower_cell``/``_measure``/``run_cell``),
+with ``_emit`` and ``main``.  The reference lowers and compiles its program
+against shape structs and reads XLA's analyses; here nothing is lowered.
+The port's own per-rank program runs once on an
 :class:`~repro_torch.comm.abstract.AbstractMesh` rank, every tensor on
 ``meta``, under :class:`LiveBytes`, a dispatch mode that follows each
 ``meta`` storage from the op that makes it to its release (by weak
-reference).  The record carries:
+reference).
+
+**Counting** (``--counting ROW``): ``make_count_fn(..., return_raw=True)``
+on the shape-only plan (:func:`~repro_torch.core.distributed.abstract_plan`).
+The record carries:
 
 * ``memory``: ``argument_bytes`` (the rank's colorings, its shard's arrays
   and the split tables), ``output_bytes`` (the counts) and ``temp_bytes``
@@ -32,25 +36,49 @@ reference).  The record carries:
   (``plan_route_report``) and ``spmm_auto_density_model``, as the
   reference's record has them, and the launches by kernel.
 
-``analysis_s`` replaces the reference's ``compile_s``: there is no compile.
-Nothing is allocated and no device is touched; the compaction probe and
-the split tables run on the host at plan time.
-
 The reference's production mesh lays 16 shards on its data axis.  Its
 ``bench-*`` rows have 8, which its dry-run refuses (``make_count_fn``
 asserts the data axis equals the shard count); here their 8 shards take the
-data axis and the rest of the chips the iteration axis.  The LM half of the
-reference's dry-run (``run_cell``: ``train_step``, prefill and decode under
-sharding specs) waits for ROADMAP queue 1 item 17: its train cells set
-``seq_axis="model"`` and lower all ten rows, and the port's mesh runs
-neither sequence parallelism nor the four rows whose pattern is not
-``("attn",)`` yet (the specs of all ten rows, and the rank program of the
-six others, are ported).
+data axis and the rest of the chips the iteration axis.  On the multi-pod
+mesh the pods fold into the iteration axis, as the reference's
+``iter_axis=("pod", "model")``.
+
+**LM** (``--arch A --shape S``, ``--all``): every row of ``configs.ARCHS``
+at each ``SHAPES`` cell on the LM's view of the production mesh
+(``make_production_mesh(...).lm_view()``: 16 x 16, or pods 2 x 16 x 16),
+with the reference's :func:`sharding_for` and :func:`skip_reason` (and its
+``DRYRUN_SP_DIM``, ``DRYRUN_MOE_PIPELINE``, ``DRYRUN_ATTN_CHUNK`` and
+``DRYRUN_MICROBATCHES`` variables): the rank's weights
+(``Model.shard_params`` of the whole ``meta`` weights, which are no
+argument) and, on a train cell, its ZeRO-1 state (``rank_opt_state``)
+through ``make_train_step``; prefill and decode through ``prefill_fn`` and
+``decode_fn`` on the rank's rows and caches (:func:`measure_lm`).  Beside
+``LiveBytes`` and ``work.LaunchLog`` (flash's shape-only branch),
+``torch.utils.flop_counter.FlopCounterMode`` counts the GEMMs.  The record
+keeps the reference's fields and carries ``memory`` (``argument_bytes``:
+weights, state, inputs and caches; ``output_bytes``; ``temp_bytes``;
+``alias_bytes``: what the call updates in place, the train step's weights
+and state, where the reference donates them, and decode's caches),
+``cost`` (``flops``: the counted GEMMs plus flash's; ``bytes_accessed``),
+``collectives`` (the pod group's bytes included; the port's reduce-scatters
+are all-to-alls and count as such, at the same bytes) and ``launches``.
+Departures: the reference's ``_corrected`` and its depth probes mend XLA
+counting a scan body once; the port runs every layer, so its cost is whole
+and the record has ``cost_raw == cost`` and no ``probe``.  Decode runs at
+``pos = seq_len - 1`` (a Python int: the port's decode takes the position
+on the host).
+
+``analysis_s`` replaces the reference's ``lower_s`` and ``compile_s``:
+there is no compile.  Nothing is allocated and no device is touched; the
+compaction probe and the split tables run on the host at plan time.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --counting twitter-u12-2 \\
         [--multi-pod] [--counting-mode ring] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
+        --shape train_4k [--multi-pod] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out DIR]
     PYTHONPATH=src python -m repro_torch.roofline.analysis DIR
 """
 
@@ -69,11 +97,17 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from ..comm.abstract import AbstractMesh
+from ..configs import ARCHS, get_arch
+from ..configs.base import SHAPES, ShardingConfig
 from ..configs.subgraph import COUNTING_CONFIGS
 from ..kernels import ops, work
 from .mesh import make_production_mesh
 
-__all__ = ["ALLOC_GRANULE", "LiveBytes", "measure_rank", "run_counting_cell", "main"]
+__all__ = ["ALLOC_GRANULE", "FSDP_THRESHOLD", "LiveBytes", "measure_rank", "measure_lm",
+           "sharding_for", "skip_reason", "lm_cell", "run_cell", "run_counting_cell", "main"]
+
+#: weights above this many get ZeRO-3 weight sharding (the reference's)
+FSDP_THRESHOLD = 2e9
 
 #: the CUDA caching allocator's block granule: every allocation of n > 0
 #: bytes takes ``ceil(n / 512) * 512``, and that is what it counts
@@ -105,8 +139,9 @@ class LiveBytes(TorchDispatchMode):
     the tensor's last release.  ``peak`` is the most counted at once;
     ``settled`` the most counted between two ops (at each op's start), which
     leaves out what lives only while one op runs (its output beside inputs
-    freed right after it).  The storages of ``arguments`` are known and
-    never counted.  ``moved`` adds each op's input and output bytes, except
+    freed right after it); ``waiting`` the most counted where the rank
+    waits for a peer (:meth:`at_wait`).  The storages of ``arguments`` are
+    known and never counted.  ``moved`` adds each op's input and output bytes, except
     views and empty allocations.
     """
 
@@ -117,7 +152,13 @@ class LiveBytes(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.settled = 0
+        self.waiting = 0
         self.moved = 0
+
+    def at_wait(self) -> None:
+        """A point where the rank would wait for a peer: ``waiting`` is the
+        most counted at one."""
+        self.waiting = max(self.waiting, self.live)
 
     def _release(self, key: int, nbytes: int) -> None:
         self._known.pop(key, None)
@@ -297,6 +338,208 @@ def run_counting_cell(name: str, multi_pod: bool, out_dir: Optional[str] = None,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the LM half
+# ---------------------------------------------------------------------------
+
+
+def sharding_for(arch_name: str, shape_name: str, multi_pod: bool) -> ShardingConfig:
+    """The reference's cell sharding: the batch over ``pod`` and ``data``
+    (none where the global batch is smaller than those ranks), FSDP from
+    :data:`FSDP_THRESHOLD` weights, full remat and sequence parallelism
+    over ``model`` on train cells, and its ``DRYRUN_*`` knobs."""
+    cfg = get_arch(arch_name)
+    shape = SHAPES[shape_name]
+    dp_axes = ("pod", "data") if multi_pod else ("data",)
+    dp_size = (2 * 16 if multi_pod else 16)
+    if shape.global_batch < dp_size:
+        dp_axes = ()  # long_500k b=1: no batch sharding
+    return ShardingConfig(
+        batch_axes=dp_axes,
+        fsdp=cfg.params_count() >= FSDP_THRESHOLD,
+        remat="full" if shape.kind == "train" else "none",
+        # sequence parallelism: shard the residual stream over the model
+        # axis during training (the remat carries dominate memory otherwise)
+        seq_axis="model" if shape.kind == "train" else None,
+        sp_dim=int(os.environ.get("DRYRUN_SP_DIM", "1")),
+        moe_pipeline=os.environ.get("DRYRUN_MOE_PIPELINE", "") == "1",
+        attn_chunk=int(os.environ.get("DRYRUN_ATTN_CHUNK", "1024")),
+    )
+
+
+def skip_reason(arch_name: str, shape_name: str) -> Optional[str]:
+    """Why the reference skips a cell (None where it runs it)."""
+    cfg = get_arch(arch_name)
+    shape = SHAPES[shape_name]
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return "long_500k skipped: pure full-attention arch (see DESIGN.md §5)"
+    if shape.kind == "decode" and cfg.family == "audio" and shape_name == "long_500k":
+        return "long_500k skipped: enc-dec audio arch"
+    return None
+
+
+def _mesh_tag(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def measure_lm(model, kind: str, batch: int, seq_len: int, *, microbatches: int = 1) -> dict:
+    """One rank's train step (``kind="train"``), prefill or decode step of
+    ``model`` (built on ``meta``: on one device, or on an
+    :class:`AbstractMesh`, of whose one rank this is the program) over a
+    global batch of ``batch`` sequences of ``seq_len`` tokens (decode: one
+    token at ``seq_len - 1`` over caches of ``seq_len``).  Returns its
+    ``memory``, ``cost``, ``collectives`` and ``launches`` (the flash
+    launches by shape under ``launch_shapes``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..models.factory import batch_groups, context_len, row_block
+    from ..train import AdamWConfig, TrainConfig, make_train_step
+    from ..train.optimizer import init_opt_state
+    from ..train.train_loop import rank_opt_state
+
+    if model.device.type != "meta":
+        raise ValueError(f"the dry-run runs a model built on meta, not {model.device}")
+    mesh, cfg = model.mesh, model.cfg
+    ctx_len, needs_ctx = context_len(cfg)
+    whole = model.abstract_params()  # the whole weights: cut from, never an argument
+    out: dict = {}
+
+    def program(ctx) -> None:
+        params = whole if mesh is None else model.shard_params(whole)
+        weights = list(params.parameters())
+        b_loc = batch if mesh is None else row_block(batch, batch_groups(model.sharding))[1]
+        if kind == "decode":
+            caches = model.init_caches_fn(batch, seq_len, ctx_len)
+            cache_ts = [t for layer in caches for t in layer.values()]
+            inputs = {"tokens": _meta((b_loc, 1), torch.int32), "pos": seq_len - 1,
+                      "caches": caches}
+            held, args = cache_ts, weights + cache_ts + [inputs["tokens"]]
+            arg_bytes = _storage_bytes(args)
+            run = lambda: model.decode_fn(params, inputs)  # noqa: E731
+        else:
+            rows = batch if kind == "train" else b_loc  # the train step cuts its rows
+            inputs = {"tokens": _meta((rows, seq_len), torch.int32)}
+            if needs_ctx:
+                inputs["context"] = _meta((rows, ctx_len, cfg.d_model), torch.bfloat16)
+            own = sum(granule_bytes(t.numel() // rows * b_loc * t.element_size())
+                      for t in inputs.values())
+            if kind == "train":
+                named = dict(params.named_parameters())
+                opt = init_opt_state(named) if mesh is None else rank_opt_state(model, params)
+                step, _ = make_train_step(model, TrainConfig(opt=AdamWConfig(),
+                                                             microbatches=microbatches))
+                state = [*opt["m"].values(), *opt["v"].values()]
+                held = weights + state
+                args = held + list(inputs.values())
+                arg_bytes = _storage_bytes(held) + own
+                run = lambda: step(params, opt, inputs)  # noqa: E731
+            else:
+                held, args = [], weights + list(inputs.values())
+                arg_bytes = _storage_bytes(weights) + own
+                run = lambda: model.prefill_fn(params, inputs)  # noqa: E731
+        live = LiveBytes(args)
+        lives.append(live)
+        with FlopCounterMode(display=False) as flops, work.LaunchLog() as log, live:
+            result = run()
+        known = {id(t.untyped_storage()) for t in args}
+        fresh = [t for t in _tensors(result) if id(t.untyped_storage()) not in known]
+        output = _storage_bytes(fresh)
+        kernels = log.work()
+        out.update({
+            "memory": {
+                "argument_bytes": arg_bytes,
+                "output_bytes": output,
+                "temp_bytes": max(live.peak - output, 0),
+                "alias_bytes": _storage_bytes(held),
+                # temporaries and output held between two ops: what the rank
+                # holds while another rank of its process runs one
+                "settled_bytes": max(live.settled, live.live),
+                # held where it waits for a peer: where a rank of a
+                # LocalMesh taking turns gives the host to another
+                "waiting_bytes": live.waiting,
+            },
+            "cost": {
+                "flops": float(flops.get_total_flops()) + kernels.bf16_flops,
+                "gemm_flops": float(flops.get_total_flops()),
+                "kernel_flops": kernels.bf16_flops,
+                "bytes_accessed": kernels.bytes + live.moved,
+                "kernel_bytes": kernels.bytes,
+            },
+            "launches": log.counts(),
+            "launch_shapes": sorted({str(x.shapes) for x in log.launches}),
+        })
+
+    lives: list = []  # the run's LiveBytes, once made: the groups' waits report to it
+    if mesh is None:
+        program(None)
+        out["collectives"] = AbstractMesh().collectives.as_dict()
+        return out
+    mesh.on_wait = lambda: lives and lives[0].at_wait()
+    try:
+        mesh.run(program)
+    finally:
+        mesh.on_wait = None
+    out["collectives"] = mesh.collectives.as_dict()
+    return out
+
+
+def lm_cell(arch_name: str, shape_name: str, multi_pod: bool):
+    """``(model, shape, meta)`` of one LM cell: the row's model on the LM
+    view of the production mesh with :func:`sharding_for`'s sharding, the
+    ``SHAPES`` cell, and the record's reference fields."""
+    from ..models import build_model
+
+    cfg = get_arch(arch_name)
+    shape = SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod).lm_view()
+    sh = sharding_for(arch_name, shape_name, multi_pod)
+    model = build_model(cfg, sh, mesh)
+    meta = {
+        "arch": arch_name,
+        "shape": shape_name,
+        "kind": shape.kind,
+        "mesh": _mesh_tag(multi_pod),
+        "chips": mesh.size,
+        "params": cfg.params_count(),
+        "active_params": cfg.active_params_count(),
+        "fsdp": sh.fsdp,
+        "global_batch": shape.global_batch,
+        "seq_len": shape.seq_len,
+    }
+    return model, shape, meta
+
+
+def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
+             out_dir: Optional[str] = None) -> dict:
+    """Dry-run one (row, shape, mesh) LM cell: a skipped, ok or error record."""
+    reason = skip_reason(arch_name, shape_name)
+    mesh_tag = _mesh_tag(multi_pod)
+    if reason:
+        rec = {"arch": arch_name, "shape": shape_name, "mesh": mesh_tag,
+               "status": "skipped", "reason": reason}
+        _emit(rec, out_dir)
+        return rec
+    t0 = time.perf_counter()
+    try:
+        model, shape, meta = lm_cell(arch_name, shape_name, multi_pod)
+        measured = measure_lm(model, shape.kind, shape.global_batch, shape.seq_len,
+                              microbatches=int(os.environ.get("DRYRUN_MICROBATCHES", "1")))
+        rec = dict(meta, status="ok", mesh_axes=dict(zip(model.mesh.axis_names,
+                                                          model.mesh.shape)),
+                   analysis_s=time.perf_counter() - t0, **measured)
+        # every layer ran: the cost is whole, and no depth probe mends it
+        rec["cost_raw"] = dict(rec["cost"])
+    except Exception as e:  # noqa: BLE001 - a failing cell is a report, as the reference's
+        rec = {"arch": arch_name, "shape": shape_name, "mesh": mesh_tag, "status": "error",
+               "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-2000:]}
+    _emit(rec, out_dir)
+    return rec
+
+
 def _emit(rec: dict, out_dir: Optional[str]) -> None:
     """Print the record as one JSON line and, with ``out_dir``, write it to
     ``<arch>_<shape>_<mesh>[_<mode>].json`` there (the reference's names)."""
@@ -313,10 +556,10 @@ def _emit(rec: dict, out_dir: Optional[str]) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch")
-    ap.add_argument("--shape")
+    ap.add_argument("--arch", help="an LM row (configs.ARCHS)")
+    ap.add_argument("--shape", help="an LM cell (configs.base.SHAPES)")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true", help="every LM row at every shape")
     ap.add_argument("--counting", help="a COUNTING_CONFIGS row")
     ap.add_argument("--counting-mode", help="override the row's exchange mode")
     ap.add_argument("--out", default=None, help="directory for the record's JSON file")
@@ -324,11 +567,20 @@ def main(argv=None) -> int:
     if args.counting:
         rec = run_counting_cell(args.counting, args.multi_pod, args.out, args.counting_mode)
         return 0 if rec["status"] == "ok" else 1
-    if args.all or args.arch:
-        raise NotImplementedError(
-            "the LM dry-run (--arch, --all) lowers every row's train_step, prefill and "
-            "decode with sequence parallelism: ROADMAP queue 1 item 17")
-    ap.error("give --counting ROW")
+    if args.all:
+        ok = err = skip = 0
+        for arch in sorted(ARCHS):
+            for shape in SHAPES:
+                status = run_cell(arch, shape, args.multi_pod, args.out)["status"]
+                ok += status == "ok"
+                err += status == "error"
+                skip += status == "skipped"
+        print(f"# dry-run summary: {ok} ok, {skip} skipped, {err} errors", flush=True)
+        return 1 if err else 0
+    if args.arch and args.shape:
+        rec = run_cell(args.arch, args.shape, args.multi_pod, args.out)
+        return 0 if rec["status"] != "error" else 1
+    ap.error("give --counting ROW, --arch A --shape S, or --all")
     return 2
 
 

@@ -10,8 +10,15 @@ threads on one device taking turns at host code
 ``--distributed`` joins the ``torchrun`` job this process was started in
 (``launch.mesh.init_process_group``), one rank a process, laid out ``--data
 x --model`` (``process_mesh``); every row runs on a mesh.
-``--production-mesh`` and ``--multi-pod`` need a pod axis and 256 ranks:
-they wait for ROADMAP queue 1 item 17 and exit with that error.
+``--production-mesh`` is the reference's branch: the 16 x 16 ``(data,
+model)`` mesh (``--multi-pod``: 2 x 16 x 16 ``(pod, data, model)``, the
+batch over ``pod`` and ``data``) with ``ShardingConfig(batch_axes=...,
+fsdp=params >= 2e9, seq_axis="model")``; with ``--distributed`` the
+``torchrun`` world must have its 256 (512) ranks, else the mesh's thread
+ranks take turns on ``--device`` (``launch.mesh.production_mesh``; the
+shapes are ``launch.mesh.PRODUCTION_AXES``).  As in the reference,
+``--multi-pod`` alone does nothing, and ``--production-mesh`` overrides
+``--data`` and ``--model``.
 
 Run::
 
@@ -22,6 +29,8 @@ Run::
         --data 2 --model 2 [--device cpu]
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-360m --steps 3 --data 2 --model 2 --distributed --device cpu
+    PYTHONPATH=src torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \\
+        --arch granite-3-8b --full --production-mesh --distributed
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from ..configs import get_arch
 from ..configs.base import ShardingConfig
 from ..models import build_model
 from ..train import AdamWConfig, TrainConfig, train
-from .mesh import init_process_group, make_local_mesh, process_mesh
+from .mesh import init_process_group, make_local_mesh, process_mesh, production_mesh
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -52,26 +61,28 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    waits = [f for f, on in (("--production-mesh", args.production_mesh),
-                             ("--multi-pod", args.multi_pod)) if on]
-    if waits:
-        raise NotImplementedError(f"{', '.join(waits)}: the production meshes need a pod axis "
-                                  f"and 256 ranks (ROADMAP queue 1 item 17)")
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    meshed = args.distributed or args.data * args.model > 1
-    if args.distributed:
+    if args.production_mesh:
+        mesh = production_mesh(multi_pod=args.multi_pod, distributed=args.distributed,
+                               device=args.device)
+        sharding = ShardingConfig(
+            batch_axes=("pod", "data") if args.multi_pod else ("data",),
+            fsdp=cfg.params_count() >= 2e9,
+            seq_axis="model",
+        )
+    elif args.distributed:
         dev = init_process_group(args.device)
         mesh = process_mesh(data=args.data, iters=args.model, device=dev)
-    elif meshed:
+        sharding = ShardingConfig(batch_axes=("data",))
+    elif args.data * args.model > 1:
         mesh = make_local_mesh(args.data, args.model, device=args.device, turns=True)
+        sharding = ShardingConfig(batch_axes=("data",))
     else:
-        mesh = None
-    if mesh is None:
-        model = build_model(cfg, device=args.device)
-    else:
-        model = build_model(cfg, ShardingConfig(batch_axes=("data",)), mesh)
+        mesh, sharding = None, None
+    model = (build_model(cfg, device=args.device) if mesh is None
+             else build_model(cfg, sharding, mesh))
     tcfg = TrainConfig(
         steps=args.steps,
         microbatches=args.microbatches,

@@ -35,15 +35,20 @@ reference's spec of the same leaf without the stacked dimension.  They are
 pure functions of shapes, for all ten rows (``init_params`` runs on
 ``meta``).
 
-``build_model(cfg, sharding, mesh)`` on a ``data x model`` mesh
-(``launch.mesh.make_local_mesh``, ``process_mesh``) gives callables that
-run one rank's program when called inside the mesh's rank function
-(``mesh.run``): the rank's weights (``Model.shard_params``), its rows of
-the batch and its blocks of the caches, with explicit collectives over the
-rank's groups (:class:`~.layers.MeshShard`).  ``loss_fn`` returns the
-global loss on every rank, its gradient the rank's share (on CUDA run
-its backward under ``torch.autograd.set_multithreading_enabled(False)``,
-as ``make_train_step`` does: autograd's one device thread would otherwise
+``build_model(cfg, sharding, mesh)`` on a ``[pod x] data x model`` mesh
+(``launch.mesh.make_local_mesh``, ``process_mesh``, or the dry-run's
+``comm.AbstractMesh``) gives callables that run one rank's program when
+called inside the mesh's rank function (``mesh.run``): the rank's weights
+(``Model.shard_params``), its rows of the batch (``Model.rank_rows``) and
+its blocks of the caches, with explicit collectives over the rank's groups
+(:class:`~.layers.MeshShard`).  The batch splits over the batch axes the
+mesh has (``ShardingConfig.batch_axes``, ``pod`` major); the ``pod`` axis
+is data-parallel only, as the reference's: weights are whole across pods
+(FSDP and ZeRO-1 split over ``data`` alone), so the loss and every
+gradient are also summed over ``pod``.  ``loss_fn`` returns the global
+loss on every rank, its gradient the rank's share (on CUDA run its
+backward under ``torch.autograd.set_multithreading_enabled(False)``, as
+``make_train_step`` does: autograd's one device thread would otherwise
 block in one rank's collective); ``prefill_fn`` and ``decode_fn`` return
 the rank's block of vocab columns of the last position's logits
 ``[B_loc, V_pad / model]``.  All ten rows run on a mesh, trained and
@@ -53,11 +58,11 @@ the context of a vision or audio row the rank's rows of it.
 ``sp_dim=1`` the residual stream between blocks is the rank's block of the
 sequence, a prompt whose length the model axis does not divide padded with
 zero rows that every block keeps at zero; with ``sp_dim=2`` its block of
-the channels.  Decode's one token keeps the stream replicated.
-``attn_anchor`` gives each rank its own q heads where the heads divide the
-model axis and the KV heads do not (``attention_block_tp``).  A ``pod``
-axis (the multi-pod and production meshes) waits for ROADMAP queue 1 item
-17.
+the channels.  Decode's one token keeps the stream replicated.  Sequence
+parallelism runs over the model axis only (the reference's callers name
+no other axis).  ``attn_anchor`` gives each rank its own q heads where the
+heads divide the model axis and the KV heads do not
+(``attention_block_tp``).
 """
 
 from __future__ import annotations
@@ -70,7 +75,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..comm import current_rank, reduce_from
-from ..comm.group import LocalMesh, ProcessMesh
+from ..comm.abstract import AbstractMesh
+from ..comm.group import Group, LocalMesh, ProcessMesh
 from ..comm.spec import PartitionSpec as P
 from ..comm.spec import gather_whole, shard_of
 from ..configs.base import ArchConfig, ShapeSpec, ShardingConfig
@@ -88,7 +94,7 @@ from .transformer import (
 )
 
 __all__ = ["Model", "build_model", "chunked_ce_loss", "context_len", "param_pspecs",
-           "cache_pspecs", "mesh_axes", "rank_axes"]
+           "cache_pspecs", "mesh_axes", "rank_axes", "batch_groups", "row_block"]
 
 #: tokens per chunk of :func:`chunked_ce_loss`
 CE_CHUNK = 512
@@ -142,13 +148,13 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *
     With ``rs`` (one rank of a mesh) ``h`` is the rank's rows, whole, as
     they entered the rank's compute (``MeshShard.enter``), and ``head`` its
     block of vocab columns: the logits are vocab-parallel and the result is
-    the rank's share of the global mean, its sum over the data axis divided
+    the rank's share of the global mean, its sum over the batch axes divided
     by the global count.
     """
     b, s, _ = h.shape
     v_pad, lo, count = head.shape[1], 0, b * s
     if rs is not None:
-        lo, count = rs.model.rank * v_pad, count * rs.data.size
+        lo, count = rs.model.rank * v_pad, count * rs.dp_size
     pad = None
     if vocab_size and lo + v_pad > vocab_size:
         pad = torch.where(torch.arange(lo, lo + v_pad, device=h.device) < vocab_size, 0.0,
@@ -269,24 +275,45 @@ def cache_pspecs(caches, cfg: ArchConfig, sh: ShardingConfig) -> List[Dict[str, 
 
 
 def mesh_axes(mesh, sh: ShardingConfig) -> Dict[str, int]:
-    """The sizes of a ``data x model`` mesh's axes, by the names the specs use."""
-    return {"data": mesh.data_size, sh.model_axis: mesh.iter_size}
+    """The sizes of a ``[pod x] data x model`` mesh's axes, by the names the
+    specs use."""
+    return {"pod": getattr(mesh, "pod_size", 1), "data": mesh.data_size,
+            sh.model_axis: mesh.iter_size}
 
 
 def rank_axes(sh: ShardingConfig) -> Tuple[Dict[str, Any], Dict[str, int]]:
     """This rank's groups and coordinates on the mesh's axes, by the names
     the specs use (inside ``mesh.run``)."""
     ctx = current_rank()
-    groups = {"data": ctx.data, sh.model_axis: ctx.model}
+    groups = {"pod": ctx.pod, "data": ctx.data, sh.model_axis: ctx.model}
     return groups, {a: g.rank for a, g in groups.items()}
 
 
+def batch_groups(sh: ShardingConfig) -> Tuple[Group, ...]:
+    """This rank's groups on the batch axes the mesh has (``sh.batch_axes``
+    in their order, the major first; axes of one rank left out), inside
+    ``mesh.run``: the batch splits over them, and the loss and the
+    gradients of whole weights are summed over them."""
+    groups, _ = rank_axes(sh)
+    return tuple(groups[a] for a in sh.batch_axes
+                 if a in groups and a != sh.model_axis and groups[a].size > 1)
+
+
+def row_block(rows: int, groups) -> Tuple[int, int]:
+    """``(first row, rows)`` of this rank's block of ``rows`` split over
+    ``groups`` (:func:`batch_groups`), the first group major."""
+    n, j = 1, 0
+    for g in groups:
+        n, j = n * g.size, j * g.size + g.rank
+    if rows % n:
+        raise ValueError(f"{rows} rows do not split over {n} data-parallel ranks")
+    return j * (rows // n), rows // n
+
+
 def _check_mesh(cfg: ArchConfig, sh: ShardingConfig, mesh) -> None:
-    if not isinstance(mesh, (LocalMesh, ProcessMesh)):
-        raise TypeError(f"a mesh is a LocalMesh or a ProcessMesh (launch.mesh), not {mesh!r}")
-    if "pod" in (sh.model_axis, sh.seq_axis):
-        raise NotImplementedError("a pod axis (the multi-pod and production meshes) waits for "
-                                  "ROADMAP queue 1 item 17")
+    if not isinstance(mesh, (LocalMesh, ProcessMesh, AbstractMesh)):
+        raise TypeError(f"a mesh is a LocalMesh, a ProcessMesh (launch.mesh) or an "
+                        f"AbstractMesh, not {mesh!r}")
     if sh.seq_axis not in (None, sh.model_axis):
         raise ValueError(f"sequence parallelism runs over the model axis {sh.model_axis!r}, "
                          f"not {sh.seq_axis!r}")
@@ -381,7 +408,15 @@ class Model:
         sh = self.sharding
         return MeshShard(groups["data"], groups[sh.model_axis], fsdp=sh.fsdp,
                          moe_pipeline=sh.moe_pipeline,
-                         sp=0 if sh.seq_axis is None else sh.sp_dim, anchor=sh.attn_anchor)
+                         sp=0 if sh.seq_axis is None else sh.sp_dim, anchor=sh.attn_anchor,
+                         dp=batch_groups(sh))
+
+    def rank_rows(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch (inside ``mesh.run``): every
+        entry's block of dimension 0 over the batch axes (views)."""
+        dp = batch_groups(self.sharding)
+        lo, n = row_block(batch["tokens"].shape[0], dp)
+        return {k: v[lo : lo + n] for k, v in batch.items()}
 
 
 def _rebuild(model: Model, tensors: Mapping[str, torch.Tensor]) -> Transformer:
@@ -404,7 +439,8 @@ def build_model(
     cache_dtype: torch.dtype = CACHE_DTYPE,
 ) -> Model:
     """The callables of ``cfg`` on ``device`` (``cuda`` unless the caller
-    passes ``"cpu"``; raises without a card).
+    passes ``"cpu"``, or ``"meta"`` for a shape-only run; raises without a
+    card).
 
     ``dtype`` is the compute dtype.  ``cast_params=True`` is the reference's
     ``cast_params`` for serving: ``init_fn`` stores weights of two or more
@@ -419,10 +455,11 @@ def build_model(
     reference's defaults, ``"full"`` and 1024, without one), and a mesh its
     axes, FSDP and the experts' pipeline.
 
-    With ``mesh`` (a ``LocalMesh`` or ``ProcessMesh`` of ``data x model``
-    ranks; its device is the model's) ``init_fn`` still draws the whole
-    weights, and the callables are one rank's program: call them inside
-    ``mesh.run`` on the rank's weights (``Model.shard_params``) and rows.
+    With ``mesh`` (a ``LocalMesh``, ``ProcessMesh`` or ``AbstractMesh`` of
+    ``[pod x] data x model`` ranks; its device is the model's) ``init_fn``
+    still draws the whole weights, and the callables are one rank's
+    program: call them inside ``mesh.run`` on the rank's weights
+    (``Model.shard_params``) and rows (``Model.rank_rows``).
     """
     _check_supported(cfg)
     sh = sharding or ShardingConfig()
@@ -432,7 +469,9 @@ def build_model(
             raise ValueError(f"the mesh is on {mesh.device}, not {device}")
         dev = mesh.device
     else:
-        dev = resolve_device(device)
+        # ``meta``: the dry-run's shape-only model (one device, nothing allocated)
+        dev = (torch.device("meta") if device is not None and torch.device(device).type == "meta"
+               else resolve_device(device))
 
     def rank() -> Optional[MeshShard]:
         return None if mesh is None else model.rank_shard()
@@ -472,7 +511,9 @@ def build_model(
         rs = dataclasses.replace(rs, seq_len=tokens.shape[1])
         loss = chunked_ce_loss(rs.enter(h)[:, :-1], head, tokens[:, 1:],
                                vocab_size=cfg.vocab_size, rs=rs)
-        return reduce_from(loss, rs.data) + 0.01 * aux
+        for g in rs.dp:
+            loss = reduce_from(loss, g)
+        return loss + 0.01 * aux
 
     @torch.no_grad()
     def prefill_fn(params, batch):
@@ -498,9 +539,7 @@ def build_model(
         pm = 0
         if mesh is not None:
             rs = rank()
-            if batch_size % rs.data.size:
-                raise ValueError(f"{batch_size} rows do not split over {rs.data.size} data ranks")
-            batch_size, pm = batch_size // rs.data.size, rs.model.size
+            batch_size, pm = row_block(batch_size, rs.dp)[1], rs.model.size
         return init_caches(cfg, batch_size, seq_len, context_len=context_len, device=dev,
                            cache_dtype=cache_dtype, model_size=pm)
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -175,8 +175,10 @@ class MeshShard:
     of the reference's activation ``shard`` function (``factory.py``), for
     a rank program with explicit collectives (Megatron's pattern).
 
-    ``data`` is the batch axis (and FSDP's), ``model`` the tensor- and
-    expert-parallel axis.  Without sequence parallelism (``sp = 0``) the
+    ``data`` is FSDP's axis, ``model`` the tensor- and expert-parallel axis,
+    and ``dp`` the groups the batch splits over (the batch axes the mesh
+    has: ``data`` and, on the multi-pod mesh, ``pod``, the major first),
+    over which the loss and the experts' aux loss are reduced.  Without sequence parallelism (``sp = 0``) the
     residual stream between blocks is replicated over ``model``: a block
     enters rank-specific compute through ``copy_to`` and leaves it through a
     float32 ``reduce_from``, so every model rank holds the same stream and,
@@ -215,6 +217,13 @@ class MeshShard:
     rot: Optional[tuple] = None
     #: a block's FSDP weights gathered at its entry (:meth:`gather`), by id
     gathered: Optional[dict] = None
+    #: the batch axes' groups (``factory.batch_groups``), the major first
+    dp: Tuple[Group, ...] = ()
+
+    @property
+    def dp_size(self) -> int:
+        """The data-parallel ranks the batch splits over."""
+        return math.prod(g.size for g in self.dp)
 
     def unshard(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """Under FSDP the whole of ``w``'s dimension ``dim`` (sharded over

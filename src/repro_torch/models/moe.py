@@ -37,7 +37,7 @@ Counterpart of ``repro/models/moe.py``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,7 +106,9 @@ def _dispatch(xt: torch.Tensor, top_e: torch.Tensor, capacity: int, num_experts:
     k = top_e.shape[1]
     e_flat = top_e.reshape(-1)
     sorted_e, order = torch.sort(e_flat, stable=True)
-    counts = torch.bincount(e_flat, minlength=num_experts)
+    # bincount, as a scatter: the same counts, and a shape the meta device knows
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=xt.device).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(e_flat)
     pos[order] = torch.arange(t * k, device=xt.device) - starts[sorted_e]
@@ -191,6 +193,7 @@ def moe_block_manual(
     *,
     group: Group,
     data_group: Optional[Group] = None,
+    dp_groups: Optional[Sequence[Group]] = None,
     pipeline: bool = False,
     group_factor: int = 1,
     fsdp: bool = False,
@@ -202,7 +205,8 @@ def moe_block_manual(
     ``fsdp`` also split over ``data_group`` as the specs say: ``router``
     dimension 0, ``w_gate`` and ``w_up`` 1, ``w_down`` 2, gathered here, the
     reference's ZeRO-3 unshard); ``group`` is the model axis, ``data_group``
-    (optional) the data axes over which the aux loss is averaged.
+    (optional) the data axis, and ``dp_groups`` the batch axes' groups over
+    which the aux loss is averaged (``data_group`` alone without them).
     ``pipeline`` runs the token-sharded EP exchange as ``grouped_exchange``
     with ``group_factor`` shifts in flight; otherwise one ``all_to_all``.
     Returns ``(out [B_loc, L, D], aux)``, the output the same on every rank
@@ -222,6 +226,7 @@ def moe_block_manual(
             raise ValueError("the FSDP unshard gathers over data_group; none given")
         router, wg, wu, wd = (all_gather_cat(w, data_group, dim)
                               for w, dim in ((router, 0), (wg, 1), (wu, 1), (wd, 2)))
+    dp = (data_group,) if dp_groups is None else tuple(dp_groups)
     pm, m = group.size, group.rank
     dgroup = DifferentiableGroup(group)
     b, l, d = x.shape
@@ -247,7 +252,7 @@ def moe_block_manual(
                                                                wg, wu, wd)
         combined = _combine(out_buf, e_flat, pos_c, keep, copy_to(top_w, group), dtype)
         combined = reduce_from(combined.float(), group).to(dtype)
-        return combined.reshape(b, l, d), _mean(aux, data_group)
+        return combined.reshape(b, l, d), _mean(aux, *dp)
 
     # token-sharded EP: the paper's exchange, one chunk per rank
     e_loc = e // pm  # this rank's experts
@@ -271,4 +276,4 @@ def moe_block_manual(
     back = dgroup.all_to_all(out_chunks)  # back[q]: rank q's experts on this rank's tokens
     combined = _combine(back.reshape(e, cap, d), e_flat, pos_c, keep, top_w, dtype)
     full = gather_replicated(combined, group).reshape(t, d)
-    return full.reshape(b, l, d), _mean(aux, data_group, group)
+    return full.reshape(b, l, d), _mean(aux, *dp, group)

@@ -155,7 +155,7 @@ def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype, rs: Optional[MeshShard] = None)
     """A dense FFN, or the experts: ``(out, aux loss or None)``; on one
     device, or as one rank of the mesh ``rs`` (the reference's mesh
     ``_ffn_apply``: ``moe_block_manual`` over the model axis, its aux
-    averaged over the data axis, on the whole stream and back to the
+    averaged over the batch axes, on the whole stream and back to the
     rank's block of it under sequence parallelism)."""
     if rs is None:
         if isinstance(ffn, MoE):
@@ -163,7 +163,8 @@ def _ffn_apply(ffn, x: torch.Tensor, cfg, dtype, rs: Optional[MeshShard] = None)
         return mlp_apply(ffn, x, cfg.act, dtype=dtype), None
     if isinstance(ffn, MoE):
         out, aux = moe_block_manual(ffn, rs.enter_whole(x), cfg, group=rs.model,
-                                    data_group=rs.data, pipeline=rs.moe_pipeline, fsdp=rs.fsdp,
+                                    data_group=rs.data, dp_groups=rs.dp,
+                                    pipeline=rs.moe_pipeline, fsdp=rs.fsdp,
                                     dtype=dtype)
         return rs.own(out), aux
     return rs.mlp(ffn, x, cfg.act, dtype), None

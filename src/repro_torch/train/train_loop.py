@@ -15,22 +15,24 @@ step.
 The int8 gradient ring (``comm.compress.compressed_ring_reduce_scatter``)
 is a library function here as in the reference, whose step never calls it.
 
-On a ``data x model`` mesh (a model built with ``mesh=``) the step is one
-rank's: call it inside ``mesh.run`` on the rank's weights
+On a ``[pod x] data x model`` mesh (a model built with ``mesh=``) the
+step is one rank's: call it inside ``mesh.run`` on the rank's weights
 (``Model.shard_params``) and state (:func:`rank_opt_state`) with the
-global batch, of which the rank takes its data rank's rows.  Gradients land
-in the weights' layout, the reference's ``grad_constraint``: summed over
-``data`` where a weight is whole on it, reduce-scattered (by FSDP's gather)
-where it is split.  The norm adds each block's squares over the axes its
-weight is split on.  ZeRO-1: each data rank updates its block of ``m``,
-``v`` and the weight, then the updated blocks are all-gathered over
-``data``.  Each rank runs its backward on its own thread
+global batch, of which the rank takes its rows over the batch axes
+(``Model.rank_rows``).  Gradients land in the weights' layout, the
+reference's ``grad_constraint``: summed over ``data`` where a weight is
+whole on it, reduce-scattered (by FSDP's gather) where it is split, and
+summed over ``pod`` as well (the weights are whole across pods).  The norm
+adds each block's squares over the axes its weight is split on.  ZeRO-1:
+each data rank updates its block of ``m``, ``v`` and the weight, then the
+updated blocks are all-gathered over ``data``; every pod does the same
+update.  Each rank runs its backward on its own thread
 (``torch.autograd.set_multithreading_enabled(False)``): on CUDA autograd
 would otherwise run every rank's backward on one device thread, where a
 rank waiting in a collective's backward blocks the others.  ``train(...,
 mesh)`` runs the loop on every rank, saves checkpoints of the whole
-weights and state from one rank, restores each rank's blocks, and returns
-the whole weights and state.
+weights and state from rank ``(0, 0, 0)``, restores each rank's blocks, and
+returns the whole weights and state.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..comm.spec import Placement, gather_whole, used_axes
-from ..models.factory import Model, rank_axes
+from ..models.factory import Model, batch_groups, rank_axes
 from .checkpoint import CheckpointManager
 from .data import DataConfig, synthetic_batch
 from .optimizer import (
@@ -118,13 +120,26 @@ def gather_opt_state(model: Model, state: dict) -> dict:
             for kind in ("m", "v")} | {"step": state["step"].clone()}
 
 
+#: bytes of one flat all-reduce of :func:`_sum_over` (the gradients go in buckets)
+SUM_BUCKET_BYTES = 1 << 28
+
+
 def _sum_over(group, tensors: List[torch.Tensor]) -> None:
-    """Sum ``tensors`` over ``group`` in place, in one flat all-reduce."""
+    """Sum ``tensors`` over ``group`` in place, in flat all-reduces of at
+    most :data:`SUM_BUCKET_BYTES` (a larger tensor alone)."""
     if group.size == 1 or not tensors:
         return
-    flat = group.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]))
-    torch._foreach_copy_(tensors, [f.view_as(t) for f, t in
-                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
+    bucket, nbytes = [], 0
+    for t in tensors + [None]:
+        if bucket and (t is None or nbytes + t.numel() * t.element_size() > SUM_BUCKET_BYTES):
+            flat = group.all_reduce_sum(torch.cat([b.reshape(-1) for b in bucket]))
+            torch._foreach_copy_(bucket, [f.view_as(b) for f, b in
+                                          zip(flat.split([b.numel() for b in bucket]), bucket)])
+            del flat
+            bucket, nbytes = [], 0
+        if t is not None:
+            bucket.append(t)
+            nbytes += t.numel() * t.element_size()
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
@@ -181,20 +196,25 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
     pspecs, ospecs = _specs(model)
     dims = _zero1_dims(pspecs, ospecs)
 
+    if mesh.data_size > 1 and "data" not in model.sharding.batch_axes:
+        raise ValueError("a mesh trains with the batch split over its data axis: put 'data' "
+                         "in ShardingConfig.batch_axes")
+
     def mesh_step(params, opt_state, batch):
         groups, _ = rank_axes(model.sharding)
         data = groups["data"]
-        tokens = batch["tokens"]
-        if tokens.shape[0] % data.size:
-            raise ValueError(f"{tokens.shape[0]} rows do not split over {data.size} data ranks")
-        b = tokens.shape[0] // data.size
-        rows = {k: v[data.rank * b : (data.rank + 1) * b] for k, v in batch.items()}
+        # the batch axes other than data: the gradients of every weight are
+        # summed over them (the weights are whole across pods)
+        others = [g for g in batch_groups(model.sharding) if g is not data]
+        rows = model.rank_rows(batch)
         params.requires_grad_(True)
         weights = dict(params.named_parameters())
         with torch.autograd.set_multithreading_enabled(False):
             loss, grads = loss_and_grads(params, weights, rows)
         grads = dict(zip(weights, grads))
         _sum_over(data, [g for k, g in grads.items() if "data" not in used_axes(pspecs[k])])
+        for g in others:
+            _sum_over(g, list(grads.values()))
         norm = sharded_global_norm(grads, pspecs, groups)
         blocks = {k: _zero1_block(p, dims[k], data) for k, p in weights.items()}
         _, opt_state, stats = adamw_update(
@@ -227,7 +247,7 @@ def train(model: Model, tcfg: TrainConfig, mesh=None, *, log: Callable[[str], No
 
     On the model's mesh every rank runs the loop on its blocks of the
     weights and state; the ranks agree after each step whether SIGTERM
-    came, a checkpoint is gathered whole and saved by rank (0, 0), a
+    came, a checkpoint is gathered whole and saved by rank (0, 0, 0), a
     restore gives each rank its blocks, and the result is the whole
     weights and state.
     """
@@ -286,10 +306,11 @@ def train(model: Model, tcfg: TrainConfig, mesh=None, *, log: Callable[[str], No
     def on_rank(ctx):
         params = model.shard_params(whole[0])
         ctx.data.barrier()
-        ctx.model.barrier()  # every rank holds its blocks: the whole weights may go
-        if ctx.data.rank == 0 and ctx.model.rank == 0:
+        ctx.model.barrier()
+        ctx.pod.barrier()  # every rank holds its blocks: the whole weights may go
+        writer = ctx.data.rank == 0 and ctx.model.rank == 0 and ctx.pod.rank == 0
+        if writer:
             whole.clear()
-        writer = ctx.data.rank == 0 and ctx.model.rank == 0
         weights = dict(params.named_parameters())
         opt, start = rank_opt_state(model, params), 0
         if latest is not None:
@@ -318,7 +339,7 @@ def train(model: Model, tcfg: TrainConfig, mesh=None, *, log: Callable[[str], No
 
         def stop_now() -> bool:  # every rank stops after the same step
             flag = torch.tensor([float(preempted["flag"])], device=model.device)
-            for g in (ctx.data, ctx.model):
+            for g in (ctx.data, ctx.model, ctx.pod):
                 if g.size > 1:
                     flag = g.all_reduce_sum(flag)
             return bool(flag.item() > 0)

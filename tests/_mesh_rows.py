@@ -1,9 +1,11 @@
-"""The LM on a ``data x model`` mesh, shared by tests/test_torch_mesh_lm.py,
-tests/test_torch_mesh_moe.py and tests/test_torch_mesh_train.py.
+"""The LM on a ``[pod x] data x model`` mesh, shared by tests/test_torch_mesh_lm.py,
+tests/test_torch_mesh_moe.py, tests/test_torch_mesh_train.py and
+tests/test_torch_mesh_pod.py.
 
 * :func:`reference_runs`: the reference's meshed runs (``build_model(cfg,
-  sharding, mesh)`` on ``make_local_mesh(data, model)`` over 8 forced host
-  devices, float32 compute, weights placed by its ``param_specs``): the
+  sharding, mesh)`` on ``make_local_mesh(data, model)``, or with ``pods`` on
+  a ``(pod, data, model)`` mesh with the batch over ``pod`` and ``data``,
+  over 8 forced host devices, float32 compute, weights placed by its ``param_specs``): the
   loss and gradients of ``jax.value_and_grad(loss_fn)``, and with
   ``serve`` the prefill's last logits and each decode step's, in one
   subprocess for a list of jobs;
@@ -81,7 +83,7 @@ _WORKER = textwrap.dedent("""
     from jax.sharding import NamedSharding
     from repro.configs import get_arch
     from repro.configs.base import ShardingConfig
-    from repro.launch.mesh import make_local_mesh
+    from repro.launch.mesh import make_local_mesh, make_mesh
     from repro.models import build_model
 
     def flat(tree):
@@ -96,8 +98,11 @@ _WORKER = textwrap.dedent("""
                                       num_kv_heads=job["heads"][1])
         if job.get("capacity_factor"):
             cfg = dataclasses.replace(cfg, capacity_factor=job["capacity_factor"])
-        mesh = make_local_mesh(job["data"], job["model"])
-        sh = ShardingConfig(batch_axes=("data",), fsdp=job["fsdp"],
+        pods = job.get("pods", 1)
+        mesh = (make_local_mesh(job["data"], job["model"]) if pods == 1 else
+                make_mesh((pods, job["data"], job["model"]), ("pod", "data", "model")))
+        sh = ShardingConfig(batch_axes=("data",) if pods == 1 else ("pod", "data"),
+                            fsdp=job["fsdp"],
                             moe_pipeline=job["pipeline"], **job.get("sharding", {}))
         model = build_model(cfg, sh, mesh, dtype=jnp.float32)
         params = jax.jit(model.init_fn)(jax.random.key(0))
@@ -130,12 +135,13 @@ _WORKER = textwrap.dedent("""
 
 
 def job(jid, row, data, model, *, fsdp=False, pipeline=False, serve=False, heads=None,
-        capacity_factor=None, perturb=False, **sharding) -> dict:
+        capacity_factor=None, perturb=False, pods=1, **sharding) -> dict:
     """A reference job (``perturb``: biases and cross gates drawn nonzero;
-    ``sharding``: ``seq_axis``, ``sp_dim``, ``attn_anchor``)."""
+    ``pods``: a pod axis; ``sharding``: ``seq_axis``, ``sp_dim``,
+    ``attn_anchor``)."""
     cfg = config(row, heads)
     ctx = context(cfg)
-    return {"id": jid, "row": row, "data": data, "model": model, "fsdp": fsdp,
+    return {"id": jid, "row": row, "data": data, "model": model, "pods": pods, "fsdp": fsdp,
             "pipeline": pipeline, "serve": SERVE if serve else 0, "heads": heads,
             "capacity_factor": capacity_factor, "tokens": tokens(cfg.vocab_size).tolist(),
             "context": None if ctx is None else ctx.tolist(), "sharding": sharding,
@@ -212,12 +218,14 @@ def _batch(toks, ctx, lo=0, hi=None):
 
 
 def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipeline=False,
-                  serve=False, cache_dtype=torch.bfloat16, ctx=None, **sharding):
+                  serve=False, cache_dtype=torch.bfloat16, ctx=None, pods=1, **sharding):
     """The port's meshed loss, gradients (whole, in the weights' layout) and,
-    with ``serve``, logits (whole) on ``data x model`` thread ranks
-    (``sharding``: more ``ShardingConfig`` fields; ``ctx`` a context)."""
-    mesh = make_local_mesh(data, model, device="cpu")
-    m = build_model(cfg, ShardingConfig(batch_axes=("data",), fsdp=fsdp, moe_pipeline=pipeline,
+    with ``serve``, logits (whole) on ``[pods x] data x model`` thread ranks
+    (the batch over ``pod`` and ``data``; ``sharding``: more
+    ``ShardingConfig`` fields; ``ctx`` a context)."""
+    mesh = make_local_mesh(data, model, pods=pods, device="cpu")
+    dp = ("data",) if pods == 1 else ("pod", "data")
+    m = build_model(cfg, ShardingConfig(batch_axes=dp, fsdp=fsdp, moe_pipeline=pipeline,
                                         **sharding),
                     mesh, dtype=torch.float32, cache_dtype=cache_dtype)
     toks = torch.as_tensor(toks)
@@ -226,10 +234,9 @@ def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipel
 
     def rank(ctx):
         p = m.shard_params(params)
-        b = toks.shape[0] // data
-        batch = _batch(toks, ctx_all, ctx.data.rank * b, (ctx.data.rank + 1) * b)
+        batch = m.rank_rows(_batch(toks, ctx_all))
         rows = batch["tokens"]
-        groups = {"data": ctx.data, "model": ctx.model}
+        groups = {"pod": ctx.pod, "data": ctx.data, "model": ctx.model}
         specs = m.param_specs(p)
         p.requires_grad_(True)
         loss = m.loss_fn(p, batch)
@@ -238,16 +245,19 @@ def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipel
         for n, g in zip(names, grads):
             if "data" not in used_axes(specs[n]) and data > 1:
                 g = ctx.data.all_reduce_sum(g)
+            if pods > 1:
+                g = ctx.pod.all_reduce_sum(g)
             whole[n] = gather_whole(g, specs[n], groups)
         logits = []
         if serve:
             p.requires_grad_(False)
+            spec = P(dp, "model")
             lg, caches = m.prefill_fn(p, dict(batch, tokens=rows[:, :SERVE]))
-            logits.append(gather_whole(lg, P("data", "model"), groups))
+            logits.append(gather_whole(lg, spec, groups))
             for t in range(S - SERVE):
                 lg, caches = m.decode_fn(p, {"tokens": rows[:, SERVE + t : SERVE + t + 1],
                                              "caches": caches, "pos": SERVE + t})
-                logits.append(gather_whole(lg, P("data", "model"), groups))
+                logits.append(gather_whole(lg, spec, groups))
         return float(loss.detach()), whole, logits
 
     out = mesh.run(rank)

@@ -20,6 +20,7 @@
 """
 
 import dataclasses
+import json
 import os
 import threading
 from functools import lru_cache
@@ -445,9 +446,23 @@ def test_production_mesh(multi_pod):
     assert got == [(16, mesh.iter_size, "meta")]
 
 
-def test_lm_dryrun_waits_for_items_16_and_17():
-    """Training (item 16) is ported; the LM dry-run waits for item 17."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        dryrun.main(["--arch", "granite-3-8b", "--shape", "train_4k"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        dryrun.main(["--all"])
+def test_lm_dryrun_waits_for_items_16_and_17(monkeypatch, capsys):
+    """The LM dry-run is ported: ``--arch A --shape S`` prints one ``ok``
+    record, and ``--all`` (over two rows and three shapes here) one record
+    a cell, the skips the reference's, and its summary line."""
+    assert dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k", "--multi-pod"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["status"], rec["mesh"], rec["chips"]) == ("ok", "2x16x16", 512)
+    monkeypatch.setattr(dryrun, "ARCHS", {k: dryrun.ARCHS[k] for k in ("smollm-360m",
+                                                                       "whisper-base")})
+    monkeypatch.setattr(dryrun, "SHAPES", {k: dryrun.SHAPES[k] for k in ("prefill_32k",
+                                                                         "decode_32k",
+                                                                         "long_500k")})
+    assert dryrun.main(["--all"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    recs = [json.loads(x) for x in lines[:-1]]
+    assert lines[-1] == "# dry-run summary: 4 ok, 2 skipped, 0 errors"
+    assert [(r["arch"], r["shape"], r["status"]) for r in recs] == [
+        (a, sh, "skipped" if sh == "long_500k" else "ok")
+        for a in ("smollm-360m", "whisper-base") for sh in ("prefill_32k", "decode_32k",
+                                                           "long_500k")]

@@ -112,13 +112,22 @@ def test_ops_on_cpu_runs_the_plain_version():
 
 
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
-    """A tensor on neither the CPU nor a CUDA device raises: the plain version
-    is taken because a tensor lies on the CPU, never as a fallback."""
+    """The plain version is taken because a tensor lies on the CPU, never as
+    a fallback: a ``meta`` tensor (the dry-run's) runs neither it nor a
+    kernel, records the launch a CUDA tensor would make and returns a
+    ``meta`` output, and holds the kernels' contract as a CUDA tensor does."""
+    from repro_torch.kernels import work
+
     q, k, v = (torch.empty(s, dtype=torch.bfloat16, device="meta")
                for s in ((1, 4, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64)))
     launched = flash_attention.launches
+    with work.LaunchLog() as log:
+        out = flash_attention(q, k, v)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
+    assert log.counts() == {"flash_attention": 1}
+    assert log.work() == work.flash_attention(1, 4, 2, 128, 64, 2, True, 0)
     with pytest.raises(ValueError):
-        flash_attention(q, k, v)
+        flash_attention(q.half(), k.half(), v.half())
     assert flash_attention.launches == launched
 
 

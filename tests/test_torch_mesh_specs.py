@@ -6,9 +6,10 @@
 FSDP off and on.  The reference stacks each pattern position over depth;
 the port keeps one module per layer, so a stacked reference leaf maps onto
 one port weight per layer, its spec less the leading ``None``.  Specs are
-compared as plain tuples.  Also: what a mesh still refuses (a pod axis,
-the production mesh flags) names ROADMAP queue 1 item 17; every row,
-``seq_axis="model"`` and ``attn_anchor`` build on a mesh.
+compared as plain tuples.  Also: every row builds on a mesh with a pod
+axis, and a sequence axis other than the model axis is refused; every
+row, ``seq_axis="model"`` and ``attn_anchor`` build on a mesh; the
+launcher's production mesh flags build the reference's sharding.
 """
 
 from __future__ import annotations
@@ -245,13 +246,16 @@ WAITING = [n for n in ROWS if get_arch(n).block_pattern != ("attn",)]
 
 @pytest.mark.parametrize("name", WAITING)
 def test_a_mesh_refuses_the_rows_that_wait(name):
-    """The four rows with other block kinds run on a mesh now; what still
-    waits for item 17 there is a pod axis."""
-    mesh = make_local_mesh(2, 2, device="cpu")
-    build_model(get_arch(name).reduced(), ShardingConfig(batch_axes=("data",)), mesh)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_arch(name).reduced(),
-                    ShardingConfig(batch_axes=("data",), seq_axis="pod"), mesh)
+    """The four rows with other block kinds build on a mesh, a pod axis
+    too; what a mesh refuses is a sequence axis other than the model axis
+    (the reference's callers name no other)."""
+    cfg = get_arch(name).reduced()
+    build_model(cfg, ShardingConfig(batch_axes=("data",)), make_local_mesh(2, 2, device="cpu"))
+    pod = make_local_mesh(1, 2, pods=2, device="cpu")
+    model = build_model(cfg, ShardingConfig(batch_axes=("pod", "data"), seq_axis="model"), pod)
+    assert model.mesh is pod and pod.size == 4
+    with pytest.raises(ValueError, match="model axis"):
+        build_model(cfg, ShardingConfig(batch_axes=("data",), seq_axis="pod"), pod)
 
 
 @pytest.mark.parametrize("field", [{"seq_axis": "model"}, {"attn_anchor": True}],
@@ -271,6 +275,22 @@ def test_a_mesh_refuses_sequence_parallelism_and_anchors(field):
 
 
 @pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"]])
-def test_launcher_refuses_the_production_mesh(flags):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
+def test_launcher_refuses_the_production_mesh(flags, monkeypatch):
+    """``--production-mesh`` builds the reference's ShardingConfig on the
+    production mesh's shape (here made small: ``launch.mesh.PRODUCTION_AXES``
+    is where every reader takes it from); ``--multi-pod`` alone does
+    nothing, as in the reference."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    monkeypatch.setitem(launch_mesh.PRODUCTION_AXES, False, (("data", 2), ("model", 2)))
+    got = {}
+    monkeypatch.setattr(launch_train, "train",
+                        lambda model, tcfg, mesh: got.update(model=model, mesh=mesh))
+    launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
+    if flags == ["--multi-pod"]:
+        assert got["mesh"] is None
+        return
+    mesh, sh = got["mesh"], got["model"].sharding
+    assert (mesh.pod_size, mesh.data_size, mesh.iter_size) == (1, 2, 2) and mesh.turns
+    want = RefShardingConfig(batch_axes=("data",), fsdp=False, seq_axis="model")
+    assert dataclasses.asdict(sh) == dataclasses.asdict(want)

@@ -385,8 +385,8 @@ def test_sigterm_saves_after_the_step_and_exits(tmp_path, monkeypatch):
 
 
 def test_train_refuses_a_mesh_and_cast_weights():
-    """A mesh trains the rows (the model built on it); a pod axis waits for
-    ROADMAP queue 1 item 17; cast weights cannot train."""
+    """A mesh trains the rows (the model built on it); a sequence axis other
+    than the model axis is refused; cast weights cannot train."""
     from repro_torch.configs import ShardingConfig
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -397,7 +397,7 @@ def test_train_refuses_a_mesh_and_cast_weights():
     assert int(out["opt"]["step"]) == 1 and np.isfinite(float(out["metrics"]["loss"]))
     _, shardings = make_train_step(model, TrainConfig(), mesh)
     assert shardings["params"]["embed"] == ("model", None)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="model axis"):
         build_model(get_arch("rwkv6-3b").reduced(), ShardingConfig(seq_axis="pod"), mesh=mesh,
                     device="cpu")
     with pytest.raises(ValueError, match="cast_params"):
@@ -418,14 +418,29 @@ def test_launcher_takes_three_steps_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
                                    ["--production-mesh", "--data", "2", "--arch", "rwkv6-3b"],
-                                   ["--multi-pod", "--model", "2", "--arch", "whisper-base"],
+                                   ["--multi-pod", "--model", "2", "--arch",
+                                    "recurrentgemma-2b"],
                                    ["--production-mesh", "--distributed", "--arch",
                                     "recurrentgemma-2b"]])
-def test_launcher_refuses_every_mesh_flag(flags):
-    """What still waits for item 17: the production meshes, whatever row and
-    local mesh flags come with them (every row runs on a local mesh)."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        launch_train.main(["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags)
+def test_launcher_refuses_every_mesh_flag(flags, monkeypatch):
+    """The production meshes train (their shapes made small here: 2 x 2, and
+    pods 2 x 1 x 2), whatever row and local mesh flags come with them, as
+    the reference's branch: ``--production-mesh`` overrides ``--data`` and
+    ``--model``, ``--multi-pod`` alone does nothing; under ``--distributed``
+    a world of another size than the mesh's raises before joining it."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    argv = ["--arch", "smollm-360m", "--steps", "1", "--device", "cpu"] + flags
+    if "--distributed" in flags:  # the production shapes: a world of 1 is neither
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises(ValueError, match=r"256 ranks \(512 with --multi-pod\)"):
+            launch_train.main(argv)
+        return
+    monkeypatch.setitem(launch_mesh.PRODUCTION_AXES, False, (("data", 2), ("model", 2)))
+    monkeypatch.setitem(launch_mesh.PRODUCTION_AXES, True,
+                        (("pod", 2), ("data", 1), ("model", 2)))
+    out = launch_train.main(argv)
+    assert int(out["opt"]["step"]) == 1 and np.isfinite(float(out["metrics"]["loss"]))
 
 
 @pytest.mark.parametrize("flags", [["--data", "2"], ["--model", "2"], ["--data", "2", "--model",
