@@ -255,10 +255,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              bytes, the model-flops share; one more step under the
              profiler (device time by kind) and its parts alone (chunked
              attention, the chunked CE, AdamW); then at full width cut to
-             4 layers, the same 8 steps with a checkpoint after the sixth,
-             and a fresh ``train`` resumes from it and takes the last 2
-             steps: weights == the uninterrupted run's within 1e-6
-             relative.  (b) phi3.5-moe at full width, one layer (1.56B
+             2 layers, 5 steps with a checkpoint after the third, and a
+             fresh ``train`` resumes from it and takes the last 2 steps:
+             weights == the uninterrupted run's within 1e-6 relative.
+             (b) phi3.5-moe at full width, one layer (1.56B
              parameters), B = 4 x 2048, 4 steps: every expert-layer call's
              aux loss finite and positive, every expert's and the router's
              AdamW moment moved, ms a step, peak bytes.  (c) each row's
@@ -320,6 +320,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
              the loss, a prefill and 4 decode steps on the card == the
              CPU's meshed run within 1e-4 (the float32 flash kernel, path
              "lm_pod_checks").
+21. examples — the port's three examples through their ``main``.  (a)
+             examples/torch_quickstart.py at its own sizes on the card and
+             on the CPU: the estimate's and the family's samples bitwise
+             equal, a fixed coloring's count == brute force; (b)
+             examples/torch_count_distributed.py at R-MAT 2^12 / 40,000, 4
+             LocalMesh thread ranks, fused, one timed call a mode: every
+             mode within 1e-5 of the single device's counts of the same
+             colorings; (a) and (b) launch spmm_edgetile, color_combine and
+             fused_count at least once; (c) examples/torch_train_lm.py on
+             the reduced smollm-360m: 2 steps with a checkpoint, a resumed
+             run and an uninterrupted one to step 4, losses and weights
+             within 1e-6 relative.
 
 Then it prints the card's name and power limit, one JSON object with a
 ``kernels`` list (each kernel's launches on the paths it runs, times
@@ -4225,7 +4237,10 @@ def phase_lm_rows(dev):
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_LEN = 8, 2048  # (a): sequences a step, tokens a sequence
 TRAIN_WARM, TRAIN_TIMED, TRAIN_RESUMED = 2, 4, 2  # (a): steps
-TRAIN_RESUME_LAYERS = 4  # (a): the resume check's depth (full width)
+TRAIN_RESUME_LAYERS = 2  # (a): the resume check's depth (full width)
+#: (a): the resume check's steps before its checkpoint; more than
+#: TRAIN_RESUMED, so that the run's last step is not a checkpoint too
+TRAIN_RESUME_AT = 3
 #: the reference's peak learning rate after 2 warmup steps (its 200 would
 #: keep the rate near 0 for a dozen steps); 1e-3 made the loss spike
 TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
@@ -4319,12 +4334,11 @@ def train_split(model, cfg, run, data, step_i, tcfg):
     return split, parts
 
 
-def train_tcfg(ckpt_dir=None):
-    """(a)'s schedule, which phase 18 (a) shares: TRAIN_WARM + TRAIN_TIMED
-    steps and TRAIN_RESUMED more, a checkpoint after the first part."""
+def train_tcfg(ckpt_dir=None, steps=TRAIN_WARM + TRAIN_TIMED):
+    """(a)'s schedule, which phase 18 (a) shares: ``steps`` steps (TRAIN_WARM
+    + TRAIN_TIMED) and TRAIN_RESUMED more, a checkpoint after the first part."""
     from repro_torch.train import AdamWConfig, TrainConfig
 
-    steps = TRAIN_WARM + TRAIN_TIMED
     return TrainConfig(steps=steps + TRAIN_RESUMED,
                        opt=AdamWConfig(total_steps=steps + TRAIN_RESUMED, **TRAIN_OPT),
                        checkpoint_dir=ckpt_dir, checkpoint_every=steps, log_every=1)
@@ -4332,9 +4346,9 @@ def train_tcfg(ckpt_dir=None):
 
 def train_resume(dev, tmp, data):
     """(a)'s resume check, at full width cut to TRAIN_RESUME_LAYERS layers:
-    ``train`` for all of (a)'s steps with a checkpoint after TRAIN_WARM +
-    TRAIN_TIMED, then a fresh ``train`` resumes from it and takes the last
-    TRAIN_RESUMED steps, whose weights must equal the uninterrupted run's
+    ``train`` for TRAIN_RESUME_AT + TRAIN_RESUMED steps with a checkpoint
+    after TRAIN_RESUME_AT, then a fresh ``train`` resumes from it and takes
+    the last TRAIN_RESUMED steps, whose weights must equal the uninterrupted run's
     within TRAIN_RESUME_RTOL relative.  The gate is not bitwise: on the card
     a reduction or scatter with atomics (an embedding's or an index's
     backward) may sum float32 terms in another order from run to run;
@@ -4346,8 +4360,8 @@ def train_resume(dev, tmp, data):
 
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_RESUME_LAYERS)
     model = build_model(cfg, device=dev)
-    steps = TRAIN_WARM + TRAIN_TIMED
-    tcfg = train_tcfg(str(tmp / TRAIN_ARCH))
+    steps = TRAIN_RESUME_AT
+    tcfg = train_tcfg(str(tmp / TRAIN_ARCH), steps)
     lines = []
     t0 = time.perf_counter()
     run = train(model, tcfg, log=lines.append, data=data)
@@ -5861,6 +5875,121 @@ def phase_pod(dev, dryrun_proc, lm8, train17, mesh18):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+#: (b): torch_count_distributed at a reduced graph (its defaults: 2^14 / 150,000, 8 shards)
+EXAMPLE_DIST_ARGS = ["--vertices", str(1 << 12), "--edges", "40000", "--shards", "4",
+                     "--iters", "8", "--fuse"]
+EXAMPLE_DIST_RTOL = 1e-5  # (b): each mode's samples vs the single device's, same colorings
+#: (c): torch_train_lm on the reduced smollm-360m (its defaults: B = 8 x 128)
+EXAMPLE_TRAIN_ARGS = ["--arch", "smollm-360m", "--log-every", "1"]
+EXAMPLE_TRAIN_STEPS = (2, 4)  # (c): the checkpointed run's steps, then the resumed run's
+EXAMPLE_RESUME_RTOL = 1e-6  # (c): resumed losses and weights vs the uninterrupted run's
+EXAMPLE_KERNELS = ("spmm_edgetile", "color_combine", "fused_count")
+
+
+def _example(name: str, argv):
+    """``examples/<name>.py``'s ``main(argv)``, its output logged indented."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    log("".join(f"  {line}\n" for line in buf.getvalue().splitlines()).rstrip())
+    return out
+
+
+def phase_examples(dev):
+    """Phase 21: the three examples through their ``main``.  (a)
+    torch_quickstart at its own sizes on the card, then on the CPU: the
+    samples of the estimate and of the family bitwise equal (counts are
+    integer-valued float32); a fixed coloring's count on the card == the
+    brute-force oracle's.  (b) torch_count_distributed at a reduced graph,
+    fused, one timed call a mode on LocalMesh thread ranks: every mode's
+    samples within 1e-5 of the single-device counts of the same colorings.
+    (a) and (b) launch each counting kernel at least once.  (c)
+    torch_train_lm on the reduced smollm-360m: 2 steps with a checkpoint,
+    a resumed run to step 4, and an uninterrupted run to step 4: losses and
+    weights within 1e-6 relative."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Counter
+    from repro_torch.core.brute_force import count_colorful_maps
+
+    torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    part_s = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    card = _example("torch_quickstart", ["--device", "cuda"])
+    quick_launches = read_launches()
+    cpu = _example("torch_quickstart", ["--device", "cpu"])
+    for what, a, b in (("estimate", card["estimate"].samples, cpu["estimate"].samples),
+                       ("family", card["many"].samples, cpu["many"].samples)):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"phase 21 (a): the quickstart's {what} samples on the card "
+                                 f"{a} vs the CPU's {b}")
+    g, tree = card["graph"], card["tree"]
+    coloring = np.random.default_rng(0).integers(0, tree.n, g.n).astype(np.int32)
+    maps = Counter.from_graph(g, tree, device=dev).count_coloring(coloring)
+    oracle = count_colorful_maps(g, tree, coloring)
+    if maps != oracle:
+        raise AssertionError(f"phase 21 (a): a fixed coloring's count {maps} vs brute force "
+                             f"{oracle}")
+    log(f"phase 21 (a): quickstart samples card == CPU bitwise ({card['estimate'].niter} + "
+        f"{card['many'].niter} colorings); fixed coloring {maps:.0f} == brute force; exact "
+        f"{card['exact']:.0f}, estimate {card['estimate'].estimate:.0f}; launches "
+        f"{quick_launches}")
+    part_s["quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_launches()
+    dist = _example("torch_count_distributed", ["--device", "cuda"] + EXAMPLE_DIST_ARGS)
+    dist_launches = read_launches()
+    worst = max(m["rel"] for m in dist["modes"].values())
+    if not worst <= EXAMPLE_DIST_RTOL:
+        raise AssertionError(f"phase 21 (b): a mode {worst} from the single device's counts")
+    launched = {k: quick_launches[k] + dist_launches[k] for k in EXAMPLE_KERNELS}
+    if not all(launched.values()):
+        raise AssertionError(f"phase 21: a counting kernel was never launched: {launched}")
+    mode_ms = {label: round(m["ms"], 1) for label, m in dist["modes"].items()}
+    log(f"phase 21 (b): every mode within {worst:.2g} of the single device's counts; ms a timed "
+        f"call {mode_ms}; launches {dist_launches}")
+    part_s["distributed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part, steps = EXAMPLE_TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix=".smoke_tmp", dir=ROOT) as tmp:
+        common = EXAMPLE_TRAIN_ARGS + ["--device", "cuda", "--checkpoint-every", str(part)]
+        first = _example("torch_train_lm", common + ["--steps", str(part),
+                                                     "--ckpt-dir", f"{tmp}/resumed"])
+        resumed = _example("torch_train_lm", common + ["--steps", str(steps),
+                                                       "--ckpt-dir", f"{tmp}/resumed"])
+        whole = _example("torch_train_lm", common + ["--steps", str(steps),
+                                                     "--ckpt-dir", f"{tmp}/whole"])
+    if resumed["start"] != part or sorted(resumed["losses"]) != list(range(part + 1, steps + 1)):
+        raise AssertionError(f"phase 21 (c): the resumed run started at {resumed['start']}")
+    loss_err = max(abs(resumed["losses"][i] - whole["losses"][i]) / abs(whole["losses"][i])
+                   for i in resumed["losses"])
+    errs = _rel_errs(dict(resumed["params"].named_parameters()),
+                     dict(whole["params"].named_parameters()))
+    if not (loss_err <= EXAMPLE_RESUME_RTOL and max(errs.values()) <= EXAMPLE_RESUME_RTOL):
+        raise AssertionError(f"phase 21 (c): resumed losses {resumed['losses']} vs "
+                             f"{whole['losses']}, weights {max(errs.values())}")
+    if any(first["losses"][i] != whole["losses"][i] for i in first["losses"]):
+        log(f"phase 21 (c): the first {part} steps differ from the uninterrupted run's "
+            f"(atomics): {first['losses']} vs {whole['losses']}")
+    log(f"phase 21 (c): resumed at step {part} to {steps}: losses within {loss_err:.3g}, "
+        f"weights within {max(errs.values()):.3g} of the uninterrupted run's")
+    part_s["train"] = time.perf_counter() - t0
+    dt = time.perf_counter() - t_start
+    log(f"phase 21 passed in {dt:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in part_s.items())})")
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the redesigned count-table kernels' designs, and where the times of the
@@ -6136,6 +6265,7 @@ def _run_phases(dev, lm_dryrun):
     torch.cuda.empty_cache()
     compact_launches, compact_rows, compact = phase_compact(dev, saturation, narrow_nccl,
                                                             sparse_graphs)
+    phase_examples(dev)
     launches = {"main": main_launches,
                 "dense": {k: dense["auto"]["launches"][k] + dense["edges"]["launches"][k]
                           for k in main_launches},

@@ -15,8 +15,15 @@ from . import (
     smollm_360m,
     whisper_base,
 )
+from .subgraph import (  # noqa: F401
+    COUNTING_CONFIGS,
+    SERVICE_WORKLOADS,
+    CountingConfig,
+    ServiceWorkloadConfig,
+)
 
-__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeSpec", "ShardingConfig", "get_arch"]
+__all__ = ["ARCHS", "ArchConfig", "COUNTING_CONFIGS", "CountingConfig", "SERVICE_WORKLOADS",
+           "SHAPES", "ServiceWorkloadConfig", "ShapeSpec", "ShardingConfig", "get_arch"]
 
 #: every reference row, in the reference registry's order
 ARCHS = {

@@ -221,6 +221,18 @@ class DistributedPlan:
                                                              compare=False)
 
     @property
+    def tree(self) -> Tree:
+        return self.templates[0]
+
+    @property
+    def aut(self) -> int:
+        return self.auts[0]
+
+    @property
+    def num_templates(self) -> int:
+        return len(self.templates)
+
+    @property
     def is_multi(self) -> bool:
         """Family plans return per-template count vectors."""
         return isinstance(self.program, TemplateDag)

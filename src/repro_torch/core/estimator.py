@@ -193,6 +193,23 @@ class EstimatorState:
     def n_calls(self) -> int:
         return -(-self.n_iter // self.batch)
 
+    def group_sums(self, num_groups: Optional[int] = None):
+        """Per-group partial sums (and counts) of the banked samples.
+
+        The associative form of the median-of-means aggregate: group ``g``
+        of the final estimate owns a contiguous slice of the sample stream,
+        so its running sum/count is exact at any prefix.
+        """
+        g = num_groups_for(self.delta, self.n_iter) if num_groups is None else num_groups
+        per = max(1, self.n_iter // g)
+        done = self.done
+        sums, counts = [], []
+        for i in range(g):
+            part = self.samples[i * per: min((i + 1) * per, done)]
+            sums.append(part.sum(axis=0))
+            counts.append(part.shape[0])
+        return np.asarray(sums, np.float64), np.asarray(counts, np.int64)
+
     # ------------------------------------------------- checkpoint adapters
     def to_arrays(self) -> dict:
         """Flatten to named numpy arrays (the CheckpointManager payload)."""

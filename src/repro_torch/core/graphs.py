@@ -26,6 +26,9 @@ __all__ = [
     "rmat",
     "relabel_random",
     "edge_list",
+    "pad_vertices",
+    "edge_tiles",
+    "partition_edges_by_src_shard",
     "load_edge_file",
     "save_npz",
     "load_npz",
@@ -341,3 +344,74 @@ def edge_list(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     """Expanded directed edge list (rows nondecreasing)."""
     rows = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(g.indptr))
     return rows, g.indices.astype(np.int32)
+
+
+def pad_vertices(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def edge_tiles(
+    g: Graph, tile_size: int, n_pad: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Neighbor-list partitioning: fixed-size edge tiles with sentinel pad.
+
+    Returns ``(rows, cols, num_tiles)`` with both arrays padded to
+    ``num_tiles * tile_size``.  Padding entries point at the sentinel row
+    ``n_pad`` (callers allocate ``n_pad + 1`` rows; the sentinel row of the
+    operand table must be zero, and the sentinel output row is discarded).
+    """
+    rows, cols = edge_list(g)
+    sentinel = g.n if n_pad is None else n_pad
+    e = rows.shape[0]
+    num_tiles = max((e + tile_size - 1) // tile_size, 1)
+    padded = num_tiles * tile_size
+    rows_p = np.full(padded, sentinel, np.int32)
+    cols_p = np.full(padded, sentinel, np.int32)
+    rows_p[:e] = rows
+    cols_p[:e] = cols
+    return rows_p, cols_p, num_tiles
+
+
+def partition_edges_by_src_shard(
+    g: Graph, num_shards: int, tile_size: int = 1
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Bucket each shard's incoming edges by the *source* shard of ``u``.
+
+    For the pipelined (ring) exchange, device ``p`` processes, at ring step
+    ``w``, only the edges ``(v, u)`` whose source vertex ``u`` lives in the
+    shard arriving at step ``w``.  This routine builds, for every
+    (dst-shard ``p``, src-shard ``q``) pair, the padded edge bucket:
+
+    Returns ``(rows, cols, counts)``:
+      * ``rows``  int32 [P, P, max_bucket] — local dst row (within shard p)
+      * ``cols``  int32 [P, P, max_bucket] — local src row (within shard q)
+      * ``counts`` int64 [P, P] — true bucket sizes (before padding)
+
+    Padding entries use the sentinel local row ``shard_size`` (callers pad
+    tables with one extra zero row).  ``max_bucket`` is rounded up to
+    ``tile_size``.  Vertices are assigned to shards in contiguous blocks of
+    ``ceil(n/P)``; combine with :func:`relabel_random` for the random
+    partition of the paper.
+    """
+    P = num_shards
+    shard_size = (g.n + P - 1) // P
+    rows, cols = edge_list(g)
+    p_of = rows // shard_size
+    q_of = cols // shard_size
+    counts = np.zeros((P, P), np.int64)
+    np.add.at(counts, (p_of, q_of), 1)
+    max_bucket = int(counts.max(initial=0))
+    max_bucket = max(((max_bucket + tile_size - 1) // tile_size) * tile_size, tile_size)
+    out_rows = np.full((P, P, max_bucket), shard_size, np.int32)
+    out_cols = np.full((P, P, max_bucket), shard_size, np.int32)
+    key = p_of * P + q_of
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    group_start = np.zeros(P * P, np.int64)
+    np.cumsum(np.bincount(skey, minlength=P * P)[:-1], out=group_start[1:])
+    pos_in_group = np.arange(len(order)) - group_start[skey]
+    flat_rows = out_rows.reshape(P * P, max_bucket)
+    flat_cols = out_cols.reshape(P * P, max_bucket)
+    flat_rows[skey, pos_in_group] = (rows[order] - p_of[order] * shard_size).astype(np.int32)
+    flat_cols[skey, pos_in_group] = (cols[order] - q_of[order] * shard_size).astype(np.int32)
+    return out_rows, out_cols, counts

@@ -26,7 +26,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.colorsets import split_tables
 from .color_combine import color_combine
 from .flash_attention import flash_attention
 from .fused_count import fused_count
@@ -436,6 +435,9 @@ class CombineTables:
 
 
 def build_combine_tables(k: int, t1: int, t2: int, *, device: torch.device) -> CombineTables:
+    # imported here: ``core`` loads the engine, which imports this module
+    from ..core.colorsets import split_tables
+
     idx1, idx2 = split_tables(k, t1, t2)
     s, j = idx1.shape
     a, w = math.comb(k, t1), math.comb(k, t2)

@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "ELEMENT_BUDGET",
+    "spmm_ref",
     "spmm_segment_ref",
     "spmm_csr_order_ref",
     "unpack_patches",
@@ -29,6 +30,21 @@ __all__ = [
 
 #: bound on the elements of one chunked gather intermediate
 ELEMENT_BUDGET = 1 << 27
+
+
+def spmm_ref(rows: torch.Tensor, cols: torch.Tensor, table: torch.Tensor,
+             num_rows: int) -> torch.Tensor:
+    """Neighbor sum ``out[v] = sum_{(v, u)} table[u]`` over a COO edge list,
+    by one scatter-add: the reference's oracle (``repro/kernels/ref.py:22``).
+
+    ``rows`` and ``cols`` are the expanded directed edge list; padded
+    entries point at a zero sentinel row of ``table`` and at output row
+    ``num_rows``.  The output has ``num_rows + 1`` rows, the last the
+    discarded sentinel row.  A plain oracle: the engine's SpMMs walk CSRs.
+    """
+    out = torch.zeros((num_rows + 1,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=table.device)
+    return out.index_add_(0, rows.long(), table[cols.long()])
 
 
 def spmm_segment_ref(indptr: torch.Tensor, indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -182,12 +198,13 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Softmax attention as the TPU flash kernel computes it.
 
     ``q`` is ``[B, Hq, Lq, D]``, ``k`` and ``v`` ``[B, Hkv, Lk, D]``; query
     head ``h`` reads KV head ``h // (Hq / Hkv)`` (GQA).  In float32: logits
-    ``q k^T * D**-0.5``, masked with the
+    ``q k^T * scale`` (``D**-0.5`` unless given), masked with the
     finite ``-1e30`` where ``kpos > qpos`` (``causal``) or ``kpos <= qpos -
     window`` (``window > 0``), query positions aligned to the end of the keys
     (``qpos = i + Lk - Lq``); then ``p = exp(logits - max)`` zeroed where
@@ -201,7 +218,8 @@ def flash_attention_ref(
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
     g = hq // hkv
-    scale = d ** -0.5
+    if scale is None:
+        scale = d ** -0.5
     out = torch.empty_like(q)
     qpos = torch.arange(lq, device=q.device) + (lk - lq)
     kpos = torch.arange(lk, device=q.device)

@@ -219,6 +219,7 @@ def attention_block(
     context: Optional[torch.Tensor] = None,  # cross-attention context [B, Lc, D_model]
     cache: Optional[dict] = None,
     pos: Optional[int] = None,
+    positions: Optional[torch.Tensor] = None,  # rope positions [L]
     dtype=torch.bfloat16,
     build_cache_len: Optional[int] = None,
     cache_dtype: torch.dtype = CACHE_DTYPE,
@@ -238,8 +239,9 @@ def attention_block(
     and values, stored in ``cache_dtype`` (prefill).  With ``cache``
     (decode, one token at position ``pos``), the token's key and value are
     written at slot ``pos % S`` **in place**, in the cache's dtype, and the
-    token attends over the cache.  Returns ``(out [B, L, D_model], cache or
-    None)``.
+    token attends over the cache.  Queries and keys are roped at
+    ``positions`` where given (``[L]``), else at ``0 .. L-1`` (at ``pos`` in
+    decode).  Returns ``(out [B, L, D_model], cache or None)``.
     """
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -252,10 +254,9 @@ def attention_block(
         out = chunked_attention(q, k, v, causal=False, window=0)
         out = out.transpose(1, 2).reshape(b, l, h * hd)
         return out @ p.wo.w.to(dtype), None
-    if cache is None:
-        positions = torch.arange(l, device=x.device)
-    else:
-        positions = torch.full((l,), pos, device=x.device)
+    if positions is None:
+        positions = (torch.arange(l, device=x.device) if cache is None
+                     else torch.full((l,), pos, device=x.device))
     q = rope(q, positions, cfg.rope_theta)
     # keys are roped at their absolute position, so a circular cache stays
     # right after it wraps

@@ -47,6 +47,7 @@ __all__ = [
     "MLP",
     "weight",
     "rmsnorm",
+    "layernorm_params",
     "rope",
     "rope_tables",
     "dense_init",
@@ -127,6 +128,11 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def layernorm_params(init: Initializer, d: int) -> dict:
+    """A norm's weights as the reference makes them: ``{"scale": ones(d)}``."""
+    return {"scale": init.ones((d,))}
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10_000.0):

@@ -724,14 +724,15 @@ def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
 
 def forward(params: Transformer, cfg, tokens: torch.Tensor, *, context=None,
             mode: str = "train", caches=None, pos=None, dtype=torch.bfloat16,
-            s_buf: Optional[int] = None):
+            s_buf: Optional[int] = None, return_hidden: bool = False):
     """The reference's ``forward`` signature over :class:`Transformer` weights,
     served (self-attention through flash); returns ``(logits, caches or
-    None)``."""
+    None)``, the final-normed hidden state ``[B, L, d]`` in place of the
+    logits with ``return_hidden``."""
     check_weights(params, cfg)
-    logits, caches, _ = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
-                               dtype=dtype, s_buf=s_buf)
-    return logits, caches
+    out, caches, _ = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
+                            dtype=dtype, s_buf=s_buf, return_hidden=return_hidden)
+    return out, caches
 
 
 def check_weights(params: Transformer, cfg) -> None:
@@ -770,10 +771,4 @@ def encode(params: Transformer, cfg, frames: torch.Tensor, *, dtype=torch.bfloat
             attn_chunk=attn_chunk, **kw)
         h = h + mix
         h = h + _ffn_apply(blk.ffn, rmsnorm(blk.ln2, h, eps), cfg, dtype, rsb)[0]
-    return rmsnorm(params.encoder.final_norm, h, eps)
-    for blk in params.encoder.blocks:
-        mix, _ = attention_block(blk.attn, rmsnorm(blk.ln1, h, eps), cfg, causal=False,
-                                 dtype=dtype, attn_chunk=attn_chunk)
-        h = h + mix
-        h = h + mlp_apply(blk.ffn, rmsnorm(blk.ln2, h, eps), cfg.act, dtype=dtype)
     return rmsnorm(params.encoder.final_norm, h, eps)

@@ -14,6 +14,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "test_torch_gpu.py",  # runs where JAX is not installed
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_count_distributed.py",
+    ROOT / "examples" / "torch_train_lm.py",
+    ROOT / "tools" / "torch_render_experiments.py",
 ]
 
 
