@@ -491,60 +491,71 @@ def _checked_fallback(compact_fn, make_dense):
 
 
 def count_fn(
-    plan: CountingPlan, batch: int = 1
+    plan: CountingPlan, batch: Optional[int] = None
 ) -> Callable[[prng.Key], Tuple[torch.Tensor, torch.Tensor]]:
     """Per-call counter ``f(key) -> (maps[B], estimates[B])``, float64 on the
     plan's device.
 
     Each call draws ``batch`` independent colorings from ``key`` and runs
     the DP once over all of them: every internal node is one launch with
-    the batch as a table dimension.  A compacted plan runs the compact
-    program and re-runs the batch on its dense twin when a capacity
-    overflows (DESIGN.md §15), with the same contract.
+    the batch as a table dimension.  ``batch=None`` is the reference's
+    scalar contract: ``f(key) -> (maps, estimate)``, 0-d, for the one
+    coloring ``key`` draws (the first of ``batch=1``'s).  A compacted plan
+    runs the compact program and re-runs the batch on its dense twin when a
+    capacity overflows (DESIGN.md §15), with the same contract.
     """
-    if batch < 1:
-        raise ValueError(f"batch must be >= 1, got {batch}")
+    n, first = _batch_of(batch)
 
     if not _compacted(plan):
         def f(key: prng.Key):
-            maps = colorful_map_count(plan, draw_colorings(plan, batch, key))
+            maps = colorful_map_count(plan, draw_colorings(plan, n, key))[first]
             return maps, maps * plan.scale
 
         return f
 
     def fc(key: prng.Key):
-        maps, ok = colorful_map_count_checked(plan, draw_colorings(plan, batch, key))
-        return maps, maps * plan.scale, ok
+        maps, ok = colorful_map_count_checked(plan, draw_colorings(plan, n, key))
+        return maps[first], maps[first] * plan.scale, ok
 
     dense = dataclasses.replace(plan, compaction=None)
     return _checked_fallback(fc, lambda: count_fn(dense, batch))
 
 
 def count_fn_many(
-    plan: MultiCountingPlan, batch: int = 1
+    plan: MultiCountingPlan, batch: Optional[int] = None
 ) -> Callable[[prng.Key], Tuple[torch.Tensor, torch.Tensor]]:
     """Family counter ``f(key) -> (maps[B, R], estimates[B, R])``, float64 on
     the plan's device: the colorings :func:`count_fn` draws from ``key``
-    with ``n_colors=plan.k``, one DAG pass over all ``B`` of them.  A
+    with ``n_colors=plan.k``, one DAG pass over all ``B`` of them;
+    ``batch=None`` gives ``[R]`` for one coloring, as :func:`count_fn`'s.  A
     compacted plan falls back to its dense twin on overflow, as
     :func:`count_fn`'s does."""
-    if batch < 1:
-        raise ValueError(f"batch must be >= 1, got {batch}")
+    n, first = _batch_of(batch)
     scales = torch.tensor(plan.scales, dtype=torch.float64, device=plan.device)
 
     if not _compacted(plan):
         def f(key: prng.Key):
-            maps = colorful_map_count_many(plan, draw_colorings(plan, batch, key))
+            maps = colorful_map_count_many(plan, draw_colorings(plan, n, key))[first]
             return maps, maps * scales
 
         return f
 
     def fc(key: prng.Key):
-        maps, ok = colorful_map_count_many_checked(plan, draw_colorings(plan, batch, key))
-        return maps, maps * scales, ok
+        maps, ok = colorful_map_count_many_checked(plan, draw_colorings(plan, n, key))
+        return maps[first], maps[first] * scales, ok
 
     dense = dataclasses.replace(plan, compaction=None)
     return _checked_fallback(fc, lambda: count_fn_many(dense, batch))
+
+
+def _batch_of(batch: Optional[int]):
+    """The colorings a call draws, and the index that keeps them: all of a
+    batch, or the first alone (0-d) for the scalar contract."""
+    if batch is None:
+        return 1, 0
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1 or None, got {batch}")
+    return batch, slice(None)
 
 
 def _cached_sampler(make_fn):

@@ -123,7 +123,7 @@ def run_table_program(
     leaf: torch.Tensor,
     n: int,
     node_fn: NodeFn,
-    root_fn: Callable[[torch.Tensor], torch.Tensor],
+    root_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     bag: Optional[BagFns] = None,
     frontier_fn: Optional[FrontierFn] = None,
 ) -> tuple:
@@ -137,7 +137,8 @@ def run_table_program(
     it is required iff the program carries bag nodes.  Table lifetime is
     reference-counted from ``program.table_reads()``: a table is dropped the
     moment its last reader has consumed it.  ``root_fn`` (e.g.
-    :func:`root_count`) reduces each root table as soon as it is built.
+    :func:`root_count`) reduces each root table as soon as it is built
+    (``None``: the root tables themselves).
     ``frontier_fn`` (a compacted plan's, :func:`.frontier.make_frontier_fn`)
     gives each ``combine`` table that has readers its frontier once, which
     lives as long as the table and reaches ``node_fn`` as ``f_left`` or
@@ -173,7 +174,7 @@ def run_table_program(
                 live.pop(c, None)
                 frontiers.pop(c, None)
         if i in want:
-            delivered[i] = root_fn(out)
+            delivered[i] = root_fn(out) if root_fn is not None else out
             reads[i] -= want[i]
         if reads[i] > 0:
             live[i] = out

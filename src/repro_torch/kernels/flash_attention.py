@@ -23,9 +23,17 @@ mask, probabilities zeroed where masked, a zero denominator read as 1, any
   shared memory a CTA may opt into and O, S and P the registers.  Bound on the H100:
   operations, ``4 B Hq pairs D`` flops at 989e12 bf16 flop/s; the split does
   ``8 D`` a pair.
-- **float32** (``csrc/flash_attention.cu``): one CTA per (64-row query tile,
-  head, batch), K and V staged as float32 in shared memory, float32 FMAs on
-  the CUDA cores (TF32 tensor cores would break the float32 checks' 1e-5).
+- **float32** (``csrc/flash_attention.cu``): plain float32 FMAs on the CUDA
+  cores (TF32 tensor cores would break the float32 checks' 1e-5).  One CTA
+  of 256 threads per (query tile, head, batch), 128 query rows (64 at
+  D = 256), grid ``(Hq, B, query tiles)``; Q staged once and the tile stream
+  ``K_0, V_0, K_1, ...`` of 64 keys through a ring of shared-memory slots
+  with ``cp.async`` (as many slots as fit, up to 4), rows padded by 16 bytes;
+  a lane holds 8 query rows (4 at D = 256) x 4 keys of S and the same rows
+  of O; P goes to the P V layout through its warp's own block of shared
+  memory.  Its geometry is :func:`fp32_geometry`, :func:`fp32_launch_grid`
+  and :func:`fp32_kv_tiles` / :func:`fp32_tile_needs_mask`.  Bound on the
+  H100: operations, ``2 B Hq pairs D`` float32 FMAs at 33.5e12 a second.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel of its
 dtype or raises; a ``meta`` tensor (the dry-run's shape-only run) checks the
@@ -33,13 +41,14 @@ same contract, allocates the output and records the launch and its work
 (:func:`.work.flash_attention`) under ``work.LaunchLog``.  The host-side arithmetic of the bf16 kernel lives here as
 plain functions the CPU tests reach: :func:`launch_grid`,
 :func:`tensor_map_geometry`, and :func:`kv_tiles` / :func:`tile_needs_mask`,
-which the kernel computes on the device the same way.
+which the kernel computes on the device the same way; and the float32
+kernel's, the ``fp32_`` functions.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -49,6 +58,7 @@ from .ref import flash_attention_ref
 __all__ = [
     "flash_attention", "flash_attention_plain", "HEAD_DIMS", "TILE", "BOX_COLS", "query_tiles",
     "kv_tile", "kv_tiles", "tile_needs_mask", "launch_grid", "tensor_map_geometry",
+    "Fp32Geometry", "fp32_geometry", "fp32_launch_grid", "fp32_kv_tiles", "fp32_tile_needs_mask",
 ]
 
 #: the plain version the wrapper takes for a CPU tensor
@@ -80,24 +90,25 @@ def kv_tile(d: int) -> int:
     return 64 if d == 256 else TILE
 
 
-def kv_tiles(qt: int, length: int, causal: bool, window: int, block_n: int = TILE) -> range:
-    """The KV tiles of ``block_n`` keys query tile ``qt`` (``TILE`` rows)
+def kv_tiles(qt: int, length: int, causal: bool, window: int, block_n: int = TILE,
+             block_m: int = TILE) -> range:
+    """The KV tiles of ``block_n`` keys query tile ``qt`` (``block_m`` rows)
     visits: every tile holding a key that some row of the tile may attend, in
     ascending order."""
-    m0 = qt * TILE
-    q_last = min(m0 + TILE, length) - 1
+    m0 = qt * block_m
+    q_last = min(m0 + block_m, length) - 1
     end = q_last // block_n + 1 if causal else -(-length // block_n)
     begin = max(0, m0 - window + 1) // block_n if window > 0 else 0
     return range(begin, end)
 
 
 def tile_needs_mask(qt: int, kt: int, length: int, causal: bool, window: int,
-                    block_n: int = TILE) -> bool:
-    """Whether some (row < length, key) pair of query tile ``qt`` and KV tile
-    ``kt`` (of ``block_n`` keys) is masked (keys past ``length`` included);
-    the kernel skips the mask code on the others."""
-    m0, n0 = qt * TILE, kt * block_n
-    q_last = min(m0 + TILE, length) - 1
+                    block_n: int = TILE, block_m: int = TILE) -> bool:
+    """Whether some (row < length, key) pair of query tile ``qt`` (``block_m``
+    rows) and KV tile ``kt`` (of ``block_n`` keys) is masked (keys past
+    ``length`` included); the kernel skips the mask code on the others."""
+    m0, n0 = qt * block_m, kt * block_n
+    q_last = min(m0 + block_m, length) - 1
     return (n0 + block_n > length or (causal and n0 + block_n - 1 > m0)
             or (window > 0 and n0 <= q_last - window))
 
@@ -116,6 +127,61 @@ def tensor_map_geometry(batch_heads: int, length: int, d: int,
     swizzle's width, so D = 128 takes two boxes and D = 256 four).  Q's box
     is ``TILE`` rows, K's and V's ``kv_tile(d)``."""
     return (d, length, batch_heads, 2 * d, 2 * d * length, BOX_COLS, rows, 1)
+
+
+class Fp32Geometry(NamedTuple):
+    """The float32 kernel's CTA at one head dim (``csrc/flash_attention.cu``,
+    ``Geo<D>``; its ``flash_attention_geometry`` entry reports the same)."""
+
+    rows: int  # query rows a CTA
+    keys: int  # keys a KV tile
+    threads: int
+    stages: int  # slots of the K/V ring
+    lane_rows: int  # query rows a lane owns in S and O
+    smem_bytes: int  # dynamic shared memory: Q, the ring, each warp's block of P
+
+
+#: dynamic shared memory a CTA may opt into on the H100, bytes
+MAX_SMEM = 232_448
+
+
+def fp32_geometry(d: int) -> Fp32Geometry:
+    """The float32 kernel's geometry at head dim ``d``: 8 warps of 2 row
+    groups; 8 rows a lane up to D = 128 and 4 at D = 256 (a 128-row Q tile
+    would leave no room for two slots of 64 keys); rows staged at a pitch of
+    ``d + 4`` floats; as many ring slots as fit in :data:`MAX_SMEM` beside Q
+    and the warps' blocks of P, up to 4."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the float32 kernel is built for head dims {HEAD_DIMS}, got {d}")
+    threads, keys, pitch = 256, 64, d + 4
+    lane_rows = 8 if d <= 128 else 4
+    warps = threads // 32
+    rows = 2 * lane_rows * warps
+    fixed = 4 * (rows * pitch + warps * keys * 2 * lane_rows)
+    stages = min(4, (MAX_SMEM - fixed) // (4 * keys * pitch))
+    return Fp32Geometry(rows, keys, threads, stages, lane_rows,
+                        fixed + stages * 4 * keys * pitch)
+
+
+def fp32_launch_grid(b: int, hq: int, length: int, d: int) -> Tuple[int, int, int]:
+    """``(Hq, B, query tiles)`` of the float32 kernel: tiles of
+    ``fp32_geometry(d).rows`` rows, the index reversed on the card so the
+    longest causal tiles of every head start first."""
+    return hq, b, -(-length // fp32_geometry(d).rows)
+
+
+def fp32_kv_tiles(qt: int, length: int, causal: bool, window: int, d: int) -> range:
+    """The KV tiles the float32 kernel's query tile ``qt`` visits at head dim ``d``."""
+    g = fp32_geometry(d)
+    return kv_tiles(qt, length, causal, window, g.keys, g.rows)
+
+
+def fp32_tile_needs_mask(qt: int, kt: int, length: int, causal: bool, window: int,
+                         d: int) -> bool:
+    """Whether the float32 kernel runs the mask code on query tile ``qt`` and
+    KV tile ``kt`` at head dim ``d``."""
+    g = fp32_geometry(d)
+    return tile_needs_mask(qt, kt, length, causal, window, g.keys, g.rows)
 
 
 def flash_attention(
@@ -203,6 +269,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"the kernels are self-attention (Lq == Lk), got Lq {q.shape[2]} and "
                          f"Lk {k.shape[2]}")
-    if q.shape[0] > 65535 or q.shape[1] > 65535 or query_tiles(q.shape[2]) > 65535:
+    tiles = (fp32_launch_grid(*q.shape[:3], q.shape[3])[2] if q.dtype == torch.float32
+             else query_tiles(q.shape[2]))
+    if q.shape[0] > 65535 or q.shape[1] > 65535 or tiles > 65535:
         raise ValueError(f"batch, heads and query tiles must each be at most 65535, got "
                          f"{tuple(q.shape[:3])}")

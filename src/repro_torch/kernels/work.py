@@ -2,10 +2,11 @@
 
 A :class:`Work` is the least a launch has to do at its shapes, whatever
 implements it: the bytes it must move (each input read once, each output
-written once), its float32 adds and FMAs (count tables stay exact, so they
-never reach the tensor cores) and its bf16 tensor-core flops (flash
-attention).  Where the work depends on the data (a CSR's edges), the caller
-passes what this launch's data holds.  The roofline
+written once), its float32 adds and FMAs on the CUDA cores (count tables
+stay exact, so they never reach the tensor cores; float32 flash attention)
+and its bf16 tensor-core flops (bf16 flash attention).  Where the work
+depends on the data (a CSR's edges), the caller passes what this launch's
+data holds.  The roofline
 (:mod:`repro_torch.roofline.analysis`) turns a ``Work`` into the least time a
 card could take; ``chip_smoke.py``'s bound column and the dry-run's cost
 (:mod:`repro_torch.launch.dryrun`) read the same functions.
@@ -117,13 +118,17 @@ def attention_pairs(length: int, causal: bool, window: int) -> int:
 
 def flash_attention(batch: int, q_heads: int, kv_heads: int, length: int, head_dim: int,
                     itemsize: int, causal: bool, window: int) -> Work:
-    """Flash attention: reads ``q``, ``k``, ``v`` and writes ``o`` once;
-    ``4 D`` tensor-core flops an allowed pair (``Q K^T`` and ``P V``)."""
+    """Flash attention: reads ``q``, ``k``, ``v`` and writes ``o`` once; an
+    allowed pair costs ``D`` multiply-adds for ``Q K^T`` and ``D`` for ``P V``:
+    ``2 D`` float32 FMAs on the CUDA cores for a float32 launch (``itemsize``
+    4), ``4 D`` bf16 tensor-core flops otherwise."""
     q_elems = batch * q_heads * length * head_dim
     kv_elems = batch * kv_heads * length * head_dim
-    return Work(bytes=(2 * q_elems + 2 * kv_elems) * itemsize,
-                bf16_flops=4 * batch * q_heads * attention_pairs(length, causal, window)
-                * head_dim)
+    nbytes = (2 * q_elems + 2 * kv_elems) * itemsize
+    macs = 2 * batch * q_heads * attention_pairs(length, causal, window) * head_dim
+    if itemsize == 4:
+        return Work(bytes=nbytes, fmas=macs)
+    return Work(bytes=nbytes, bf16_flops=2 * macs)
 
 
 # ---------------------------------------------------------------------------

@@ -463,9 +463,9 @@ def measure_lm(model, kind: str, batch: int, seq_len: int, *, microbatches: int 
                 "waiting_bytes": live.waiting,
             },
             "cost": {
-                "flops": float(flops.get_total_flops()) + kernels.bf16_flops,
+                "flops": float(flops.get_total_flops()) + kernels.flops,
                 "gemm_flops": float(flops.get_total_flops()),
-                "kernel_flops": kernels.bf16_flops,
+                "kernel_flops": kernels.flops,
                 "bytes_accessed": kernels.bytes + live.moved,
                 "kernel_bytes": kernels.bytes,
             },

@@ -341,7 +341,7 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     init_caches_fn: Callable
-    mesh: Optional[Any] = None
+    mesh: Optional[Any]
 
     def param_specs(self, params_or_shapes) -> Dict[str, P]:
         return param_pspecs(params_or_shapes, self.cfg, self.sharding)
@@ -445,9 +445,14 @@ def build_model(
     ``dtype`` is the compute dtype.  ``cast_params=True`` is the reference's
     ``cast_params`` for serving: ``init_fn`` stores weights of two or more
     dimensions in ``dtype`` as it draws them (1-D weights stay float32) and
-    no float32 copy is kept.  Either way each weight is cast to ``dtype``
-    where it is used, so both give the same logits; training keeps float32
-    weights (the reference's masters), so a trainer refuses cast weights.
+    no float32 copy is kept; the weights read in float32 (the LM head, the
+    router, RG-LRU's gates, RWKV's decay LoRA) are then read rounded, as the
+    reference's cast rounds them.  Otherwise each weight is cast to
+    ``dtype`` where it is used.  Training keeps float32 weights (the
+    reference's masters), so a trainer refuses cast weights.  The default
+    stays ``False`` with a mesh too, where the reference's ``None`` casts up
+    front: cast so, the bf16 meshed training of ``chip_smoke.py``'s phase
+    20 (b) drifted past 1e-3 of one device's losses.
     The callables take only weights drawn for ``cfg`` (the weights carry
     their config).  ``cache_dtype`` stores the self-attention keys and
     values (the reference's bf16 by default, whatever ``dtype`` is).

@@ -727,12 +727,14 @@ def forward(params: Transformer, cfg, tokens: torch.Tensor, *, context=None,
             s_buf: Optional[int] = None, return_hidden: bool = False):
     """The reference's ``forward`` signature over :class:`Transformer` weights,
     served (self-attention through flash); returns ``(logits, caches or
-    None)``, the final-normed hidden state ``[B, L, d]`` in place of the
-    logits with ``return_hidden``."""
+    None, aux_loss)`` as the reference does, the final-normed hidden state
+    ``[B, L, d]`` in place of the logits with ``return_hidden``; ``aux_loss``
+    is the float32 sum of the MoE layers' load-balancing losses (0 on a row
+    without experts)."""
     check_weights(params, cfg)
-    out, caches, _ = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
-                            dtype=dtype, s_buf=s_buf, return_hidden=return_hidden)
-    return out, caches
+    out, caches, aux = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
+                              dtype=dtype, s_buf=s_buf, return_hidden=return_hidden)
+    return out, caches, aux
 
 
 def check_weights(params: Transformer, cfg) -> None:

@@ -31,6 +31,8 @@ from repro.core.count_engine import colorful_map_count as ref_count
 from repro.core.count_engine import colorful_map_count_checked as ref_checked
 from repro.core.count_engine import colorful_map_count_many as ref_count_many
 from repro.core.count_engine import colorful_map_count_many_checked as ref_many_checked
+from repro.core.count_engine import count_fn as ref_count_fn
+from repro.core.count_engine import count_fn_many as ref_count_fn_many
 from repro.core.graphs import Graph as RefGraph
 from repro.core.templates import template as ref_template
 from repro_torch.api import Counter
@@ -201,6 +203,32 @@ def test_compact_equals_dense_and_reference(force_floors, fuse, kind, batch):
     fc = count_fn(comp, batch)
     (mc, ec), (md, ed) = fc(key), count_fn(dense, batch)(key)
     assert torch.equal(mc, md) and torch.equal(ec, ed) and fc.fallbacks == 0
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("program", ["chain", "family"])
+def test_count_fn_scalar_contract_equals_reference(force_floors, program, compact):
+    """``count_fn`` and ``count_fn_many`` without a batch: the reference's
+    scalar contract, ``(maps, estimate)`` 0-d (``[R]`` for a family) for the
+    one coloring the key draws, on a compacted plan too; == the reference's
+    own, and == the first sample of ``batch=1``."""
+    g = _exact()
+    kw = dict(compact=True, density_threshold=0.7) if compact else {}
+    port, ref = _plans(g, program, **kw)
+    assert (port.compaction is not None and port.compaction.enabled) == compact
+    fn, ref_fn = ((count_fn, ref_count_fn) if program == "chain"
+                  else (count_fn_many, ref_count_fn_many))
+    f = fn(port)
+    maps, est = f(prng.key(7))
+    rmaps, rest = ref_fn(ref)(jax.random.key(7))
+    assert maps.shape == est.shape == np.shape(rmaps) == (() if program == "chain"
+                                                            else (len(FAMILY),))
+    assert maps.max() < 2 ** 24
+    np.testing.assert_array_equal(maps.numpy(), np.asarray(rmaps, np.float64))
+    np.testing.assert_allclose(est.numpy(), np.asarray(rest, np.float64), rtol=1e-6)
+    one = fn(port, 1)(prng.key(7))
+    assert torch.equal(maps, one[0][0]) and torch.equal(est, one[1][0])
+    assert getattr(f, "fallbacks", 0) == 0
 
 
 @pytest.mark.parametrize("program", ["chain", "family"])

@@ -183,6 +183,61 @@ def test_kv_tiles_and_masks_match_brute_force(causal, window, length):
             assert fa.tile_needs_mask(qt, kt, length, causal, window) == masked, (qt, kt)
 
 
+# ---------------------------------------------------------------------------
+# the float32 kernel's host-side geometry (csrc/flash_attention.cu's Geo<D>)
+# ---------------------------------------------------------------------------
+
+FP32_LENGTHS = [1, 65, 129, 1000, 4097]
+
+
+@pytest.mark.parametrize("length", FP32_LENGTHS)
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fp32_tiles_masks_and_grid_match_brute_force(d, causal, window, length):
+    """The float32 kernel's grid covers every query row once, a query tile
+    of ``rows`` rows visits exactly the 64-key tiles where one of its rows
+    may attend a key, in ascending order, and runs the mask code exactly
+    where some (row < L, key) pair of the two tiles is masked."""
+    g = fa.fp32_geometry(d)
+    b, hq = 2, 3
+    grid = fa.fp32_launch_grid(b, hq, length, d)
+    assert grid[:2] == (hq, b)
+    assert (grid[2] - 1) * g.rows < length <= grid[2] * g.rows
+    nk = -(-length // g.keys)
+    r = np.arange(length)[:, None]
+    c = np.arange(nk * g.keys)[None, :]
+    ok = (c < length) & (r >= 0)
+    if causal:
+        ok = ok & (c <= r)
+    if window > 0:
+        ok = ok & (c > r - window)
+    for qt in range(grid[2]):
+        rows = ok[qt * g.rows : (qt + 1) * g.rows]
+        want = [kt for kt in range(nk) if rows[:, kt * g.keys : (kt + 1) * g.keys].any()]
+        got = fa.fp32_kv_tiles(qt, length, causal, window, d)
+        assert list(got) == want, (qt, list(got), want)
+        for kt in got:
+            masked = not rows[:, kt * g.keys : (kt + 1) * g.keys].all()
+            assert fa.fp32_tile_needs_mask(qt, kt, length, causal, window, d) == masked, (qt, kt)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fp32_geometry_fits_a_cta(d):
+    """Q, a ring of at least two 64-key slots (rows padded by 16 bytes) and
+    each warp's block of P fit the 232,448 bytes a CTA may opt into; the
+    lanes' tiles cover the CTA's rows, a KV tile's keys and D's columns."""
+    g = fa.fp32_geometry(d)
+    warps, pitch = g.threads // 32, 4 * (d + 4)
+    assert g.smem_bytes == (g.rows * pitch + g.stages * g.keys * pitch
+                            + warps * g.keys * 2 * g.lane_rows * 4)
+    assert g.smem_bytes <= fa.MAX_SMEM and g.stages >= 2
+    assert g.smem_bytes + g.keys * pitch > fa.MAX_SMEM or g.stages == 4  # as many as fit
+    assert g.rows == warps * 2 * g.lane_rows  # two row groups of lane_rows a warp
+    assert g.keys == 16 * 4  # a row group's 16 lanes, 4 keys each
+    assert (g.rows, g.stages, g.lane_rows) == {64: (128, 4, 8), 128: (128, 3, 8),
+                                               256: (64, 2, 4)}[d]
+
+
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("length", LENGTHS)
 def test_grid_and_tensor_maps(length, d):

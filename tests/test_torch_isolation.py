@@ -18,6 +18,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "torch_count_distributed.py",
     ROOT / "examples" / "torch_train_lm.py",
     ROOT / "tools" / "torch_render_experiments.py",
+    ROOT / "tools" / "torch_flash_fp32.py",  # runs on the card
 ]
 
 

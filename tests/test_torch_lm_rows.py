@@ -190,7 +190,7 @@ def test_prefill_then_decode_equals_forward(name, dtype):
     ctx = batch.get("context")
     if ctx is not None:
         ctx = encode(params, cfg, ctx, dtype=tdt) if cfg.family == "audio" else ctx.to(tdt)
-    full, none = forward(params, cfg, toks, context=ctx, mode="train", dtype=tdt)
+    full, none, _ = forward(params, cfg, toks, context=ctx, mode="train", dtype=tdt)
     assert none is None
     torch.testing.assert_close(dec, full[:, -1], rtol=2e-2, atol=2e-2)
 
@@ -198,7 +198,9 @@ def test_prefill_then_decode_equals_forward(name, dtype):
 @pytest.mark.parametrize("name", ROWS)
 def test_encode_and_forward_match_reference(name):
     """``forward`` in train mode (and the encoder for whisper) against the
-    reference's, float32, on a prompt of S tokens."""
+    reference's, float32, on a prompt of S tokens: the logits, and the aux
+    loss within 1e-5 of its magnitude (the experts' load-balancing loss on
+    the MoE rows, 0 on the others)."""
     rcfg, cfg = _cfgs(name)
     rparams = _reference_params(name)
     batch = _batch(cfg, S, seed=9)
@@ -211,12 +213,16 @@ def test_encode_and_forward_match_reference(name):
         rctx = ref_encode(rparams, rcfg, rctx, dtype=jnp.float32)
         ctx = encode(params, cfg, ctx, dtype=torch.float32)
         np.testing.assert_allclose(ctx.numpy(), np.asarray(rctx), rtol=1e-4, atol=1e-4)
-    want, _, _ = jax.jit(lambda p, t, c: ref_forward(p, rcfg, t, context=c, mode="train",
-                                                     impl="pallas", dtype=jnp.float32))(
+    want, _, want_aux = jax.jit(lambda p, t, c: ref_forward(
+        p, rcfg, t, context=c, mode="train", impl="pallas", dtype=jnp.float32))(
         rparams, jnp.asarray(batch["tokens"]), rctx)
-    got, _ = forward(params, cfg, torch.from_numpy(batch["tokens"]), context=ctx,
-                     dtype=torch.float32)
+    got, none, aux = forward(params, cfg, torch.from_numpy(batch["tokens"]), context=ctx,
+                             dtype=torch.float32)
+    assert none is None and aux.dtype == torch.float32 and aux.shape == ()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    want_aux = float(want_aux)
+    assert (want_aux > 0) == (cfg.num_experts > 0), (name, want_aux)
+    assert abs(float(aux) - want_aux) <= 1e-5 * abs(want_aux), (float(aux), want_aux)
 
 
 @pytest.mark.parametrize("name", ROWS)
@@ -277,7 +283,7 @@ def test_a_float32_cache_takes_out_the_cache_rounding():
     assert {c["k"].dtype for c in caches if "k" in c} == {torch.float32}
     assert model.init_caches_fn(2, 16)[0]["k"].dtype == torch.float32
     dec, _ = model.decode_fn(params, {"tokens": toks[:, 16:], "pos": 16, "caches": caches})
-    full, _ = forward(params, cfg, toks, context=batch["context"], dtype=torch.float32)
+    full, _, _ = forward(params, cfg, toks, context=batch["context"], dtype=torch.float32)
     torch.testing.assert_close(dec, full[:, -1], rtol=1e-5, atol=1e-5)
 
 

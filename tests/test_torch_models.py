@@ -135,7 +135,8 @@ def test_prefill_then_decode_equals_forward(name, dtype):
     toks = torch.from_numpy(_tokens(cfg, seed=4, length=17))
     _, caches = model.prefill_fn(params, {"tokens": toks[:, :16]})
     dec, _ = model.decode_fn(params, {"tokens": toks[:, 16:], "pos": 16, "caches": caches})
-    full, none = forward(params, cfg, toks, mode="train", dtype=tdt)
+    full, none, aux = forward(params, cfg, toks, mode="train", dtype=tdt)
+    assert float(aux) == 0.0  # a dense row has no load-balancing loss
     assert none is None
     torch.testing.assert_close(dec, full[:, -1], rtol=2e-2, atol=2e-2)
 

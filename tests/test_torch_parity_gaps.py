@@ -207,9 +207,9 @@ def test_forward_return_hidden_equals_reference(smollm):
     want, _, _ = ref_forward(jax.tree.map(jnp.asarray, rparams), rcfg, jnp.asarray(toks),
                              mode="train", dtype=jnp.float32, return_hidden=True)
     params = from_reference_params(rparams, cfg)
-    got, caches = forward(params, cfg, torch.from_numpy(toks), mode="train",
-                          dtype=torch.float32, return_hidden=True)
-    assert caches is None and got.shape == (2, 32, cfg.d_model)
+    got, caches, aux = forward(params, cfg, torch.from_numpy(toks), mode="train",
+                               dtype=torch.float32, return_hidden=True)
+    assert caches is None and got.shape == (2, 32, cfg.d_model) and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 

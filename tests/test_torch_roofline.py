@@ -70,6 +70,34 @@ def test_work_counts_give_perf_bound_column():
     assert analysis.bound_s(flash) == (pytest.approx(0.556e-3, abs=1e-6), "operations")
 
 
+#: (B, Hq, Hkv, L, D, window): granite-3-8b's prefill launch and
+#: recurrentgemma-2b's local layers, both causal
+FLASH_SHAPES = {"granite": (4, 32, 8, 4096, 128, 0), "recurrentgemma": (2, 10, 1, 4096, 256, 2048)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_work_prices_float32_on_the_cuda_cores(shape, itemsize):
+    """A float32 launch is ``2 D`` FMAs an allowed pair at the CUDA cores'
+    33.5e12 a second (8.21 ms at granite's shape, 1.92 at recurrentgemma's);
+    a bf16 launch ``4 D`` tensor-core flops at 989e12, as before."""
+    b, hq, hkv, l, d, w = FLASH_SHAPES[shape]
+    pairs = work.attention_pairs(l, True, w)
+    assert pairs == {"granite": 8_390_656, "recurrentgemma": 6_292_480}[shape]
+    got = work.flash_attention(b, hq, hkv, l, d, itemsize, True, w)
+    assert got.bytes == (2 * b * hq + 2 * b * hkv) * l * d * itemsize
+    t, by = analysis.bound_s(got)
+    if itemsize == 4:
+        assert got.fmas == 2 * b * hq * pairs * d and got.bf16_flops == 0 == got.adds
+        assert got.flops == 2 * got.fmas and by == "operations"
+        assert t * 1e3 == pytest.approx({"granite": 8.21, "recurrentgemma": 1.92}[shape],
+                                        abs=5e-3)
+    else:
+        assert got.bf16_flops == 4 * b * hq * pairs * d == got.flops and got.fmas == 0
+        assert t * 1e3 == pytest.approx({"granite": 0.556, "recurrentgemma": 0.1303}[shape],
+                                        abs=1e-3)
+
+
 def test_work_arithmetic():
     w = work.spmm_edge(10, 20, 30, 4)
     assert w == work.Work(bytes=(20 + 10) * 4 * 4 + 11 * 8 + 30 * 4, adds=120)

@@ -7,10 +7,14 @@ properties, fields and constructor parameters, each public function's and
 method's parameter names, and the ``--flags`` of the four ``launch/``
 entry points. Each item must be present in ``src/repro_torch/X.py``
 (counting names that module imports or re-exports) or be a line of
-``DEPARTURES`` that names the port's counterpart or the reason. A
-departure whose item now exists in the port, or that names nothing of
-the reference, is stale and fails too. Private names (a leading ``_``)
-are out of scope.
+``DEPARTURES`` that names the port's counterpart or the reason. Where
+both sides have a function, method or constructor, the audit also holds
+the default of every parameter both have (``rel::f(p) default``: a
+module constant resolved to its value, ``jnp.X`` equal to ``torch.X``)
+and the sizes of the tuple literals it returns (``rel::f returns``) to
+the reference's. A departure whose item now exists in the port (or
+agrees), or that names nothing of the reference, is stale and fails too.
+Private names (a leading ``_``) are out of scope.
 
 The audit reads source text only (``ast``): it imports neither JAX nor
 either package, so it runs in about a second.
@@ -122,6 +126,72 @@ def surface(rel, tree):
     return [f"{rel}::{i}" for i in dict.fromkeys(items)]
 
 
+def _defaults(fn):
+    """A function's parameters that have a default: name -> its expression."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    out = dict(zip([x.arg for x in pos[len(pos) - len(a.defaults):]], a.defaults))
+    out.update({x.arg: d for x, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None})
+    return {k: v for k, v in out.items() if k in _params(fn)}
+
+
+def _ctor_defaults(cls):
+    """A class's constructor defaults: ``__init__``'s, else its fields'."""
+    for node in cls.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "__init__":
+            return _defaults(node)
+    return {node.target.id: node.value for node in cls.body
+            if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name)
+            and node.value is not None and _public(node.target.id)}
+
+
+def _tuple_returns(fn):
+    """The sizes of the tuple literals ``fn`` returns (not its nested
+    functions' or lambdas')."""
+    out, todo = set(), list(ast.iter_child_nodes(fn))
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda, ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Return) and isinstance(node.value, ast.Tuple):
+            out.add(len(node.value.elts))
+        todo.extend(ast.iter_child_nodes(node))
+    return out
+
+
+#: array libraries whose attributes are compared by name (``jnp.float32 == torch.float32``)
+_LIBS = ("jnp", "np", "numpy", "torch")
+
+
+def _value(expr, tree, rel, depth=0):
+    """A default's comparable form: module constants (``tree.value``)
+    resolved, a library attribute by its name, literals by value."""
+    if isinstance(expr, ast.Name) and depth < 8:
+        bound = tree.value(rel, expr.id)
+        if bound is not None:
+            return _value(bound[1], tree, bound[0], depth + 1)
+    if isinstance(expr, ast.Attribute) and isinstance(expr.value, ast.Name) \
+            and expr.value.id in _LIBS:
+        return f"lib.{expr.attr}"
+    try:
+        return repr(ast.literal_eval(expr))
+    except ValueError:
+        return ast.unparse(expr)
+
+
+def _callables(tree):
+    """The reference module's public functions, constructors and methods:
+    ``(qualified name, node)``, a constructor as its class."""
+    for node in _top_level(tree.body):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(node.name):
+            yield node.name, node
+        elif isinstance(node, ast.ClassDef) and _public(node.name):
+            yield node.name, node
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(sub.name):
+                    yield f"{node.name}.{sub.name}", sub
+
+
 class Port:
     """The port's modules, parsed once, with ``from`` imports resolved."""
 
@@ -143,34 +213,79 @@ class Port:
                 return cand
         return None
 
-    def definition(self, rel, name, seen=()):
+    def definition(self, rel, name):
         """The node defining ``name`` in port module ``rel`` (following its
         imports), ``True`` for a name bound some other way, or ``None``."""
+        return self.locate(rel, name)[1]
+
+    def locate(self, rel, name, seen=()):
+        """``(module, definition)``: :meth:`definition` and the module that
+        holds it."""
         if rel not in self.trees or (rel, name) in seen:
-            return None
+            return rel, None
         seen = seen + ((rel, name),)
         for node in _top_level(self.trees[rel].body):
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
                 if node.name == name:
-                    return node
+                    return rel, node
             elif isinstance(node, (ast.Assign, ast.AnnAssign)) and name in _targets(node):
                 value = node.value
                 if isinstance(value, ast.Name) and value.id != name:
-                    return self.definition(rel, value.id, seen) or True
-                return True
+                    found = self.locate(rel, value.id, seen)
+                    return found if found[1] is not None else (rel, True)
+                return rel, True
             elif isinstance(node, ast.ImportFrom):
                 for a in node.names:
                     if (a.asname or a.name) == name:
                         mod = self._module_of(rel, node)
                         if mod is None:
-                            return True
+                            return rel, True
                         sub = mod[: -len("__init__.py")] + a.name + ".py"
                         if mod.endswith("__init__.py") and sub in self.trees:
-                            return True  # a submodule
-                        return self.definition(mod, a.name, seen) or True
+                            return rel, True  # a submodule
+                        found = self.locate(mod, a.name, seen)
+                        return found if found[1] is not None else (rel, True)
             elif isinstance(node, ast.Import):
                 if any((a.asname or a.name.split(".")[0]) == name for a in node.names):
-                    return True
+                    return rel, True
+        return rel, None
+
+    def value(self, rel, name, seen=()):
+        """``(module, expression)`` a module-level constant ``name`` of
+        ``rel`` is bound to (following imports), or ``None``."""
+        if rel not in self.trees or (rel, name) in seen:
+            return None
+        seen = seen + ((rel, name),)
+        for node in _top_level(self.trees[rel].body):
+            if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                    and isinstance(node.targets[0], ast.Name) and node.targets[0].id == name:
+                return rel, node.value
+            if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name) \
+                    and node.target.id == name and node.value is not None:
+                return rel, node.value
+            if isinstance(node, ast.ImportFrom):
+                for a in node.names:
+                    if (a.asname or a.name) == name:
+                        mod = self._module_of(rel, node)
+                        return None if mod is None else self.value(mod, a.name, seen)
+        return None
+
+    def callable(self, rel, qual):
+        """``(module, node)`` of the port's function, class (a constructor)
+        or method named ``qual`` in ``rel``, or ``None``."""
+        owner, _, member = qual.partition(".")
+        mod, d = self.locate(rel, owner)
+        if not isinstance(d, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            return None
+        if not member:
+            return mod, d
+        if not isinstance(d, ast.ClassDef):
+            return None
+        for c in self._class_chain(mod, d):
+            for node in c.body:
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                        and node.name == member:
+                    return mod, node
         return None
 
     def _class_chain(self, rel, cls):
@@ -229,17 +344,51 @@ def _owners(key):
     return out
 
 
+def contract(ref, port, rel):
+    """``{key: agrees}`` for module ``rel``: the default of every parameter
+    that the reference's and the port's function, method or constructor
+    both have (``rel::f(p) default``), and the sizes of the tuple literals
+    both return where both return one (``rel::f returns``)."""
+    out = {}
+    for qual, node in _callables(ref.trees[rel]):
+        found = port.callable(rel, qual)
+        if found is None:
+            continue
+        mod, pnode = found
+        if isinstance(node, ast.ClassDef):
+            theirs = _ctor_defaults(node)
+            ours = {}
+            for c in reversed(list(port._class_chain(mod, pnode))):
+                ours.update(_ctor_defaults(c))
+            params = set(_ctor_params(node)) & {p for c in port._class_chain(mod, pnode)
+                                                for p in _ctor_params(c)}
+        else:
+            theirs, ours = _defaults(node), _defaults(pnode)
+            params = set(_params(node)) & set(_params(pnode))
+            want, got = _tuple_returns(node), _tuple_returns(pnode)
+            if want and got:
+                out[f"{rel}::{qual} returns"] = want == got
+        for p in sorted(params):
+            if p in theirs or p in ours:
+                same = (p in theirs and p in ours and _value(theirs[p], ref, rel)
+                        == _value(ours[p], port, mod))
+                out[f"{rel}::{qual}({p}) default"] = same
+    return out
+
+
 def audit(ref_sources, port_sources, departures):
     """(missing, stale): reference items with neither a counterpart nor a
     departure, and departures that name a present item or no item."""
     port = Port(port_sources)
-    items = []
+    ref = Port(ref_sources, package="repro")
+    items, agrees = [], {}
     for rel in sorted(ref_sources):
         if rel not in port_sources:
             items.append(rel)  # the whole module
             continue
-        items += surface(rel, ast.parse(ref_sources[rel]))
-    known = set(items)
+        items += surface(rel, ref.trees[rel])
+        agrees.update(contract(ref, port, rel))
+    known = set(items) | set(agrees)
     missing = []
     for k in items:
         if k in departures:
@@ -248,8 +397,14 @@ def audit(ref_sources, port_sources, departures):
             missing.append(k)
         elif not port.has(k) and not any(o in departures for o in _owners(k)):
             missing.append(k)
-    stale = [k for k in departures
-             if k not in known or (k in port_sources if "::" not in k else port.has(k))]
+    missing += [k for k, same in agrees.items() if not same and k not in departures]
+
+    def present(k):
+        if k in agrees:
+            return agrees[k]
+        return k in port_sources if "::" not in k else port.has(k)
+
+    stale = [k for k in departures if k not in known or present(k)]
     return missing, stale
 
 
@@ -275,6 +430,8 @@ _SHARD = ("an XLA sharding anchor; a rank holds its blocks explicitly "
 _KEY = "a JAX PRNG key; the port draws from a torch.Generator (generator=)"
 _UNROLL = "unrolls XLA's scanned layer groups for the dry-run's probes; the port's layers loop"
 _CSR = "takes the CSR (indptr, indices); spmm_ref keeps the COO form"
+_SLAB_SIZES = ("the alltoall slab layout's sizes: set by abstract_plan (the dry-run's "
+               "plan) alone, None on a real plan, whose shards hold bucket CSRs")
 _CARD = ("TPU v5e figures; the card's are BF16_FLOPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, "
          "NVLINK_BYTES_PER_S and INTER_NODE_BYTES_PER_S")
 
@@ -313,6 +470,12 @@ DEPARTURES = {
     "core/distributed.py::DistributedPlan.pin_adj": "plan.shards[p].pin_adj (ShardArrays)",
     "core/distributed.py::DistributedPlan.device_arrays":
         "plan.shard_arrays(p, device): one shard's arrays, moved once and kept",
+    "core/distributed.py::DistributedPlan(bucket_tile) default": _SLAB_SIZES,
+    "core/distributed.py::DistributedPlan(num_tiles) default": _SLAB_SIZES,
+    "core/distributed.py::DistributedPlan(slabs_per_block) default": _SLAB_SIZES,
+    "core/distributed.py::make_count_fn returns":
+        "return_raw=True gives (the rank program, its argument shapes), which the dry-run runs "
+        "on meta tensors; the reference's third value is an XLA in-sharding",
     "core/distributed.py::build_distributed_plan(bucket_tile)":
         "the slab layout's tile; taken and dropped (bucket CSRs); abstract_plan reads it",
     "core/distributed.py::plan_route_report(data_axis)": _AXIS,
@@ -410,6 +573,11 @@ DEPARTURES = {
     "models/factory.py::chunked_ce_loss(shard)": _SHARD,
     "models/factory.py::build_model(impl)": _IMPL,
     "models/factory.py::build_model(unroll)": _UNROLL,
+    "models/factory.py::build_model(cast_params) default":
+        "False, where the reference's None casts the >= 2-D weights up front iff a mesh is "
+        "given: cast so, bf16 meshed training drifted past 1e-3 of one device's losses "
+        "(chip_smoke.py phase 20 (b)); True stores the cast for serving, which a trainer "
+        "refuses; float32 meshed runs agree with the reference's (tests/test_torch_mesh_lm.py)",
     "models/layers.py::Initializer(key)": _KEY,
     "models/layers.py::Initializer.take": "splits the JAX key; the generator advances as it draws",
     "models/layers.py::Initializer.normal(dtype)": "the caller casts (.to(dtype))",
@@ -435,6 +603,10 @@ DEPARTURES = {
     "roofline/analysis.py::RooflineTerms.note": "never set in the reference",
     "roofline/analysis.py::analyze_record(hbm_gib)":
         "hbm_bytes, the card's memory by default (device_memory_bytes)",
+    "train/checkpoint.py::CheckpointManager(async_save) default":
+        "False: the counting callers and their tests build the manager bare, and a save must be "
+        "on disk when save returns for 'killed after call N' to resume there; the train loop "
+        "asks for async_save=True, as the reference's gets it from its default",
     "train/train_loop.py::make_train_step(batch_spec)":
         "an XLA sharding; a rank's rows come from Model.rank_rows",
     "train/train_loop.py::make_train_step(jit)": "the step is eager",
@@ -463,16 +635,18 @@ def test_the_audit_imports_neither_package():
 # the audit on two small modules held in memory
 
 _REF = {
-    "m.py": "def f(a, b=1):\n    pass\n\n\nclass C:\n    x: int\n\n"
-            "    def g(self, y):\n        pass\n\n\nK = 3\n",
+    "m.py": "def f(a, b=1, dtype=jnp.float32):\n    return a, b, dtype\n\n\n"
+            "class C:\n    x: int = 0\n\n    def g(self, y=2):\n        pass\n\n\nK = 3\n",
     "launch/count.py": "import argparse\nap = argparse.ArgumentParser()\n"
                        "ap.add_argument('--iters')\n",
     "gone.py": "def h():\n    pass\n",
 }
 _PORT = {
-    "m.py": "from .impl import f\n\n\nclass C:\n    x: int\n\n"
-            "    def g(self, y):\n        pass\n\n\nK = 3\n",
-    "impl.py": "def f(a, b=1):\n    pass\n",
+    "m.py": "from .impl import f\n\n\nclass C:\n    x: int = 0\n\n"
+            "    def g(self, y=2):\n        pass\n\n\nK = 3\n",
+    "impl.py": "from .consts import B\n\n\ndef f(a, b=B, dtype=torch.float32):\n"
+               "    return a, b, dtype\n",
+    "consts.py": "B = 1\n",
     "launch/count.py": "import argparse\nap = argparse.ArgumentParser()\n"
                        "ap.add_argument('--iters')\n",
 }
@@ -487,14 +661,15 @@ def _edit(sources, rel, old, new):
 
 
 def test_audit_passes_a_complete_port():
-    """A re-exported function counts, with its parameters."""
+    """A re-exported function counts, with its parameters; a constant
+    default counts as its value, ``torch.float32`` as ``jnp.float32``."""
     assert audit(_REF, _PORT, _DEPS) == ([], [])
 
 
 SELF_CASES = {
     "missing name": (_edit(_PORT, "m.py", "K = 3", "J = 3"), _DEPS, ["m.py::K"], []),
-    "missing parameter": (_edit(_PORT, "impl.py", "(a, b=1)", "(a)"), _DEPS, ["m.py::f(b)"], []),
-    "missing method parameter": (_edit(_PORT, "m.py", "g(self, y)", "g(self)"), _DEPS,
+    "missing parameter": (_edit(_PORT, "impl.py", "b=B, ", ""), _DEPS, ["m.py::f(b)"], []),
+    "missing method parameter": (_edit(_PORT, "m.py", "g(self, y=2)", "g(self)"), _DEPS,
                                  ["m.py::C.g(y)"], []),
     "missing field": (_edit(_PORT, "m.py", "x: int", "z: int"), _DEPS,
                       ["m.py::C(x)", "m.py::C.x"], []),
@@ -504,8 +679,23 @@ SELF_CASES = {
     "stale departure": (_PORT, dict(_DEPS, **{"m.py::C.g": "why"}), [], ["m.py::C.g"]),
     "unknown departure": (_PORT, dict(_DEPS, **{"m.py::nothing": "why"}), [],
                           ["m.py::nothing"]),
-    "a departure covers its members": (_edit(_PORT, "m.py", "def g(self, y)", "def h(self, y)"),
+    "a departure covers its members": (_edit(_PORT, "m.py", "def g(self, y=2)",
+                                             "def h(self, y=2)"),
                                        dict(_DEPS, **{"m.py::C.g": "why"}), [], []),
+    "changed default": (_edit(_PORT, "impl.py", "torch.float32", "torch.bfloat16"), _DEPS,
+                        ["m.py::f(dtype) default"], []),
+    "a constant hides a changed default": (_edit(_PORT, "consts.py", "B = 1", "B = 2"), _DEPS,
+                                           ["m.py::f(b) default"], []),
+    "dropped default": (_edit(_PORT, "m.py", "y=2", "y"), _DEPS, ["m.py::C.g(y) default"], []),
+    "changed field default": (_edit(_PORT, "m.py", "x: int = 0", "x: int = 1"), _DEPS,
+                              ["m.py::C(x) default"], []),
+    "shortened return": (_edit(_PORT, "impl.py", "return a, b, dtype", "return a, b"), _DEPS,
+                         ["m.py::f returns"], []),
+    "a departure for a changed default":
+        (_edit(_PORT, "consts.py", "B = 1", "B = 2"),
+         dict(_DEPS, **{"m.py::f(b) default": "why"}), [], []),
+    "stale default departure": (_PORT, dict(_DEPS, **{"m.py::f(b) default": "why"}), [],
+                                ["m.py::f(b) default"]),
 }
 
 
