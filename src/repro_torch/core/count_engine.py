@@ -123,11 +123,11 @@ class CountingPlan:
     device: torch.device
     #: route each tree node through the fused SpMM->combine kernel
     fuse: bool = False
+    #: active-frontier compaction spec (None = dense; DESIGN.md §15)
+    compaction: Optional[CompactionSpec] = None
     #: dense host adjacency ``[n_pad, n]`` float32 for pinned bag leaves
     #: (treewidth-2 templates only; None for tree programs)
     pin_adj: Optional[torch.Tensor] = None
-    #: active-frontier compaction spec (None = dense; DESIGN.md §15)
-    compaction: Optional[CompactionSpec] = None
 
     @property
     def scale(self) -> float:
@@ -151,8 +151,8 @@ class MultiCountingPlan:
     widths: Dict[int, int]
     device: torch.device
     fuse: bool = False
-    pin_adj: Optional[torch.Tensor] = None
     compaction: Optional[CompactionSpec] = None
+    pin_adj: Optional[torch.Tensor] = None
 
     @property
     def num_templates(self) -> int:

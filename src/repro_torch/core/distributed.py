@@ -200,6 +200,12 @@ class DistributedPlan:
     shard_size: int  # vertices a shard (the last may be ragged)
     n_loc_pad: int  # padded local rows; row ``shard_size`` is the zero sentinel
     r_pad: int  # padded request-list length (slot r_pad - 1 always the zero row)
+    #: a shape-only plan's (:func:`abstract_plan`): the reference's tile
+    #: size, tiles a shard and alltoall slabs a row block, which size its
+    #: CSRs; None on a plan of a graph
+    bucket_tile: Optional[int]
+    num_tiles: Optional[int]
+    slabs_per_block: Optional[int]
     auts: Tuple[int, ...]
     combine: Dict[int, ops.CombineTables]
     widths: Dict[int, int]  # true widths, per coloring (and per apex vertex x on bag nodes)
@@ -211,12 +217,6 @@ class DistributedPlan:
     device: torch.device
     #: active-frontier compaction spec (None = dense; DESIGN.md §15)
     compaction: Optional[CompactionSpec] = None
-    #: a shape-only plan's (:func:`abstract_plan`): the reference's tile
-    #: size, tiles a shard and alltoall slabs a row block, which size its
-    #: CSRs; None on a plan of a graph
-    bucket_tile: Optional[int] = None
-    num_tiles: Optional[int] = None
-    slabs_per_block: Optional[int] = None
     _on_device: Dict[tuple, ShardArrays] = dataclasses.field(default_factory=dict, repr=False,
                                                              compare=False)
 
@@ -387,6 +387,9 @@ def build_distributed_plan(
         shard_size=ss,
         n_loc_pad=n_loc_pad,
         r_pad=r_pad,
+        bucket_tile=None,
+        num_tiles=None,
+        slabs_per_block=None,
         auts=tuple(automorphism_count(t) for t in templates),
         combine=combine,
         widths=widths,
@@ -488,6 +491,9 @@ def abstract_plan(
         shard_size=ss,
         n_loc_pad=n_loc_pad,
         r_pad=r_pad,
+        bucket_tile=bucket_tile,
+        num_tiles=num_tiles,
+        slabs_per_block=spb,
         auts=tuple(automorphism_count(t) for t in templates),
         combine={i: t.to(meta) for i, t in combine.items()},
         widths=widths,
@@ -496,9 +502,6 @@ def abstract_plan(
         shards=(arrays,) * Pn,
         device=meta,
         compaction=compaction,
-        bucket_tile=bucket_tile,
-        num_tiles=num_tiles,
-        slabs_per_block=spb,
     )
 
 

@@ -8,9 +8,11 @@ engine pays for every row; a compacted plan skips the inactive ones.
 
 * :func:`probe_activity`: an exact boolean DP (counts are nonnegative, so
   zero/nonzero propagates without cancellation) measuring each internal
-  node's active rows on a few probe colorings at plan-build time.  It runs
-  on the device of the split tables through the port's own kernels, all
-  probes as one batch: on 0/1 tables a neighbor sum is positive iff some
+  node's active rows on a few probe colorings at plan-build time; the
+  reference's generator, one dict of ``[n]`` numpy masks per probe.  The
+  DP runs on the device of the split tables through the port's own
+  kernels, all probes as one batch (``_probe_activity_batched``, which the
+  planners read): on 0/1 tables a neighbor sum is positive iff some
   neighbor's entry is, and a combine iff some split's pair of entries is,
   so ``spmm(t) > 0`` and ``color_combine(l, m) > 0`` are the reference's
   boolean ORs exactly (the sums are nonnegative integers).
@@ -49,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,10 +179,17 @@ def model_density(t: int, k: int, avg_degree: float) -> float:
 
 
 class NodeActivity(NamedTuple):
-    """One internal node's activity on every probe coloring."""
+    """One internal node's activity on one probe coloring (the reference's)."""
 
-    table: torch.Tensor  # [probes, n] bool: active rows of the node's table
-    gather: torch.Tensor  # [probes, n] bool: active(left) & active(M)
+    table: np.ndarray  # [n] bool: active rows of the node's table
+    gather: Optional[np.ndarray]  # [n] bool: active(left) & active(M)
+
+
+class _Activity(NamedTuple):
+    """One internal node's activity on every probe coloring, on the device."""
+
+    table: torch.Tensor  # [probes, n] bool
+    gather: torch.Tensor  # [probes, n] bool
 
 
 def _active(table: torch.Tensor) -> torch.Tensor:
@@ -190,16 +199,35 @@ def _active(table: torch.Tensor) -> torch.Tensor:
 
 def probe_activity(
     graph, program, combine, k: int, *, probes: int = 2, seed: int = 0
-) -> Dict[int, NodeActivity]:
-    """Activity masks of every internal node on ``probes`` probe colorings.
+) -> Iterator[Dict[int, NodeActivity]]:
+    """Yield per-probe-coloring activity masks for every internal node.
+
+    The reference's generator: one ``{node: NodeActivity}`` per probe
+    coloring, in the reference's order, each mask an ``[n]`` numpy bool
+    array equal to its boolean DP's.  The DP itself runs once, all probes
+    as one batch on the device of the split tables
+    (:func:`_probe_activity_batched`, which the compaction planners read
+    directly); its masks come to the host in one copy at the first yield.
+    """
+    acts = _probe_activity_batched(graph, program, combine, k, probes=probes, seed=seed)
+    host = {i: (a.table.cpu().numpy(), a.gather.cpu().numpy()) for i, a in acts.items()}
+    for p in range(probes):
+        yield {i: NodeActivity(table=t[p], gather=g[p]) for i, (t, g) in host.items()}
+
+
+def _probe_activity_batched(
+    graph, program, combine, k: int, *, probes: int = 2, seed: int = 0
+) -> Dict[int, _Activity]:
+    """Activity masks ``[probes, n]`` of every internal node on ``probes``
+    probe colorings, on the device of ``combine``'s split tables.
 
     The colorings are the reference's, ``np.random.default_rng(seed)
     .integers(0, k, n)`` once per probe (``frontier.py:192-194``), and the
     masks equal its boolean DP's.  The DP runs as one batch of the probe
-    colorings on the device of ``combine``'s split tables, over 0/1 tables:
-    each neighbor sum and each combine is clamped to 1, so every sum stays a
-    small nonnegative integer and is positive exactly where the boolean OR
-    holds.  The program's own executor walks the nodes.
+    colorings over 0/1 tables: each neighbor sum and each combine is
+    clamped to 1, so every sum stays a small nonnegative integer and is
+    positive exactly where the boolean OR holds.  The program's own executor
+    walks the nodes.
     """
     from .table_program import leaf_table, run_table_program
 
@@ -213,13 +241,13 @@ def probe_activity(
     padded = np.zeros((probes, sp.n_pad), np.int64)
     padded[:, :n] = colorings
     leaf = leaf_table(torch.from_numpy(padded).to(dev), k, n)
-    out: Dict[int, NodeActivity] = {}
+    out: Dict[int, _Activity] = {}
 
     def node_fn(i, tbl, c_left, c_right, f_left, f_right):
         m = ops.spmm(sp, c_right).clamp_(max=1.0)
         t = ops.color_combine(c_left, m, tbl).clamp_(max=1.0)
-        out[i] = NodeActivity(table=_active(t[:n]).t(),
-                              gather=(_active(c_left[:n]) & _active(m[:n])).t())
+        out[i] = _Activity(table=_active(t[:n]).t(),
+                           gather=(_active(c_left[:n]) & _active(m[:n])).t())
         return t
 
     run_table_program(program, combine, leaf, n, node_fn, root_fn=lambda t: None)
@@ -236,7 +264,7 @@ def _child_roles(program) -> Tuple[set, set]:
     return rights, lefts
 
 
-def _max_counts(acts: Dict[int, NodeActivity]) -> Tuple[Dict[int, int], Dict[int, int]]:
+def _max_counts(acts: Dict[int, _Activity]) -> Tuple[Dict[int, int], Dict[int, int]]:
     """Per node, the most active table rows and gather rows over the probes,
     read from the device in one copy."""
     if not acts:
@@ -277,8 +305,8 @@ def single_device_compaction(
     rights, _ = _child_roles(program)
     if not has_edge_slabs:
         rights = set()
-    max_act, max_gath = _max_counts(probe_activity(graph, program, combine, k, probes=probes,
-                                                   seed=seed))
+    max_act, max_gath = _max_counts(_probe_activity_batched(graph, program, combine, k,
+                                                            probes=probes, seed=seed))
     density = {i: c / max(n, 1) for i, c in max_act.items()}
     gather_density = {i: c / max(n, 1) for i, c in max_gath.items()}
     table_caps = {}
@@ -335,7 +363,7 @@ def distributed_compaction(
     n = graph.n
     Pn, ss = num_shards, shard_size
     rights, _ = _child_roles(program)
-    acts = probe_activity(graph, program, combine, k, probes=probes, seed=seed)
+    acts = _probe_activity_batched(graph, program, combine, k, probes=probes, seed=seed)
     if not acts:
         return CompactionSpec(threshold, capacity_factor, {}, {}, {}, {}, probes=probes)
     dev = next(iter(acts.values())).table.device
@@ -437,7 +465,7 @@ def sampled_density(
     n_s = int(min(max(sample_vertices, 64), max(num_vertices, 64)))
     m_s = max(n_s // 2, int(round(n_s * avg_degree / 2.0)))
     g_s = relabel_random(rmat(n_s, m_s, skew=3, seed=seed), seed=seed + 1)
-    acts = probe_activity(g_s, program, combine, k, probes=probes, seed=seed)
+    acts = _probe_activity_batched(g_s, program, combine, k, probes=probes, seed=seed)
     max_act, _ = _max_counts(acts)
     return {i: c / max(n_s, 1) for i, c in max_act.items()}
 

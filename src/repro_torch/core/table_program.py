@@ -124,8 +124,8 @@ def run_table_program(
     n: int,
     node_fn: NodeFn,
     root_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-    bag: Optional[BagFns] = None,
     frontier_fn: Optional[FrontierFn] = None,
+    bag: Optional[BagFns] = None,
 ) -> tuple:
     """Execute a program; returns one value per ``program.roots`` entry.
 

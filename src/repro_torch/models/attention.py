@@ -41,13 +41,14 @@ replicated over the model axis and its keys and values whole in the cache
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..comm import all_gather_cat, copy_to
+from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import NEG
 from .layers import Dense, Initializer, MeshShard, dense_apply, dense_init, rope
@@ -198,10 +199,14 @@ def decode_attention(
     return out.reshape(b, h, 1, d).to(q.dtype)
 
 
-def init_kv_cache(batch: int, kv_heads: int, length: int, head_dim: int, *,
-                  device: torch.device, dtype: torch.dtype = CACHE_DTYPE) -> dict:
+def init_kv_cache(batch: int, kv_heads: int, length: int, head_dim: int,
+                  dtype: torch.dtype = CACHE_DTYPE, *,
+                  device: Optional[Union[str, torch.device]] = None) -> dict:
     """Circular KV cache; ``slot_pos`` holds the absolute position in each
-    slot (-1 where empty), and position ``p`` lives in slot ``p % length``."""
+    slot (-1 where empty), and position ``p`` lives in slot ``p % length``.
+    On ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    if device is None or torch.device(device).type != "meta":  # meta: the dry-run's shapes
+        device = resolve_device(device)
     return {
         "k": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype, device=device),
         "v": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype, device=device),

@@ -87,6 +87,7 @@ from .transformer import (
     Transformer,
     _check_supported,
     cache_buffer_len,
+    cast_weights,
     check_weights,
     encode,
     init_caches,
@@ -328,10 +329,11 @@ def _check_mesh(cfg: ArchConfig, sh: ShardingConfig, mesh) -> None:
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class Model:
     cfg: ArchConfig
     sharding: ShardingConfig
+    mesh: Optional[Any]
     device: torch.device
     dtype: torch.dtype
     cast_params: bool
@@ -341,7 +343,6 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     init_caches_fn: Callable
-    mesh: Optional[Any]
 
     def param_specs(self, params_or_shapes) -> Dict[str, P]:
         return param_pspecs(params_or_shapes, self.cfg, self.sharding)
@@ -443,16 +444,20 @@ def build_model(
     card).
 
     ``dtype`` is the compute dtype.  ``cast_params=True`` is the reference's
-    ``cast_params`` for serving: ``init_fn`` stores weights of two or more
-    dimensions in ``dtype`` as it draws them (1-D weights stay float32) and
-    no float32 copy is kept; the weights read in float32 (the LM head, the
-    router, RG-LRU's gates, RWKV's decay LoRA) are then read rounded, as the
-    reference's cast rounds them.  Otherwise each weight is cast to
-    ``dtype`` where it is used.  Training keeps float32 weights (the
-    reference's masters), so a trainer refuses cast weights.  The default
-    stays ``False`` with a mesh too, where the reference's ``None`` casts up
-    front: cast so, the bf16 meshed training of ``chip_smoke.py``'s phase
-    20 (b) drifted past 1e-3 of one device's losses.
+    ``cast_params``: the forward reads every float32 weight of two or more
+    dimensions cast to ``dtype`` (:func:`~.transformer.cast_weights`; the
+    gradients reach the float32 weights through the cast), so the weights read in float32
+    elsewhere (the LM head's logits, the router, RG-LRU's gates, RWKV's
+    decay LoRA) are read rounded, as the reference's cast rounds them; the
+    loss reads its head as given, as the reference's does.  ``init_fn`` then
+    stores those weights in ``dtype`` as it draws them (1-D weights stay
+    float32): no float32 copy, the same forward, and a trainer refuses
+    them.  Otherwise each weight is cast to ``dtype`` where it is used.  The
+    default stays ``False`` with a mesh too, where the reference's ``None``
+    casts iff a mesh is given: against the reference's own meshed bf16 run
+    at that default, the port's uncast gradients come closer than its cast
+    ones, whose bf16 gathers sum the gradients over the data axis in bf16
+    (``tests/test_torch_mesh_lm.py``).
     The callables take only weights drawn for ``cfg`` (the weights carry
     their config).  ``cache_dtype`` stores the self-attention keys and
     values (the reference's bf16 by default, whatever ``dtype`` is).
@@ -481,6 +486,10 @@ def build_model(
     def rank() -> Optional[MeshShard]:
         return None if mesh is None else model.rank_shard()
 
+    def weights(params):
+        """The weights as the forward reads them."""
+        return cast_weights(params, dtype) if cast_params else params
+
     def init_fn(generator: torch.Generator):
         if generator.device.type != dev.type:
             raise ValueError(f"the generator is on {generator.device}, the model on {dev}")
@@ -504,9 +513,10 @@ def build_model(
         check_weights(params, cfg)
         rs = rank()
         tokens = batch["tokens"].to(dev)
-        h, _, aux = params(tokens, mode="train", context=_context_of(params, batch, rs),
-                           dtype=dtype, remat=sh.remat, attn_chunk=sh.attn_chunk,
-                           return_hidden=True, rs=rs)
+        h, _, aux = weights(params)(tokens, mode="train",
+                                    context=_context_of(params, batch, rs), dtype=dtype,
+                                    remat=sh.remat, attn_chunk=sh.attn_chunk,
+                                    return_hidden=True, rs=rs)
         head = params.embed.T if params.lm_head is None else params.lm_head
         if rs is None:
             loss = chunked_ce_loss(h[:, :-1], head, tokens[:, 1:], vocab_size=cfg.vocab_size)
@@ -526,16 +536,17 @@ def build_model(
         tokens = batch["tokens"].to(dev)
         s_buf = cache_buffer_len(cfg, tokens.shape[1])
         rs = rank()
-        logits, caches, _ = params(tokens, mode="prefill", context=_context_of(params, batch, rs),
-                                   dtype=dtype, s_buf=s_buf, cache_dtype=cache_dtype, rs=rs)
+        logits, caches, _ = weights(params)(tokens, mode="prefill",
+                                            context=_context_of(params, batch, rs), dtype=dtype,
+                                            s_buf=s_buf, cache_dtype=cache_dtype, rs=rs)
         return logits[:, -1].clone(), caches  # the clone lets the [B, L, V] logits go
 
     @torch.no_grad()
     def decode_fn(params, batch):
         check_weights(params, cfg)
-        logits, caches, _ = params(batch["tokens"].to(dev), mode="decode",
-                                   caches=batch["caches"], pos=batch["pos"], dtype=dtype,
-                                   rs=rank())
+        logits, caches, _ = weights(params)(batch["tokens"].to(dev), mode="decode",
+                                            caches=batch["caches"], pos=batch["pos"],
+                                            dtype=dtype, rs=rank())
         return logits[:, -1].clone(), caches
 
     def init_caches_fn(batch_size: int, seq_len: int, context_len: int = 0):

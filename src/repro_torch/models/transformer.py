@@ -42,6 +42,7 @@ rank's.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import List, Optional, Tuple
@@ -106,6 +107,7 @@ __all__ = [
     "cache_buffer_len",
     "init_caches",
     "forward",
+    "cast_weights",
     "check_weights",
     "encode",
 ]
@@ -724,17 +726,45 @@ def init_caches(cfg, batch: int, seq_len: int, *, context_len: int = 0,
 
 def forward(params: Transformer, cfg, tokens: torch.Tensor, *, context=None,
             mode: str = "train", caches=None, pos=None, dtype=torch.bfloat16,
-            s_buf: Optional[int] = None, return_hidden: bool = False):
+            s_buf: Optional[int] = None, return_hidden: bool = False,
+            cast_params: bool = False):
     """The reference's ``forward`` signature over :class:`Transformer` weights,
     served (self-attention through flash); returns ``(logits, caches or
     None, aux_loss)`` as the reference does, the final-normed hidden state
     ``[B, L, d]`` in place of the logits with ``return_hidden``; ``aux_loss``
     is the float32 sum of the MoE layers' load-balancing losses (0 on a row
-    without experts)."""
+    without experts).  ``cast_params`` reads the weights of two or more
+    dimensions cast to ``dtype`` (:func:`cast_weights`)."""
     check_weights(params, cfg)
+    if cast_params:
+        params = cast_weights(params, dtype)
     out, caches, aux = params(tokens, mode=mode, caches=caches, pos=pos, context=context,
                               dtype=dtype, s_buf=s_buf, return_hidden=return_hidden)
     return out, caches, aux
+
+
+def cast_weights(params: Transformer, dtype: torch.dtype) -> Transformer:
+    """``params`` as the reference's ``cast_params`` reads them: a shallow
+    copy of the module tree in which every float32 weight of two or more
+    dimensions is ``w.to(dtype)``, differentiable, so that gradients reach
+    the float32 weights themselves (the masters); 1-D weights stay float32.
+    ``params`` itself where nothing is cast."""
+    if dtype == torch.float32 or not any(w.dtype == torch.float32 and w.dim() >= 2
+                                         for w in params.parameters()):
+        return params
+
+    def view(mod: nn.Module) -> nn.Module:
+        out = copy.copy(mod)
+        out.__dict__["_parameters"] = dict(mod._parameters)
+        out.__dict__["_modules"] = {k: None if m is None else view(m)
+                                    for k, m in mod._modules.items()}
+        for k, w in mod._parameters.items():
+            if w is not None and w.dtype == torch.float32 and w.dim() >= 2:
+                del out._parameters[k]
+                out.__dict__[k] = w.to(dtype)
+        return out
+
+    return view(params)
 
 
 def check_weights(params: Transformer, cfg) -> None:

@@ -8,7 +8,11 @@ tests/test_torch_mesh_pod.py.
   over 8 forced host devices, float32 compute, weights placed by its ``param_specs``): the
   loss and gradients of ``jax.value_and_grad(loss_fn)``, and with
   ``serve`` the prefill's last logits and each decode step's, in one
-  subprocess for a list of jobs;
+  subprocess for a list of jobs.  A ``dtype="bfloat16"`` job builds the
+  model at the reference's defaults (bf16 compute; on a mesh, the weights
+  of two or more dimensions cast where the forward uses them), compiled
+  with ``xla_allow_excess_precision`` off so that every bf16 operation is
+  rounded as eager torch rounds it (tests/test_torch_train_bf16.py);
 * :func:`port_mesh_run`: the port's same run on a ``LocalMesh`` of thread
   ranks on the CPU, the gradients summed over the data axis where a weight
   is whole on it and gathered whole, as the train step lands them;
@@ -104,7 +108,11 @@ _WORKER = textwrap.dedent("""
         sh = ShardingConfig(batch_axes=("data",) if pods == 1 else ("pod", "data"),
                             fsdp=job["fsdp"],
                             moe_pipeline=job["pipeline"], **job.get("sharding", {}))
-        model = build_model(cfg, sh, mesh, dtype=jnp.float32)
+        # float32 compute, or bf16 at build_model's default, which casts the
+        # weights of two or more dimensions where the forward uses them on a mesh
+        bf16 = job.get("dtype", "float32") == "bfloat16"
+        model = build_model(cfg, sh, mesh) if bf16 else build_model(cfg, sh, mesh,
+                                                                    dtype=jnp.float32)
         params = jax.jit(model.init_fn)(jax.random.key(0))
         if job.get("perturb"):  # biases and the cross gates, zero at init, from a seed
             rng = np.random.default_rng(7)
@@ -117,7 +125,12 @@ _WORKER = textwrap.dedent("""
         tokens = np.asarray(job["tokens"], np.int32)
         ctx = {} if job.get("context") is None else {
             "context": np.asarray(job["context"], np.float32)}
-        loss, grads = jax.jit(jax.value_and_grad(model.loss_fn))(params, {"tokens": tokens, **ctx})
+        args = (params, {"tokens": tokens, **ctx})
+        if bf16:  # every bf16 operation rounded, as eager torch rounds it
+            loss, grads = jax.jit(jax.value_and_grad(model.loss_fn)).lower(*args).compile(
+                {"xla_allow_excess_precision": False})(*args)
+        else:
+            loss, grads = jax.jit(jax.value_and_grad(model.loss_fn))(*args)
         out["loss"] = np.asarray(loss)
         out.update({"grads/" + k: v for k, v in flat(grads).items()})
         if job.get("serve"):
@@ -135,17 +148,18 @@ _WORKER = textwrap.dedent("""
 
 
 def job(jid, row, data, model, *, fsdp=False, pipeline=False, serve=False, heads=None,
-        capacity_factor=None, perturb=False, pods=1, **sharding) -> dict:
+        capacity_factor=None, perturb=False, pods=1, dtype="float32", **sharding) -> dict:
     """A reference job (``perturb``: biases and cross gates drawn nonzero;
-    ``pods``: a pod axis; ``sharding``: ``seq_axis``, ``sp_dim``,
-    ``attn_anchor``)."""
+    ``pods``: a pod axis; ``dtype``: ``"bfloat16"`` runs the loss at the
+    reference's default compute dtype and cast; ``sharding``: ``seq_axis``,
+    ``sp_dim``, ``attn_anchor``)."""
     cfg = config(row, heads)
     ctx = context(cfg)
     return {"id": jid, "row": row, "data": data, "model": model, "pods": pods, "fsdp": fsdp,
             "pipeline": pipeline, "serve": SERVE if serve else 0, "heads": heads,
             "capacity_factor": capacity_factor, "tokens": tokens(cfg.vocab_size).tolist(),
             "context": None if ctx is None else ctx.tolist(), "sharding": sharding,
-            "perturb": perturb}
+            "perturb": perturb, "dtype": dtype}
 
 
 def reference_runs(jobs, tmp, procs: int = 1) -> dict:
@@ -218,16 +232,19 @@ def _batch(toks, ctx, lo=0, hi=None):
 
 
 def port_mesh_run(cfg, params, toks, data: int, model: int, *, fsdp=False, pipeline=False,
-                  serve=False, cache_dtype=torch.bfloat16, ctx=None, pods=1, **sharding):
+                  serve=False, cache_dtype=torch.bfloat16, ctx=None, pods=1,
+                  dtype=torch.float32, cast_params=None, **sharding):
     """The port's meshed loss, gradients (whole, in the weights' layout) and,
     with ``serve``, logits (whole) on ``[pods x] data x model`` thread ranks
     (the batch over ``pod`` and ``data``; ``sharding``: more
-    ``ShardingConfig`` fields; ``ctx`` a context)."""
+    ``ShardingConfig`` fields; ``ctx`` a context), in compute ``dtype`` and
+    ``cast_params`` (``build_model``'s default where None)."""
     mesh = make_local_mesh(data, model, pods=pods, device="cpu")
     dp = ("data",) if pods == 1 else ("pod", "data")
+    cast = {} if cast_params is None else {"cast_params": cast_params}
     m = build_model(cfg, ShardingConfig(batch_axes=dp, fsdp=fsdp, moe_pipeline=pipeline,
                                         **sharding),
-                    mesh, dtype=torch.float32, cache_dtype=cache_dtype)
+                    mesh, dtype=dtype, cache_dtype=cache_dtype, **cast)
     toks = torch.as_tensor(toks)
     ctx_all = None if ctx is None else torch.as_tensor(ctx)
     names = [n for n, _ in params.named_parameters()]

@@ -31,6 +31,9 @@ ROWS = ["smollm-360m", "qwen1.5-0.5b", "internlm2-1.8b", "granite-3-8b", "phi3.5
 B, S = 2, 64
 DROP_FACTOR = 0.5
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+#: the bf16 rule: a gradient leaf's distance from float32 at most LEAF_RATIO
+#: times the reference's own bf16 distance, plus LEAF_FLOOR of the leaf's norm
+LEAF_RATIO, LEAF_FLOOR = 2.0, 1e-3
 
 _REF = {}
 

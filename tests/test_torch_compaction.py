@@ -111,7 +111,8 @@ def test_probe_masks_equal_reference(program):
     gives the reference's boolean DP's masks, probe for probe."""
     g = _skewed()
     port, ref = _plans(g, program)
-    acts = frontier.probe_activity(g, _program(port), port.combine, port.k, probes=3, seed=5)
+    acts = frontier._probe_activity_batched(g, _program(port), port.combine, port.k, probes=3,
+                                            seed=5)
     ref_acts = list(ref_frontier.probe_activity(_ref_graph(g), _program(ref), ref.combine, ref.k,
                                                 probes=3, seed=5))
     assert len(ref_acts) == 3
@@ -120,7 +121,42 @@ def test_probe_masks_equal_reference(program):
         for i, a in ra.items():
             np.testing.assert_array_equal(acts[i].table[p].numpy(), a.table)
             np.testing.assert_array_equal(acts[i].gather[p].numpy(), a.gather)
-    assert frontier.probe_activity(g, _program(port), port.combine, port.k, probes=0) == {}
+    assert frontier._probe_activity_batched(g, _program(port), port.combine, port.k,
+                                            probes=0) == {}
+
+
+def _assert_probe_equal(got, want):
+    """One probe's ``{node: NodeActivity}``: the same nodes in the same
+    order, each mask an ``[n]`` numpy bool array equal bit for bit."""
+    assert list(got) == list(want)
+    for i, a in want.items():
+        for mine, theirs in zip(got[i], a):
+            assert isinstance(mine, np.ndarray) and mine.dtype == theirs.dtype == np.bool_
+            np.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("program", ["chain", "family"])
+def test_probe_activity_is_the_reference_generator(program):
+    """``probe_activity`` is the reference's generator: the reference's own
+    idiom (``tests/test_compaction.py``: ``next(...)`` and ``.mean()`` on
+    a mask) runs on it, ``list`` gives one dict a probe equal to the
+    reference's, and ``probes=0`` yields nothing."""
+    g = _skewed()
+    port, ref = _plans(g, program)
+    args = (_program(port), port.combine, port.k)
+    ref_args = (_ref_graph(g), _program(ref), ref.combine, ref.k)
+    gen = frontier.probe_activity(g, *args, probes=1, seed=5)
+    first = next(gen)
+    _assert_probe_equal(first, next(ref_frontier.probe_activity(*ref_args, probes=1, seed=5)))
+    assert next(gen, None) is None
+    dens = {i: m.table.mean() for i, m in first.items()}
+    assert all(0.0 <= d <= 1.0 for d in dens.values())
+    got = list(frontier.probe_activity(g, *args, probes=3, seed=5))
+    want = list(ref_frontier.probe_activity(*ref_args, probes=3, seed=5))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        _assert_probe_equal(a, b)
+    assert list(frontier.probe_activity(g, *args, probes=0)) == []
 
 
 @pytest.mark.parametrize("kind", ["edges", "blocks"])

@@ -10,6 +10,16 @@ its bf16 cache against the port's bf16 cache), computed once in one
 subprocess.  A cut-head case: both packages' reduced smollm config at 6
 heads and 3 KV heads on 1 x 4, where a rank's columns hold 1.5 heads and
 0.75 of a KV head.
+
+bf16 on 2 x 2 with FSDP (smollm-360m, the row ``chip_smoke.py`` trains on
+a mesh): the reference's meshed bf16 run at its defaults, which cast the
+weights of two or more dimensions where the forward uses them on a mesh,
+is the oracle for the port's meshed bf16 loss and gradients, cast
+(``build_model(cast_params=True)``) and uncast.  Each is held to the repo's
+bf16 rule (tests/test_torch_train_bf16.py): a gradient leaf's distance
+from the reference's float32 run within twice the reference's own bf16
+distance plus 1e-3 of the leaf's norm, and the loss's likewise.  The
+port's default is the setting that comes closer to the oracle.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ from _mesh_rows import (
     reference_runs,
     tokens,
 )
-from _train_rows import one_thread  # noqa: F401
+from _train_rows import LEAF_FLOOR, LEAF_RATIO, leaf_distances, one_thread  # noqa: F401
 from repro_torch.models import build_model
 
 MESHES = [(2, 2), (1, 4), (4, 1)]
@@ -37,6 +47,9 @@ CUT = (6, 3)
 JOBS = [job(f"{row}-2x2", row, 2, 2, fsdp=row in ("smollm-360m", "internlm2-1.8b"),
             serve=row == "smollm-360m") for row in DENSE]
 JOBS.append(job("cut-1x4", "smollm-360m", 1, 4, serve=True, heads=CUT))
+F32_JOBS = list(JOBS)
+#: the oracle of the bf16 cases, beside its float32 run smollm-360m-2x2
+JOBS.append(job("smollm-360m-2x2-bf16", "smollm-360m", 2, 2, fsdp=True, dtype="bfloat16"))
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +78,7 @@ def test_dense_rows_equal_one_device(row, shape):
     assert_logits_close(got_logits, logits)
 
 
-@pytest.mark.parametrize("j", JOBS, ids=lambda j: j["id"])
+@pytest.mark.parametrize("j", F32_JOBS, ids=lambda j: j["id"])
 def test_dense_rows_equal_the_reference_mesh(reference, j):
     ref = reference[j["id"]]
     cfg = config(j["row"], j["heads"])
@@ -94,3 +107,52 @@ def test_cut_heads_equal_one_device():
         assert abs(got_loss - loss) <= 1e-5 * abs(loss)
         assert_leaves_close(got_grads, grads)
         assert_logits_close(got_logits, logits)
+
+
+_BF16 = {}
+
+
+def _bf16_run(reference, cast):
+    """The port's meshed bf16 loss and gradients on smollm-360m 2 x 2 with
+    FSDP, on the reference's weights (``cast``: ``build_model``'s
+    ``cast_params``, its default where None), once per setting."""
+    if cast not in _BF16:
+        cfg = config("smollm-360m")
+        loss, grads, _ = port_mesh_run(cfg, reference["smollm-360m-2x2"]["params"],
+                                       tokens(cfg.vocab_size), 2, 2, fsdp=True,
+                                       dtype=torch.bfloat16, cast_params=cast)
+        _BF16[cast] = loss, grads
+    return _BF16[cast]
+
+
+def _distance(grads, want) -> float:
+    """The whole gradient's distance from ``want``'s, over its norm."""
+    num = sum(float((grads[k] - torch.as_tensor(w)).square().sum()) for k, w in want.items())
+    den = sum(float(torch.as_tensor(w).square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("cast", [True, False], ids=["cast", "uncast"])
+def test_meshed_bf16_holds_the_reference_rule(reference, cast):
+    ref32, want = reference["smollm-360m-2x2"], reference["smollm-360m-2x2-bf16"]
+    loss, grads = _bf16_run(reference, cast)
+    base = ref32["loss"]
+    assert abs(loss - base) <= LEAF_RATIO * abs(want["loss"] - base) + LEAF_FLOOR * abs(base)
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    g32 = {k: torch.as_tensor(w) for k, w in ref32["grads"].items()}
+    for k, (got, ref) in leaf_distances(g32, grads, want["grads"]).items():
+        assert got <= LEAF_RATIO * ref + LEAF_FLOOR, (k, got, ref)
+
+
+def test_default_cast_is_the_closer_to_the_reference(reference):
+    """``build_model``'s default on a mesh is whichever of cast and uncast
+    puts the whole gradient, then the loss, nearer the reference's meshed
+    bf16 run (a tie goes to the reference's own default, cast)."""
+    want = reference["smollm-360m-2x2-bf16"]
+    runs = {cast: _bf16_run(reference, cast) for cast in (True, False)}
+    far = {cast: (_distance(grads, want["grads"]), abs(loss - want["loss"]))
+           for cast, (loss, grads) in runs.items()}
+    closer = far[True] <= far[False]
+    loss, grads = _bf16_run(reference, None)
+    assert loss == runs[closer][0], far
+    assert all(torch.equal(grads[k], runs[closer][1][k]) for k in grads), far

@@ -4,7 +4,12 @@ reference on identical inputs: ``EstimatorState.group_sums``,
 ``edge_tiles``, ``partition_edges_by_src_shard``, ``spmm_ref``,
 ``flash_attention_ref(scale=)``, ``attention_block(positions=)``,
 ``forward(return_hidden=)``, ``layernorm_params`` and the packages'
-re-exports.  Integer and numpy results are held bitwise."""
+re-exports; the positional forms of ``run_table_program`` and
+``init_kv_cache``, which bind as the reference's; ``forward(cast_params=)``;
+and ``Model`` as a plain (mutable) dataclass.  Integer and numpy
+results are held bitwise."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -23,9 +28,18 @@ from repro.models import build_model as ref_build_model
 from repro.models import layers as ref_layers
 from repro.models.transformer import forward as ref_forward
 from repro_torch.configs import get_arch
-from repro_torch.core import distributed, estimator, graphs, templates
+from repro_torch.core import (
+    count_engine,
+    distributed,
+    estimator,
+    frontier,
+    graphs,
+    table_program,
+    templates,
+)
 from repro_torch.kernels import ref
 from repro_torch.models import attention, layers
+from repro_torch.models import build_model
 from repro_torch.models.convert import from_reference_params
 from repro_torch.models.transformer import forward
 
@@ -108,6 +122,80 @@ def test_distributed_plan_properties_equal_reference(names):
     assert plan.tree is plan.templates[0]
     assert plan.aut == want.aut
     assert plan.num_templates == want.num_templates
+
+
+# ---------------------------------------------------------------- positional order
+
+
+def _table_program_roots(plan, colorings, positional):
+    """The plan's root counts through ``run_table_program`` called as the
+    engine calls it, by keyword, or positionally in the reference's order
+    ``(program, combine, leaf, n, node_fn, root_fn, frontier_fn, bag)``."""
+    leaf = table_program.leaf_table(colorings, plan.k, plan.n)
+    spec, flags, frontier_fn, bag = plan.compaction, [], None, None
+    if spec is not None:
+        node_fn = table_program.local_node_fn(plan.spmm_plan, compaction=spec,
+                                              sentinel_row=plan.n, flags=flags)
+        frontier_fn = frontier.make_frontier_fn(spec.table_caps, plan.n, flags)
+    else:
+        node_fn = table_program.local_node_fn(plan.spmm_plan)
+        bag = count_engine._bag_fns(plan, plan.chain, colorings, leaf)
+        node_fn = count_engine._bag_node_fn(plan, plan.chain, node_fn)
+    args = (plan.chain, plan.combine, leaf, plan.n, node_fn)
+    if positional:
+        roots = table_program.run_table_program(*args, table_program.root_count, frontier_fn,
+                                                bag)
+    else:
+        roots = table_program.run_table_program(*args, root_fn=table_program.root_count,
+                                                frontier_fn=frontier_fn, bag=bag)
+    return roots, flags
+
+
+@pytest.mark.parametrize("kind", ["compact", "bags"])
+def test_run_table_program_binds_the_reference_positional_order(kind, monkeypatch):
+    """A call in the reference's positional form binds ``frontier_fn`` and
+    ``bag`` where the reference does: the same root counts, bitwise, as the
+    keyword call, on a compacted chain (a frontier function engaged) and on
+    a bag program (bag functions required)."""
+    if kind == "compact":
+        monkeypatch.setattr(frontier, "MIN_TABLE_WIDTH", 1)
+        monkeypatch.setattr(frontier, "MIN_COMBINE_ELEMENTS", 1)
+        g = graphs.rmat(1024, 1000, skew=3, seed=2)
+        plan = count_engine.build_counting_plan(g, templates.template("u7-2"), device="cpu",
+                                                compact=True, density_threshold=0.7)
+        assert plan.compaction.table_caps
+    else:
+        g = graphs.erdos_renyi(61, 4.0, seed=3)
+        plan = count_engine.build_counting_plan(g, templates.template("cycle4"), device="cpu")
+        assert templates.program_has_bags(plan.chain)
+    colorings = np.zeros((2, plan.n_pad), np.int64)
+    colorings[:, : g.n] = np.random.default_rng(1).integers(0, plan.k, (2, g.n))
+    colorings = torch.from_numpy(colorings)
+    got, got_flags = _table_program_roots(plan, colorings, positional=True)
+    want, want_flags = _table_program_roots(plan, colorings, positional=False)
+    assert len(got) == len(want) == 1
+    assert torch.equal(got[0], want[0]) and float(want[0].sum()) > 0
+    assert len(got_flags) == len(want_flags) and bool(got_flags) == (kind == "compact")
+    assert all(torch.equal(a, b) for a, b in zip(got_flags, want_flags))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_kv_cache_takes_dtype_by_position(dtype):
+    """``init_kv_cache(b, kv, L, hd, dtype)`` as the reference calls it: the
+    same shapes, dtypes and contents; the device is the card unless the
+    caller asks for the CPU."""
+    want = ref_attention.init_kv_cache(2, 3, 5, 4, getattr(jnp, dtype))
+    got = attention.init_kv_cache(2, 3, 5, 4, getattr(torch, dtype), device="cpu")
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape and str(got[k].dtype).split(".")[1] == str(w.dtype)
+        np.testing.assert_array_equal(got[k].float().numpy(), np.asarray(w, np.float32))
+    default = attention.init_kv_cache(2, 3, 5, 4, device="cpu")
+    assert default["k"].dtype == torch.bfloat16 == getattr(torch, str(
+        ref_attention.init_kv_cache(2, 3, 5, 4)["k"].dtype))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            attention.init_kv_cache(2, 3, 5, 4, getattr(torch, dtype))
 
 
 # ---------------------------------------------------------------- oracles
@@ -211,6 +299,42 @@ def test_forward_return_hidden_equals_reference(smollm):
                                dtype=torch.float32, return_hidden=True)
     assert caches is None and got.shape == (2, 32, cfg.d_model) and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_forward_cast_params_equals_reference(smollm):
+    """``forward(cast_params=True)`` reads the float32 weights of two or more
+    dimensions rounded to the compute dtype, as the reference's does: the
+    logits equal the forward over weights stored in bf16, bitwise, and the
+    reference's cast forward within bf16's 2e-2; the rounded LM head moves
+    them from the uncast forward's."""
+    rcfg, cfg, rparams, toks = smollm
+    want, _, _ = ref_forward(jax.tree.map(jnp.asarray, rparams), rcfg, jnp.asarray(toks),
+                             mode="train", dtype=jnp.bfloat16, cast_params=True)
+    params = from_reference_params(rparams, cfg)
+    got, _, _ = forward(params, cfg, torch.from_numpy(toks), mode="train", cast_params=True)
+    stored, _, _ = forward(from_reference_params(rparams, cfg, dtype=torch.bfloat16), cfg,
+                           torch.from_numpy(toks), mode="train")
+    uncast, _, _ = forward(params, cfg, torch.from_numpy(toks), mode="train")
+    assert torch.equal(got, stored) and not torch.equal(got, uncast)
+    assert {w.dtype for w in params.parameters()} == {torch.float32}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+
+
+def test_model_is_a_mutable_dataclass(smollm):
+    """``Model`` is the reference's plain dataclass: a caller may rebind
+    ``decode_fn`` (here to count its calls) on both packages."""
+    rcfg, cfg, _, toks = smollm
+    calls = []
+    for model in (ref_build_model(rcfg), build_model(cfg, dtype=torch.float32, device="cpu")):
+        assert dataclasses.is_dataclass(model) and not type(model).__dataclass_params__.frozen
+        inner = model.decode_fn
+        model.decode_fn = lambda params, batch, inner=inner: calls.append(1) or inner(params,
+                                                                                    batch)
+    params = model.init_fn(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(toks)
+    _, caches = model.prefill_fn(params, {"tokens": tokens[:, :31]})
+    logits, _ = model.decode_fn(params, {"tokens": tokens[:, 31:], "pos": 31, "caches": caches})
+    assert calls == [1] and logits.shape == (2, cfg.padded_vocab)
 
 
 REMATS = ("none", "full", "dots")

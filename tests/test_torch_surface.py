@@ -159,6 +159,56 @@ def _tuple_returns(fn):
     return out
 
 
+def _positional(fn):
+    """A function's public positional parameters, in order."""
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args
+            if x.arg not in ("self", "cls") and _public(x.arg)]
+
+
+def _ctor_positional(cls):
+    """A class's positional constructor parameters: ``__init__``'s, else its
+    fields in order (a dataclass's or a NamedTuple's)."""
+    for node in cls.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "__init__":
+            return _positional(node)
+    return [t for node in cls.body if isinstance(node, ast.AnnAssign) for t in _targets(node)
+            if _public(t)]
+
+
+def _is_generator(fn):
+    """Whether ``fn`` yields (a ``yield`` in a nested function or lambda
+    does not count)."""
+    todo = list(ast.iter_child_nodes(fn))
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda, ast.ClassDef)):
+            continue
+        if isinstance(node, (ast.Yield, ast.YieldFrom)):
+            return True
+        todo.extend(ast.iter_child_nodes(node))
+    return False
+
+
+def _frozen(cls):
+    """``True`` for a frozen dataclass or a NamedTuple, ``False`` for a
+    dataclass that is not frozen, ``None`` for any other class."""
+    if any(isinstance(b, ast.Name) and b.id == "NamedTuple" for b in cls.bases):
+        return True
+    for dec in cls.decorator_list:
+        call = dec if isinstance(dec, ast.Call) else None
+        name = ast.unparse(call.func if call else dec)
+        if name.split(".")[-1] == "dataclass":
+            return any(k.arg == "frozen" and isinstance(k.value, ast.Constant)
+                       and k.value.value is True for k in (call.keywords if call else []))
+    return None
+
+
+def _order(theirs, ours, shared):
+    """Whether the parameters ``shared`` come in the same relative order."""
+    return [p for p in theirs if p in shared] == [p for p in ours if p in shared]
+
+
 #: array libraries whose attributes are compared by name (``jnp.float32 == torch.float32``)
 _LIBS = ("jnp", "np", "numpy", "torch")
 
@@ -344,11 +394,17 @@ def _owners(key):
     return out
 
 
-def contract(ref, port, rel):
-    """``{key: agrees}`` for module ``rel``: the default of every parameter
-    that the reference's and the port's function, method or constructor
-    both have (``rel::f(p) default``), and the sizes of the tuple literals
-    both return where both return one (``rel::f returns``)."""
+def contract(ref, port, rel, departures=()):
+    """``{key: agrees}`` for module ``rel``, where the reference's and the
+    port's function, method or constructor both exist: the default of every
+    parameter both have (``rel::f(p) default``); the sizes of the tuple
+    literals both return where both return one (``rel::f returns``); the
+    relative order of the positional parameters both have (``rel::f
+    order``); a parameter positional in the reference that the port makes
+    keyword-only (``rel::f(p) keyword-only``); whether a function is a
+    generator (``rel::f generator``); and whether a dataclass is frozen
+    (``rel::C frozen``).  Parameters with a departure of their own
+    (``rel::f(p)``) are left out of the order and keyword-only checks."""
     out = {}
     for qual, node in _callables(ref.trees[rel]):
         found = port.callable(rel, qual)
@@ -362,12 +418,25 @@ def contract(ref, port, rel):
                 ours.update(_ctor_defaults(c))
             params = set(_ctor_params(node)) & {p for c in port._class_chain(mod, pnode)
                                                 for p in _ctor_params(c)}
+            if isinstance(pnode, ast.ClassDef) and None not in (_frozen(node), _frozen(pnode)):
+                out[f"{rel}::{qual} frozen"] = _frozen(node) == _frozen(pnode)
+            pos, kwonly = _ctor_positional(node), []
+            ppos = _ctor_positional(pnode) if isinstance(pnode, ast.ClassDef) else []
         else:
             theirs, ours = _defaults(node), _defaults(pnode)
             params = set(_params(node)) & set(_params(pnode))
             want, got = _tuple_returns(node), _tuple_returns(pnode)
             if want and got:
                 out[f"{rel}::{qual} returns"] = want == got
+            out[f"{rel}::{qual} generator"] = _is_generator(node) == _is_generator(pnode)
+            pos, ppos = _positional(node), _positional(pnode)
+            kwonly = [x.arg for x in pnode.args.kwonlyargs]
+        mine = {p for p in params if f"{rel}::{qual}({p})" not in departures}
+        shared = mine & set(pos) & set(ppos)
+        if len(shared) > 1:
+            out[f"{rel}::{qual} order"] = _order(pos, ppos, shared)
+        for p in sorted(mine & set(pos) & set(kwonly)):
+            out[f"{rel}::{qual}({p}) keyword-only"] = False
         for p in sorted(params):
             if p in theirs or p in ours:
                 same = (p in theirs and p in ours and _value(theirs[p], ref, rel)
@@ -387,7 +456,7 @@ def audit(ref_sources, port_sources, departures):
             items.append(rel)  # the whole module
             continue
         items += surface(rel, ref.trees[rel])
-        agrees.update(contract(ref, port, rel))
+        agrees.update(contract(ref, port, rel, departures))
     known = set(items) | set(agrees)
     missing = []
     for k in items:
@@ -430,8 +499,6 @@ _SHARD = ("an XLA sharding anchor; a rank holds its blocks explicitly "
 _KEY = "a JAX PRNG key; the port draws from a torch.Generator (generator=)"
 _UNROLL = "unrolls XLA's scanned layer groups for the dry-run's probes; the port's layers loop"
 _CSR = "takes the CSR (indptr, indices); spmm_ref keeps the COO form"
-_SLAB_SIZES = ("the alltoall slab layout's sizes: set by abstract_plan (the dry-run's "
-               "plan) alone, None on a real plan, whose shards hold bucket CSRs")
 _CARD = ("TPU v5e figures; the card's are BF16_FLOPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, "
          "NVLINK_BYTES_PER_S and INTER_NODE_BYTES_PER_S")
 
@@ -470,9 +537,6 @@ DEPARTURES = {
     "core/distributed.py::DistributedPlan.pin_adj": "plan.shards[p].pin_adj (ShardArrays)",
     "core/distributed.py::DistributedPlan.device_arrays":
         "plan.shard_arrays(p, device): one shard's arrays, moved once and kept",
-    "core/distributed.py::DistributedPlan(bucket_tile) default": _SLAB_SIZES,
-    "core/distributed.py::DistributedPlan(num_tiles) default": _SLAB_SIZES,
-    "core/distributed.py::DistributedPlan(slabs_per_block) default": _SLAB_SIZES,
     "core/distributed.py::make_count_fn returns":
         "return_raw=True gives (the rank program, its argument shapes), which the dry-run runs "
         "on meta tensors; the reference's third value is an XLA in-sharding",
@@ -574,10 +638,11 @@ DEPARTURES = {
     "models/factory.py::build_model(impl)": _IMPL,
     "models/factory.py::build_model(unroll)": _UNROLL,
     "models/factory.py::build_model(cast_params) default":
-        "False, where the reference's None casts the >= 2-D weights up front iff a mesh is "
-        "given: cast so, bf16 meshed training drifted past 1e-3 of one device's losses "
-        "(chip_smoke.py phase 20 (b)); True stores the cast for serving, which a trainer "
-        "refuses; float32 meshed runs agree with the reference's (tests/test_torch_mesh_lm.py)",
+        "False, where the reference's None casts the >= 2-D weights at use iff a mesh is given: "
+        "against the reference's own meshed bf16 run at that default (smollm-360m on 2 x 2 "
+        "with FSDP), the port's uncast loss and gradients come closer than its cast ones, "
+        "whose bf16 gathers sum the gradients over data in bf16 "
+        "(tests/test_torch_mesh_lm.py::test_default_cast_is_the_closer_to_the_reference)",
     "models/layers.py::Initializer(key)": _KEY,
     "models/layers.py::Initializer.take": "splits the JAX key; the generator advances as it draws",
     "models/layers.py::Initializer.normal(dtype)": "the caller casts (.to(dtype))",
@@ -593,8 +658,6 @@ DEPARTURES = {
     "models/transformer.py::forward(impl)": _IMPL,
     "models/transformer.py::forward(unroll)": _UNROLL,
     "models/transformer.py::forward(remat)": "Transformer.forward(remat=), under autograd",
-    "models/transformer.py::forward(cast_params)":
-        "build_model(cast_params=True) stores the weights cast when drawn; the same result",
     "roofline/analysis.py::PEAK_FLOPS": _CARD,
     "roofline/analysis.py::HBM_BW": _CARD,
     "roofline/analysis.py::ICI_BW": _CARD,
@@ -636,14 +699,18 @@ def test_the_audit_imports_neither_package():
 
 _REF = {
     "m.py": "def f(a, b=1, dtype=jnp.float32):\n    return a, b, dtype\n\n\n"
-            "class C:\n    x: int = 0\n\n    def g(self, y=2):\n        pass\n\n\nK = 3\n",
+            "class C:\n    x: int = 0\n\n    def g(self, y=2):\n        pass\n\n\nK = 3\n\n\n"
+            "def gen(n):\n    yield n\n\n\n"
+            "@dataclasses.dataclass(frozen=True)\nclass F:\n    u: int\n    v: int\n",
     "launch/count.py": "import argparse\nap = argparse.ArgumentParser()\n"
                        "ap.add_argument('--iters')\n",
     "gone.py": "def h():\n    pass\n",
 }
 _PORT = {
     "m.py": "from .impl import f\n\n\nclass C:\n    x: int = 0\n\n"
-            "    def g(self, y=2):\n        pass\n\n\nK = 3\n",
+            "    def g(self, y=2):\n        pass\n\n\nK = 3\n\n\n"
+            "def gen(n):\n    yield n\n\n\n"
+            "@dataclasses.dataclass(frozen=True)\nclass F:\n    u: int\n    v: int\n",
     "impl.py": "from .consts import B\n\n\ndef f(a, b=B, dtype=torch.float32):\n"
                "    return a, b, dtype\n",
     "consts.py": "B = 1\n",
@@ -696,6 +763,29 @@ SELF_CASES = {
          dict(_DEPS, **{"m.py::f(b) default": "why"}), [], []),
     "stale default departure": (_PORT, dict(_DEPS, **{"m.py::f(b) default": "why"}), [],
                                 ["m.py::f(b) default"]),
+    "swapped parameters": (_edit(_PORT, "impl.py", "b=B, dtype=torch.float32",
+                                 "dtype=torch.float32, b=B"), _DEPS, ["m.py::f order"], []),
+    "swapped fields": (_edit(_PORT, "m.py", "u: int\n    v: int", "v: int\n    u: int"), _DEPS,
+                       ["m.py::F order"], []),
+    "a departure for a swap": (_edit(_PORT, "impl.py", "b=B, dtype=torch.float32",
+                                     "dtype=torch.float32, b=B"),
+                               dict(_DEPS, **{"m.py::f order": "why"}), [], []),
+    "a departed parameter leaves the order": (_edit(_PORT, "impl.py", "b=B, dtype=torch.float32",
+                                                    "dtype=torch.float32, b=B"),
+                                              dict(_DEPS, **{"m.py::f(b)": "why"}), [],
+                                              ["m.py::f(b)"]),
+    "made keyword-only": (_edit(_PORT, "impl.py", "b=B, dtype", "b=B, *, dtype"), _DEPS,
+                          ["m.py::f(dtype) keyword-only"], []),
+    "a generator made a return": (_edit(_PORT, "m.py", "    yield n", "    return iter([n])"),
+                                  _DEPS, ["m.py::gen generator"], []),
+    "a nested yield is not a generator": (
+        _edit(_PORT, "m.py", "    yield n", "    def inner():\n        yield n\n\n"
+                                          "    return inner()"),
+        _DEPS, ["m.py::gen generator"], []),
+    "a frozen dataclass made mutable": (_edit(_PORT, "m.py", "dataclass(frozen=True)",
+                                              "dataclass"), _DEPS, ["m.py::F frozen"], []),
+    "stale order departure": (_PORT, dict(_DEPS, **{"m.py::f order": "why"}), [],
+                              ["m.py::f order"]),
 }
 
 

@@ -22,10 +22,17 @@ bf16 rows are held to.
 import pytest
 import torch
 
-from _train_rows import ROWS, leaf_distances, one_thread, port, reference  # noqa: F401
+from _train_rows import (  # noqa: F401
+    LEAF_FLOOR,
+    LEAF_RATIO,
+    ROWS,
+    leaf_distances,
+    one_thread,
+    port,
+    reference,
+)
 
 BF16_RATIO = 1.5
-LEAF_RATIO, LEAF_FLOOR = 2.0, 1e-3
 
 
 @pytest.mark.parametrize("name", ROWS)
